@@ -1,0 +1,47 @@
+"""tcnn_tpu_torch - the PyTorch/CUDA port of tcnn_tpu for NVIDIA Hopper.
+
+Imports `torch` and never `jax`. Uses the JAX package's JSON "otype"
+configs, flat parameter layout ([network | encoding]) and checkpoint format.
+So far it serves inference of grid + MLP models: the grid forward (K1), the
+fully fused MLP forward (K2) and the fused grid + MLP inference (K3) are
+hand-written CUDA kernels for sm_90a under ``csrc/``, built at first use on
+a CUDA tensor; a CPU tensor takes each kernel's plain PyTorch twin.
+"""
+
+__version__ = "0.1.0"
+
+from .common import (  # noqa: F401
+    Activation,
+    BATCH_SIZE_GRANULARITY,
+    GridType,
+    HashType,
+    InterpolationType,
+)
+from .config import (  # noqa: F401
+    TrainableModel,
+    create_from_config,
+    create_network_with_input_encoding,
+    load_config,
+)
+from .log import (  # noqa: F401
+    LogSeverity,
+    log,
+    log_debug,
+    log_error,
+    log_info,
+    log_success,
+    log_warning,
+    set_log_callback,
+    set_verbose,
+)
+from .models.mlp import CutlassMLP, FullyFusedMLP  # noqa: F401
+from .models.network_with_input_encoding import NetworkWithInputEncoding  # noqa: F401
+from .ops.encodings.grid import GridEncoding  # noqa: F401
+from .registry import (  # noqa: F401
+    create_encoding,
+    create_network,
+    register_encoding,
+    register_network,
+)
+from .trainer import Trainer  # noqa: F401
+from .utils.serialization import params_from_jax  # noqa: F401

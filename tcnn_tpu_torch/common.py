@@ -1,0 +1,102 @@
+"""Core definitions shared across the port.
+
+PyTorch counterpart of ``tcnn_tpu/common.py``: the enums, their
+case-insensitive parsers, the padding constants and the precision policy
+(fp32 master parameters, bf16 compute).
+"""
+
+from __future__ import annotations
+
+import enum
+
+import torch
+
+#: Batch granularity of the reference (common.h:235 uses 256; the JAX
+#: package pads to 128). The port's kernels mask a ragged batch tail, so no
+#: caller has to pad; the constant is kept for API parity.
+BATCH_SIZE_GRANULARITY = 128
+
+#: "Zoom" factor of Squareplus/Softplus activations (K_ACT, common_device.h:100).
+K_ACT = 10.0
+
+#: The width every network output is padded to a multiple of (the reference's
+#: tensor-core fragment width; object.h / fully_fused_mlp.cu:656).
+OUTPUT_WIDTH_ALIGNMENT = 16
+
+#: Maximum number of grid levels (grid_interface.h:84-88).
+MAX_N_LEVELS = 128
+
+#: Network compute precision (master parameters stay fp32); the kernels
+#: take bf16 operands.
+COMPUTE_DTYPE = torch.bfloat16
+
+
+class Activation(enum.Enum):
+    ReLU = "ReLU"
+    LeakyReLU = "LeakyReLU"
+    Exponential = "Exponential"
+    Sine = "Sine"
+    Sigmoid = "Sigmoid"
+    Squareplus = "Squareplus"
+    Softplus = "Softplus"
+    Tanh = "Tanh"
+    NONE = "None"
+
+
+class GridType(enum.Enum):
+    Hash = "Hash"
+    Dense = "Dense"
+    Tiled = "Tiled"
+
+
+class HashType(enum.Enum):
+    Prime = "Prime"
+    CoherentPrime = "CoherentPrime"
+    ReversedPrime = "ReversedPrime"
+    Rng = "Rng"
+
+
+class InterpolationType(enum.Enum):
+    Nearest = "Nearest"
+    Linear = "Linear"
+    Smoothstep = "Smoothstep"
+
+
+def _parse_enum(enum_cls, value, what):
+    if isinstance(value, enum_cls):
+        return value
+    if isinstance(value, str):
+        for member in enum_cls:
+            if member.value.lower() == value.lower():
+                return member
+    raise ValueError(f"Invalid {what}: {value!r}")
+
+
+def parse_activation(value) -> Activation:
+    return _parse_enum(Activation, value, "activation")
+
+
+def parse_grid_type(value) -> GridType:
+    return _parse_enum(GridType, value, "grid type")
+
+
+def parse_hash_type(value) -> HashType:
+    return _parse_enum(HashType, value, "hash type")
+
+
+def parse_interpolation_type(value) -> InterpolationType:
+    return _parse_enum(InterpolationType, value, "interpolation type")
+
+
+def div_round_up(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def next_multiple(a: int, b: int) -> int:
+    return div_round_up(a, b) * b
+
+
+def smoothstep(v):
+    """val^2 (3 - 2 val) - common_device.h:802-804, evaluated as
+    (v*v) * (3 - 2*v) like the JAX package."""
+    return v * v * (3.0 - 2.0 * v)

@@ -1,0 +1,59 @@
+"""Encoding -> Network composition (counterpart of
+``tcnn_tpu/models/network_with_input_encoding.py``).
+
+The encoding's padded output width is aligned to the network's minimum
+alignment (network_with_input_encoding.h:46-53), and the flat parameter
+vector is laid out [network params | encoding params] (:115-130).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.encodings.base import Encoding
+from .base import Network
+
+
+class NetworkWithInputEncoding(Network):
+    def __init__(self, encoding: Encoding, network_factory):
+        """`network_factory(encoding) -> Network` builds the network once the
+        encoding's padded width is aligned to the network's demands."""
+        self.encoding = encoding
+        probe = network_factory(encoding)
+        encoding.set_alignment(probe.minimum_alignment)
+        self.network = network_factory(encoding)
+        super().__init__(encoding.n_dims_to_encode, self.network.n_output_dims)
+
+    @property
+    def padded_output_width(self) -> int:
+        return self.network.padded_output_width
+
+    @property
+    def n_params(self) -> int:
+        return self.network.n_params + self.encoding.n_params
+
+    def layer_sizes(self):
+        return self.network.layer_sizes() + self.encoding.layer_sizes()
+
+    def split_params(self, params):
+        n_net = self.network.n_params
+        return params[:n_net], params[n_net:]
+
+    def init_params(self, generator: torch.Generator) -> torch.Tensor:
+        net = self.network.init_params(generator)
+        return torch.cat([net, self.encoding.init_params(generator)])
+
+    def apply(self, params, x, *, max_level=None):
+        """[B, D] -> [B, padded_output_width] bf16: the encoding (K1) into the
+        network (K2, or the matmul chain)."""
+        net_p, enc_p = self.split_params(params)
+        kwargs = {} if max_level is None else {"max_level": max_level}
+        enc_out = self.encoding.apply(enc_p, x, **kwargs)
+        return self.network.apply(net_p, enc_out)
+
+    def hyperparams(self):
+        return {
+            "otype": "NetworkWithInputEncoding",
+            "encoding": self.encoding.hyperparams(),
+            "network": self.network.hyperparams(),
+        }

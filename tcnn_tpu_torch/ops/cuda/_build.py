@@ -1,0 +1,107 @@
+"""Builds and loads the port's CUDA kernels.
+
+All sources under ``tcnn_tpu_torch/csrc/`` are compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes``. The build happens at first use, never at import, into
+``build/tcnn_tpu_torch/`` beside the package; the library's name carries a
+hash of the sources and flags, so an edited source is rebuilt. An
+``fcntl.flock`` serialises concurrent first uses and the finished library is
+moved into place with ``os.replace``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "tcnn_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lib = None
+#: Seconds the last `library()` call spent building (0.0 when the library
+#: was already built).
+build_seconds = 0.0
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path() -> pathlib.Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libtcnn_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    path = library_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not path.exists():
+                t0 = time.perf_counter()
+                cu, _ = _sources()
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                if res.returncode != 0:
+                    os.unlink(tmp)
+                    raise RuntimeError(
+                        f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                        f"{res.stdout}\n{res.stderr}"
+                    )
+                os.replace(tmp, path)
+                build_seconds = time.perf_counter() - t0
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    lib = ctypes.CDLL(str(path))
+    lib.tcnn_error_string.argtypes = [ctypes.c_int]
+    lib.tcnn_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def function(name: str, argtypes):
+    """Entry point `name` of the library, returning a cudaError_t as int."""
+    fn = getattr(library(), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        msg = library().tcnn_error_string(rc).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,199 @@
+"""Multiresolution (hash/tiled/dense) grid encoding - Instant-NGP.
+
+Counterpart of ``tcnn_tpu/ops/encodings/grid.py`` (the reference's
+GridEncodingTemplated, grid.h:652-1210): the same offset table, uint32
+index math with wraparound, +0.5 level staggering, hash-only-when-the-level-
+overflows rule and max_level mask. The forward runs through kernel K1 on a
+CUDA tensor and through its plain twin on a CPU tensor
+(``ops/cuda/grid_kernel.py``); both read a bf16 copy of the table, as the
+JAX package's Pallas kernel does.
+
+Stochastic interpolation only changes the table gradient (grid.h:284-299);
+it is parsed and kept for the training port.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ...common import (
+    GridType,
+    HashType,
+    InterpolationType,
+    MAX_N_LEVELS,
+    next_multiple,
+)
+from ..cuda import grid_kernel
+from .base import Encoding
+
+
+def grid_scale(level: int, log2_per_level_scale: float, base_resolution: int) -> float:
+    """exp2(level*log2(s)) * base - 1 (common_device.h:709-714)."""
+    return float(np.exp2(level * log2_per_level_scale) * base_resolution - 1.0)
+
+
+def grid_resolution(scale: float) -> int:
+    return int(np.ceil(scale)) + 1
+
+
+class GridEncoding(Encoding):
+    """Trainable multiresolution feature grid (hash / tiled / dense)."""
+
+    pad_value = 0.0  # grid zero-pads (grid.h:749-759)
+
+    def __init__(
+        self,
+        n_dims_to_encode: int,
+        n_levels: int = 16,
+        n_features_per_level: int = 2,
+        log2_hashmap_size: int = 19,
+        base_resolution: int = 16,
+        per_level_scale: float = 2.0,
+        grid_type: GridType = GridType.Hash,
+        hash_type: HashType = HashType.CoherentPrime,
+        interpolation: InterpolationType = InterpolationType.Linear,
+        stochastic_interpolation: bool = False,
+        max_level: float | None = None,
+    ):
+        if n_dims_to_encode not in (2, 3, 4):
+            raise ValueError("GridEncoding supports 2, 3, or 4 input dims")
+        if n_features_per_level not in (1, 2, 4, 8):
+            raise ValueError("n_features_per_level must be 1, 2, 4, or 8")
+        if n_levels > MAX_N_LEVELS:
+            raise ValueError(f"n_levels must be <= {MAX_N_LEVELS}")
+        super().__init__(n_dims_to_encode)
+
+        self.n_levels = int(n_levels)
+        self.n_features_per_level = int(n_features_per_level)
+        self.log2_hashmap_size = int(log2_hashmap_size)
+        self.base_resolution = int(base_resolution)
+        self.per_level_scale = float(per_level_scale)
+        self.grid_type = grid_type
+        self.hash_type = hash_type
+        self.interpolation = interpolation
+        self.stochastic_interpolation = bool(stochastic_interpolation)
+        #: coarse-to-fine clamp in [0, 1]; None = no clamping
+        #: (grid_interface.h:101-123)
+        self.max_level = max_level
+
+        # Offset table (grid.h:685-730): per-level sizes, 8-aligned, capped by
+        # grid type; all in units of feature *vectors* (not scalars).
+        log2_scale = math.log2(self.per_level_scale)
+        max_params = 2**31  # uint32_max / 2
+        offsets, sizes, resolutions, scales = [], [], [], []
+        offset = 0
+        d = self.n_dims_to_encode
+        for lvl in range(self.n_levels):
+            s = grid_scale(lvl, log2_scale, self.base_resolution)
+            res = grid_resolution(s)
+            params_in_level = max_params if float(res) ** d > max_params else res**d
+            params_in_level = next_multiple(params_in_level, 8)
+            if grid_type == GridType.Tiled:
+                params_in_level = min(params_in_level, self.base_resolution**d)
+            elif grid_type == GridType.Hash:
+                params_in_level = min(params_in_level, 1 << self.log2_hashmap_size)
+            offsets.append(offset)
+            sizes.append(params_in_level)
+            resolutions.append(res)
+            scales.append(s)
+            offset += params_in_level
+
+        self._offsets = np.asarray(offsets, dtype=np.uint32)
+        self._sizes = np.asarray(sizes, dtype=np.uint32)
+        self._resolutions = np.asarray(resolutions, dtype=np.uint32)
+        self._scales = np.asarray(scales, dtype=np.float32)
+        self._total_table_rows = offset
+
+    @functools.cached_property
+    def plan(self) -> grid_kernel.GridPlan:
+        """The explicit layout K1 and K3 run from."""
+        return grid_kernel.GridPlan(self)
+
+    # -- shape / params -----------------------------------------------------
+    @property
+    def n_output_dims(self) -> int:
+        return self.n_levels * self.n_features_per_level
+
+    @property
+    def n_params(self) -> int:
+        return self._total_table_rows * self.n_features_per_level
+
+    def init_params(self, generator: torch.Generator) -> torch.Tensor:
+        # U(-1e-4, 1e-4) (grid.h:1059-1062)
+        return torch.empty(self.n_params, dtype=torch.float32).uniform_(
+            -1e-4, 1e-4, generator=generator
+        )
+
+    # -- indexing -----------------------------------------------------------
+    def _grid_indices(self, cells_u32: torch.Tensor) -> torch.Tensor:
+        """Per-level table row index for integer grid cells.
+
+        cells_u32: int64 [..., L, C, D] holding uint32 cells. Returns int64
+        [..., L, C] row index *within* each level's table (before the level
+        offset), as grid_index (common_device.h:690-707) computes it,
+        including the uint32-wrapping stride loop and its early exit."""
+        d = self.n_dims_to_encode
+        strides, use_hash = [], []
+        for size, res in zip(self._sizes, self._resolutions):
+            s, final = grid_kernel.level_strides(int(size), int(res), d)
+            strides.append(s)
+            use_hash.append(self.grid_type == GridType.Hash and int(size) < final)
+        dev = cells_u32.device
+        return grid_kernel.index_within_level(
+            cells_u32,
+            torch.tensor(strides, dtype=torch.int64, device=dev),
+            torch.tensor(use_hash, dtype=torch.bool, device=dev),
+            grid_kernel.hash_factors(self.hash_type, d) if any(use_hash) else None,
+            torch.tensor(self._sizes.astype(np.int64), device=dev),
+        )
+
+    def active_levels(self, max_level=None) -> int:
+        """Levels kept by the max_level clamp: level l survives when
+        l < max_level * L + 1e-3, in float32 (grid.h:69-92)."""
+        ml = max_level if max_level is not None else self.max_level
+        L = self.n_levels
+        if ml is None:
+            return L
+        bound = np.float32(ml) * np.float32(L) + np.float32(1e-3)
+        return int(np.sum(np.arange(L, dtype=np.float32) < bound))
+
+    # -- forward ------------------------------------------------------------
+    def _encode(self, params, x, out_width: int, max_level):
+        table = params.reshape(self._total_table_rows, self.n_features_per_level)
+        table = table.to(torch.bfloat16).contiguous()
+        return grid_kernel.grid_encode(
+            self.plan, table, x, out_width, self.active_levels(max_level)
+        )
+
+    def apply_unpadded(self, params, x, *, max_level=None):
+        """x: [B, D] fp32 in (roughly) [0, 1]^D -> [B, L*F] bf16, level-major,
+        feature-minor (grid.h:146-148)."""
+        return self._encode(params, x, self.n_output_dims, max_level)
+
+    def apply(self, params, x, *, max_level=None):
+        """Encode straight into the padded width: the kernel writes the zero
+        padding columns itself (grid.py:445-449)."""
+        return self._encode(params, x, self.padded_output_width, max_level)
+
+    # -- config echo ----------------------------------------------------------
+    def hyperparams(self):
+        return {
+            "otype": "Grid",
+            "type": self.grid_type.value,
+            "n_levels": self.n_levels,
+            "n_features_per_level": self.n_features_per_level,
+            "log2_hashmap_size": self.log2_hashmap_size,
+            "base_resolution": self.base_resolution,
+            "per_level_scale": self.per_level_scale,
+            "interpolation": self.interpolation.value,
+            "hash": self.hash_type.value,
+            "stochastic_interpolation": self.stochastic_interpolation,
+        }
+
+    def update_hyperparams(self, params: dict) -> None:
+        if "max_level" in params:
+            self.max_level = params["max_level"]

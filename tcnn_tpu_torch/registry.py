@@ -1,0 +1,149 @@
+"""JSON "otype" registries + factories (counterpart of
+``tcnn_tpu/registry.py``; the reference's src/encoding.cu:56-150 and
+src/network.cu:70-130). Keys and otypes match case-insensitively like the
+reference's ci_hashmap (common_host.h:242-246).
+
+The port registers the Grid family of encodings and the MLP networks so
+far; any other otype raises ValueError naming it as not ported yet. Loss and
+optimizer blocks stay plain config dicts until their port.
+"""
+
+from __future__ import annotations
+
+import math
+
+from .common import (
+    GridType,
+    parse_activation,
+    parse_grid_type,
+    parse_hash_type,
+    parse_interpolation_type,
+)
+from .models.mlp import CutlassMLP, FullyFusedMLP
+from .ops.encodings.base import Encoding
+from .ops.encodings.grid import GridEncoding
+
+
+def cfg_get(config: dict, key: str, default=None):
+    """Case-insensitive config lookup (ci_hashmap, common_host.h:242-246)."""
+    if key in config:
+        return config[key]
+    kl = key.lower()
+    for k, v in config.items():
+        if isinstance(k, str) and k.lower() == kl:
+            return v
+    return default
+
+
+def cfg_has(config: dict, key: str) -> bool:
+    sentinel = object()
+    return cfg_get(config, key, sentinel) is not sentinel
+
+
+# ---------------------------------------------------------------------------
+# Encodings
+# ---------------------------------------------------------------------------
+
+_ENCODING_FACTORIES: dict = {}
+
+
+def register_encoding(name: str, factory) -> None:
+    """factory(n_dims_to_encode, config_dict) -> Encoding (encoding.cu:138-141)."""
+    _ENCODING_FACTORIES[name.lower()] = factory
+
+
+def create_encoding(n_dims_to_encode: int, encoding: dict, alignment: int = 1) -> Encoding:
+    """create_encoding (encoding.cu:144-160); default otype is OneBlob."""
+    name = cfg_get(encoding, "otype", "OneBlob")
+    factory = _ENCODING_FACTORIES.get(str(name).lower())
+    if factory is None:
+        raise ValueError(f"Encoding '{name}' is not ported to tcnn_tpu_torch yet")
+    enc = factory(int(n_dims_to_encode), encoding)
+    if alignment > 1:
+        enc.set_alignment(alignment)
+    return enc
+
+
+def _make_grid(n_dims, cfg):
+    otype = str(cfg_get(cfg, "otype", "Grid")).lower()
+    default_type = {"tiledgrid": "Tiled", "densegrid": "Dense"}.get(otype, "Hash")  # grid.h:1147
+    grid_type = parse_grid_type(cfg_get(cfg, "type", default_type))
+    n_features_per_level = int(cfg_get(cfg, "n_features_per_level", 2))
+    if cfg_has(cfg, "n_features") or cfg_has(cfg, "n_grid_features"):
+        if cfg_has(cfg, "n_levels"):
+            raise ValueError(
+                "GridEncoding: may not specify n_features and n_levels simultaneously"
+            )
+        n_features = int(cfg_get(cfg, "n_features", cfg_get(cfg, "n_grid_features")))
+        n_levels = n_features // n_features_per_level
+    else:
+        n_levels = int(cfg_get(cfg, "n_levels", 16))
+    base_resolution = int(cfg_get(cfg, "base_resolution", 16))
+    # grid.h:1167: Dense default scale targets resolution 256 at the last level
+    if grid_type == GridType.Dense and n_levels > 1:
+        default_scale = math.exp(math.log(256.0 / base_resolution) / (n_levels - 1))
+    else:
+        default_scale = 2.0
+    return GridEncoding(
+        n_dims,
+        n_levels=n_levels,
+        n_features_per_level=n_features_per_level,
+        log2_hashmap_size=int(cfg_get(cfg, "log2_hashmap_size", 19)),
+        base_resolution=base_resolution,
+        per_level_scale=float(cfg_get(cfg, "per_level_scale", default_scale)),
+        grid_type=grid_type,
+        hash_type=parse_hash_type(cfg_get(cfg, "hash", "CoherentPrime")),
+        interpolation=parse_interpolation_type(cfg_get(cfg, "interpolation", "Linear")),
+        stochastic_interpolation=bool(cfg_get(cfg, "stochastic_interpolation", False)),
+    )
+
+
+for _name in ("Grid", "HashGrid", "TiledGrid", "DenseGrid"):
+    register_encoding(_name, _make_grid)
+
+# ---------------------------------------------------------------------------
+# Networks
+# ---------------------------------------------------------------------------
+
+_NETWORK_FACTORIES: dict = {}
+
+
+def register_network(name: str, factory) -> None:
+    """factory(input_width, n_output_dims, config) -> Network."""
+    _NETWORK_FACTORIES[name.lower()] = factory
+
+
+def _select_network(network: dict) -> str:
+    """network.cu:56-74: 'MLP' resolves to CutlassMLP."""
+    otype = str(cfg_get(network, "otype", "MLP"))
+    if otype.lower() == "mlp":
+        return "cutlassmlp"
+    return otype.lower()
+
+
+def minimum_alignment(network: dict) -> int:
+    """network.cu:76-95 - input-width alignment the network demands (16)."""
+    return 16
+
+
+def create_network(input_width: int, n_output_dims: int, network: dict):
+    name = _select_network(network)
+    factory = _NETWORK_FACTORIES.get(name)
+    if factory is None:
+        raise ValueError(
+            f"Network '{cfg_get(network, 'otype')}' is not ported to tcnn_tpu_torch yet"
+        )
+    return factory(int(input_width), int(n_output_dims), network)
+
+
+def _mlp_args(cfg):
+    return dict(
+        n_neurons=int(cfg_get(cfg, "n_neurons", 128)),
+        n_hidden_layers=int(cfg_get(cfg, "n_hidden_layers", 5)),
+        activation=parse_activation(cfg_get(cfg, "activation", "ReLU")),
+        output_activation=parse_activation(cfg_get(cfg, "output_activation", "None")),
+    )
+
+
+register_network("FullyFusedMLP", lambda i, o, c: FullyFusedMLP(i, o, **_mlp_args(c)))
+register_network("CutlassMLP", lambda i, o, c: CutlassMLP(i, o, **_mlp_args(c)))
