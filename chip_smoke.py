@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the tcnn_tpu_torch inference path once on one CUDA GPU.
+"""Drive the tcnn_tpu_torch inference and training paths on one CUDA GPU.
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
   1. environment: torch version, the card, `nvidia-smi` name and power limit;
-  2. build: the kernels of tcnn_tpu_torch/csrc/ built with nvcc for sm_90a;
-  3. each kernel (K1 grid forward, K2 fused MLP, K3 fused inference) against
-     its plain PyTorch twin on the card at config_hash shapes, B = 2^18,
-     2^18 - 37 and 1, and K2 also at width 128 with 5 hidden layers;
-  4. the slice: `create_from_config` on data/config_hash.json at full
-     width, requests through `trainer.inference` (K3) checked against the
-     composed `model.apply` (K1 + K2) and against the plain twins on the CPU,
-     the launch counters of that run, and a save/load round trip;
-  5. times on the card (CUDA events) of each kernel and its twin at B = 2^18
-     and of `trainer.inference` per call.
+  2. build: the kernels of tcnn_tpu_torch/csrc/ built with nvcc for sm_90a,
+     one nvcc per source, in parallel;
+  3. each kernel against its plain PyTorch twin on the card at config_hash
+     shapes, B = 2^18, 2^18 - 37 and 1: K1 grid forward, K2 fused MLP
+     forward (also at width 128 with 5 hidden layers), K3 fused inference,
+     K4 grid backward, K5 fused MLP backward (also 128x5), K6 fused train
+     step (also with a pdf, output noise and an external dL/doutput), each
+     gradient bound beside a control of lower precision that it must
+     reject; then, at B = 2^16 - 37, K6 on all nine losses and K4, K5 and K6
+     on every activation but Sine, Smoothstep and Nearest interpolation and
+     max_level;
+  4. the inference slice: `create_from_config` on data/config_hash.json at
+     full width, requests through `trainer.inference` (K3) checked against
+     the composed `model.apply` (K1 + K2) and the plain twins on the CPU, the
+     launch counters of that run, and a save/load round trip;
+  5. the training slice: `training_step` at B = 2^18 on targets sampled on
+     the card from a synthetic 1024^2 image, through K6 only (counters), the
+     loss falling and the holdout PSNR of `trainer.inference` after it; the
+     composed route (K1, K2, K5, K4) on a second model against K6's
+     gradient; a save/load with the optimizer state and one more step on
+     each copy;
+  6. times on the card (CUDA events) of each kernel and its twin at B = 2^18,
+     of `trainer.inference` per call and of `training_step` on both routes.
 Then a line with every kernel, the `nvidia-smi` line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; it also exits non-zero when no GPU is present.
@@ -44,6 +57,62 @@ K1_REL = 2.0**-7
 #: can flip the bf16 rounding of a hidden unit; allowed: 2^-5 of the
 #: output's largest magnitude (at least 2^-5 absolute).
 MLP_REL = 2.0**-5
+#: Gradients are held against their twins by norm-relative error, per part
+#: (a train-step gradient splits into its "weights" and "table" parts),
+#: each part under its own bound. Each bound is set from the kernel's
+#: readings against its twin (H100 80GB HBM3, 700 W; the inputs the main
+#: path gives it: the loss gradient, not random cotangents) with about 3x
+#: room or more, and lies below what a kernel of lower precision reads: a
+#: control in the same run, the twin at that lower precision, must break
+#: it.
+#:
+#: K4 adds the same bf16-rounded contributions as its twin, with f32
+#: atomics in a run-dependent order: readings up to 7.0e-8.
+GRID_BWD_REL = 1e-6
+#: K5 sums on the tensor cores in its own order, which can flip the bf16
+#: rounding of a hidden unit or of g at a layer boundary, as its twin rounds
+#: them. Readings: gW up to 1.8e-6 at config_hash and 1.0e-5 at 128x5; gx,
+#: itself bf16, up to 3.1e-4 and 2.2e-3. Control: the twin's gW rounded to
+#: bf16 (partials kept in bf16, not f32) reads 1.6e-3 to 1.7e-3.
+K5_REL = {"config_hash": {"gW": 1e-4, "gx": 1e-3}, "128x5": {"gW": 1e-4, "gx": 6e-3}}
+#: K6 against its twin: the forward's bf16 roundings can flip as in K2, the
+#: split-bf16 backward carries g to 16 significant bits where the twin keeps
+#: f32, and the atomics add in their own order. Readings over ten inputs:
+#: loss up to 1.9e-7 relative; weights 3.7e-6 to 5.7e-6; table 1.6e-5 to
+#: 6.9e-5 (both round each corner's contribution to bf16, and g's 2^-16
+#: difference flips a few of those roundings, more where a sample's
+#: gradient is large). Control: the composed route's precision, g rounded to
+#: bf16 at the loss and at every layer, reads 9e-6 to 1.6e-5 on the weights
+#: (sums over 2^18 rows average its roundings away) and 4.3e-4 to 5.1e-4 on
+#: the table, which is the part that tells the two apart; a K6 built that
+#: way read 4.3e-4 there and failed.
+TRAIN_LOSS_RTOL = 1e-5
+K6_REL = {"weights": 2e-5, "table": 2e-4}
+#: The composed route (K1 K2 K5 K4) against K6 on the same step of the
+#: training phase: it rounds the loss gradient and every layer's g to bf16
+#: where K6 keeps them at f32 precision. Readings: weights 1.5e-4 to
+#: 2.3e-4, table 2.3e-3.
+ROUTE_REL = {"weights": 1e-3, "table": 8e-3}
+#: Coverage of K4, K5 and K6 beyond the main path, at a batch that is not a
+#: tile multiple: every loss, every activation but Sine, Smoothstep and
+#: Nearest interpolation, and max_level. It looks for a wrong branch, whose
+#: error is of order 1. Its targets lie on either side of the prediction,
+#: so the residuals' signs cancel in the sums and raise the relative error
+#: (readings up to 1.0e-3, through an Exponential output); K4 keeps
+#: GRID_BWD_REL.
+B_COVER = (1 << 16) - 37
+COVER_REL = 5e-3
+#: Training phase: steps at B = 2^18; the loss must fall by at least
+#: LOSS_FALL (first step over the mean of the last ten) and the holdout PSNR
+#: of trainer.inference must reach PSNR_MIN dB. Both written before the
+#: first run on the card, from a CPU rehearsal at B = 2^16 (980x, 22.6 dB).
+N_TRAIN = 100
+LOSS_FALL = 100.0
+PSNR_MIN = 20.0
+#: Two copies of a trained state, one step each: the steps (new - old
+#: params) agree to norm-relative RESUME_REL (only the atomics' order
+#: differs; readings 2.3e-9 to 6.6e-8).
+RESUME_REL = 1e-6
 
 
 def emit(obj) -> None:
@@ -78,6 +147,67 @@ def compare(name, got, want, rel_ulp=None, rel_max=None):
     return err
 
 
+def norm_errors(got, want, bounds, split=None):
+    """Norm-relative error of `got` against `want` for each part named in
+    `bounds` ("all": the whole tensor; a flat train-step gradient splits
+    at `split` into "weights" and "table"), and the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    g, w = got.double().reshape(-1), want.double().reshape(-1)
+    parts = {"all": slice(None), "weights": slice(0, split), "table": slice(split, None)}
+    rel = {p: float(torch.linalg.vector_norm(g[parts[p]] - w[parts[p]])
+                    / torch.linalg.vector_norm(w[parts[p]]).clamp_min(1e-30)) for p in bounds}
+    return rel, float((g - w).abs().max()) if g.numel() else 0.0
+
+
+def compare_norm(name, got, want, bounds, split=None):
+    """A gradient against its twin's: each part's norm-relative error under
+    its bound (`bounds`: part -> bound, or one bound for the whole)."""
+    import torch
+
+    if not isinstance(bounds, dict):
+        bounds = {"all": bounds}
+    check(got.shape == want.shape and got.dtype == want.dtype, f"{name}: shape/dtype")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    rel, err = norm_errors(got, want, bounds, split)
+    ok = all(rel[p] <= b for p, b in bounds.items())
+    emit({"phase": "compare", "name": name, "shape": list(got.shape), "norm_rel_err": rel,
+          "max_abs_err": err, "max_abs": float(want.abs().max()), "limit": bounds, "ok": ok})
+    check(ok, f"{name}: kernel disagrees with its plain twin (norm-relative {rel})")
+    torch.cuda.synchronize()
+    return err
+
+
+def control(name, lower, want, bounds, split=None):
+    """A twin of lower precision against the twin: the same bounds must
+    reject it, or they could not tell such a kernel from the right one."""
+    if not isinstance(bounds, dict):
+        bounds = {"all": bounds}
+    rel, _ = norm_errors(lower, want, bounds, split)
+    rejected = any(rel[p] > b for p, b in bounds.items())
+    emit({"phase": "control", "name": name, "norm_rel_err": rel, "limit": bounds,
+          "rejected": rejected})
+    check(rejected, f"control {name}: the bounds {bounds} pass a lower-precision twin ({rel})")
+
+
+def counters():
+    """Every kernel's launch counter, by name."""
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
+
+    return {"K1": grid_kernel.LAUNCHES, "K2": mlp_kernel.LAUNCHES, "K3": train_kernel.LAUNCHES,
+            "K4": grid_kernel.BWD_LAUNCHES, "K5": mlp_kernel.BWD_LAUNCHES,
+            "K6": train_kernel.TRAIN_LAUNCHES}
+
+
+def reset_counters():
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
+
+    grid_kernel.LAUNCHES = grid_kernel.BWD_LAUNCHES = 0
+    mlp_kernel.LAUNCHES = mlp_kernel.BWD_LAUNCHES = 0
+    train_kernel.LAUNCHES = train_kernel.TRAIN_LAUNCHES = 0
+
+
 def cuda_ms(fn, iters):
     import torch
 
@@ -104,6 +234,101 @@ def random_params(trainer, gen):
     return p
 
 
+#: (label, encoding keys, network keys, max_level, losses) of config_hash
+#: variants for the coverage phase. Every activation but Sine is a hidden
+#: or an output activation once; CrossEntropy and Variance need a positive
+#: prediction, which Sigmoid gives.
+COVER_CASES = (
+    ("ReLU/None", {}, {}, None,
+     ("L2", "RelativeL2", "RelativeL2Luminance", "L1", "RelativeL1", "MAPE", "SMAPE")),
+    ("Tanh/Sigmoid", {}, {"activation": "Tanh", "output_activation": "Sigmoid"}, None,
+     ("CrossEntropy", "Variance", "L2")),
+    ("LeakyReLU/Exponential", {}, {"activation": "LeakyReLU", "output_activation": "Exponential"},
+     None, ("RelativeL1",)),
+    ("Softplus/Squareplus", {}, {"activation": "Softplus", "output_activation": "Squareplus"},
+     None, ("MAPE",)),
+    ("Sigmoid/Tanh", {}, {"activation": "Sigmoid", "output_activation": "Tanh"}, None,
+     ("SMAPE",)),
+    ("Exponential/LeakyReLU", {}, {"activation": "Exponential", "output_activation": "LeakyReLU"},
+     None, ("RelativeL2Luminance",)),
+    ("Smoothstep", {"interpolation": "Smoothstep"}, {}, None, ("RelativeL2",)),
+    ("Nearest", {"interpolation": "Nearest"}, {}, None, ("RelativeL2",)),
+    ("max_level 0.5", {}, {}, 0.5, ("RelativeL2",)),
+)
+
+
+def loss_cotangent(dims, weights, enc, loss, targets, loss_scale, pdf=None, noise=None):
+    """The cotangent the composed route hands K5: the loss gradient at the
+    twin's prediction, times loss_scale, in bf16 [B, out_w]."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import mlp_kernel
+
+    pred = mlp_kernel._mlp_forward_plain(dims, weights, enc).float()
+    if noise is not None:
+        pred = pred + noise
+    return (loss.value_and_grad_fn(pred, targets, pdf)[1] * loss_scale).to(torch.bfloat16)
+
+
+def composed_twin(prep, n_active, loss, x, targets, loss_scale, pdf=None, noise=None,
+                  ext_dl=False):
+    """The flat train-step gradient at the composed route's precision, from
+    the twins: the loss gradient and every layer's g rounded to bf16 (K5's
+    twin), then the table gradient (K4's twin)."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel
+
+    enc = grid_kernel._grid_encode_plain(prep.plan, prep.table, x, prep.dims.in_w, n_active)
+    gout = (targets.to(torch.bfloat16) if ext_dl else
+            loss_cotangent(prep.dims, prep.weights, enc, loss, targets, loss_scale, pdf, noise))
+    gw, gx = mlp_kernel._mlp_backward_plain(prep.dims, prep.weights, enc, gout)
+    return torch.cat([gw, grid_kernel._grid_backward_plain(prep.plan, x, gx, n_active).reshape(-1)])
+
+
+def check_train_step(name, net, loss, params, x, targets, loss_scale, bounds, control_too=False,
+                     **kw):
+    """K6 against its twin on one step: the loss sum within TRAIN_LOSS_RTOL,
+    the gradient's weights and table parts within `bounds`; with
+    `control_too`, the composed route's precision must break them. Returns
+    the max abs error of the gradient."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import train_kernel
+
+    prep = train_kernel.prepare_forward(net, params)
+    n_active = net.encoding.active_levels()
+    kl, kg = train_kernel.fused_train_grads(net, loss, params, x, targets, loss_scale, **kw)
+    pl, pg = train_kernel._fused_train_grads_plain(
+        prep.plan, prep.dims, n_active, prep.table, prep.weights, loss, x, targets, loss_scale,
+        kw.get("pdf"), kw.get("noise"), kw.get("ext_dl", False))
+    torch.cuda.synchronize()
+    kl, pl = float(kl), float(pl)
+    loss_ok = abs(kl - pl) <= TRAIN_LOSS_RTOL * abs(pl)
+    emit({"phase": "compare", "name": f"K6 fused_train loss {name}", "kernel": kl, "plain": pl,
+          "rtol": TRAIN_LOSS_RTOL, "ok": loss_ok})
+    check(loss_ok, f"K6 fused_train loss {name}: {kl} vs {pl}")
+    split = prep.dims.n_weights
+    err = compare_norm(f"K6 fused_train grads {name}", kg, pg, bounds, split)
+    if control_too:
+        lower = composed_twin(prep, n_active, loss, x, targets, loss_scale, **kw)
+        control(f"K6 {name}, g in bf16", lower, pg, bounds, split)
+    return err
+
+
+def check_mlp_bwd(name, dims, weights, enc, gout, bounds, control_too=False):
+    """K5 against its twin: gW and gx within `bounds` ({"gW": .., "gx": ..});
+    with `control_too`, the twin's gW rounded to bf16 must break the gW
+    bound. Returns the max abs error."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import mlp_kernel
+
+    gw, gx = mlp_kernel.mlp_backward(dims, weights, enc, gout)
+    pw, px = mlp_kernel._mlp_backward_plain(dims, weights, enc, gout)
+    err = max(compare_norm(name + " gW", gw, pw, bounds["gW"]),
+              compare_norm(name + " gx", gx.float(), px.float(), bounds["gx"]))
+    if control_too:
+        control(name + " gW in bf16", pw.to(torch.bfloat16).float(), pw, bounds["gW"])
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -112,8 +337,9 @@ def main() -> int:
         return 1
 
     import tcnn_tpu_torch as tt
-    from tcnn_tpu_torch.ops.cuda import _build, grid_kernel, mlp_kernel, train_kernel
     from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.ops.cuda import _build, grid_kernel, mlp_kernel, train_kernel
+    from tcnn_tpu_torch.utils.image import psnr, sample_image, synthetic_image
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -143,15 +369,16 @@ def main() -> int:
     tr.set_params(random_params(tr, gen))
     prep = train_kernel.prepare_forward(net, tr.params)
     plan, dims = prep.plan, prep.dims
+    L = plan.n_levels
     enc_w = net.encoding.padded_output_width
-    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    errs = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0.0)
     dims128 = mlp_kernel.MlpDims(enc_w, 128, 5, 16, Activation.ReLU, Activation.NONE)
     w128 = (torch.rand(dims128.n_weights, generator=gen) * 0.2 - 0.1).to(torch.bfloat16).to(dev)
     for B in BATCHES:
         x = torch.rand(B, 2, generator=gen).to(dev)
-        enc_plain = grid_kernel._grid_encode_plain(plan, prep.table, x, enc_w, plan.n_levels)
+        enc_plain = grid_kernel._grid_encode_plain(plan, prep.table, x, enc_w, L)
         errs["K1"] = max(errs["K1"], compare(
-            "K1 grid_fwd", grid_kernel.grid_encode(plan, prep.table, x, enc_w, plan.n_levels),
+            "K1 grid_fwd", grid_kernel.grid_encode(plan, prep.table, x, enc_w, L),
             enc_plain, rel_ulp=K1_REL))
         errs["K2"] = max(errs["K2"], compare(
             "K2 mlp_fwd", mlp_kernel.mlp_forward(dims, prep.weights, enc_plain),
@@ -162,13 +389,75 @@ def main() -> int:
         errs["K3"] = max(errs["K3"], compare(
             "K3 fused_infer", train_kernel.fused_forward_prepared(prep, x),
             train_kernel._fused_forward_plain(prep, x), rel_max=MLP_REL))
-        torch.cuda.synchronize()
 
-    # 4. the slice, through the entry points a user calls
-    for mod in (grid_kernel, mlp_kernel, train_kernel):
-        mod.LAUNCHES = 0
-    model = tt.create_from_config(2, 3, tt.load_config(str(ROOT / "data" / "config_hash.json")),
-                                  seed=SEED + 1, device="cuda")
+        gy = torch.randn(B, enc_w, generator=gen).to(torch.bfloat16).to(dev)
+        errs["K4"] = max(errs["K4"], compare_norm(
+            "K4 grid_bwd", grid_kernel.grid_backward(plan, x, gy, L),
+            grid_kernel._grid_backward_plain(plan, x, gy, L), GRID_BWD_REL))
+
+        t = torch.rand(B, 3, generator=gen).to(dev)
+        # K5 takes the cotangent the composed route hands it: the loss gradient
+        for shape, d, w in (("config_hash", dims, prep.weights), ("128x5", dims128, w128)):
+            gout = loss_cotangent(d, w, enc_plain, tr.loss_fn, t, tr.loss_scale)
+            errs["K5"] = max(errs["K5"], check_mlp_bwd(
+                f"K5 mlp_bwd {shape} B={B}", d, w, enc_plain, gout, K5_REL[shape],
+                control_too=True))
+
+        variants = [("", {}, t)]
+        if B == B_MAIN:
+            # the external dL/doutput is the loss gradient's: a random one
+            # would cancel in the sums and read another error
+            dl = loss_cotangent(dims, prep.weights, enc_plain, tr.loss_fn, t,
+                                tr.loss_scale).float()
+            variants += [
+                ("pdf", {"pdf": (torch.rand(B, 3, generator=gen) + 0.5).to(dev)}, t),
+                ("noise", {"noise": (0.1 * torch.randn(B, dims.out_w, generator=gen)).to(dev)}, t),
+                ("ext_dl", {"ext_dl": True}, dl),
+            ]
+        for label, kw, tgt in variants:
+            errs["K6"] = max(errs["K6"], check_train_step(
+                f"{label} B={B}", net, tr.loss_fn, tr.params, x, tgt, tr.loss_scale, K6_REL,
+                control_too=True, **kw))
+
+    # 3b. coverage of K4, K5 and K6 beyond config_hash's main path
+    for label, enc_over, net_over, max_level, losses in COVER_CASES:
+        vcfg = json.loads(json.dumps(cfg))
+        vcfg["encoding"].update(enc_over)
+        vcfg["network"].update(net_over)
+        vm = tt.create_from_config(2, 3, vcfg, seed=SEED, device=dev)
+        vnet, vtr = vm.network, vm.trainer
+        vnet.encoding.max_level = max_level
+        vtr.set_params(random_params(vtr, gen))
+        vprep = train_kernel.prepare_forward(vnet, vtr.params)
+        n_active = vnet.encoding.active_levels()
+        x = torch.rand(B_COVER, 2, generator=gen).to(dev)
+        enc_plain = grid_kernel._grid_encode_plain(vprep.plan, vprep.table, x, enc_w, n_active)
+        pred = mlp_kernel._mlp_forward_plain(vprep.dims, vprep.weights, enc_plain)[:, :3].float()
+        # targets at least 0.05 max(1, |p|) from the prediction p, so that no
+        # sign(p - t) turns on a flipped bf16 rounding of p
+        away = torch.rand(B_COVER, 3, generator=gen).to(dev) * 0.5 + 0.05
+        away = away * pred.abs().clamp_min(1)
+        sign = torch.randint(0, 2, (B_COVER, 3), generator=gen).to(dev) * 2 - 1
+        tgt = pred + sign * away
+        for otype in losses:
+            errs["K6"] = max(errs["K6"], check_train_step(
+                f"{label} {otype} B={B_COVER}", vnet, tt.create_loss({"otype": otype}),
+                vtr.params, x, tgt, vtr.loss_scale, {"weights": COVER_REL, "table": COVER_REL}))
+        if net_over:
+            gout = loss_cotangent(vprep.dims, vprep.weights, enc_plain,
+                                  tt.create_loss({"otype": losses[0]}), tgt, vtr.loss_scale)
+            errs["K5"] = max(errs["K5"], check_mlp_bwd(
+                f"K5 mlp_bwd {label} B={B_COVER}", vprep.dims, vprep.weights, enc_plain, gout,
+                {"gW": COVER_REL, "gx": COVER_REL}))
+        else:
+            gy = torch.randn(B_COVER, enc_w, generator=gen).to(torch.bfloat16).to(dev)
+            errs["K4"] = max(errs["K4"], compare_norm(
+                f"K4 grid_bwd {label}", grid_kernel.grid_backward(vprep.plan, x, gy, n_active),
+                grid_kernel._grid_backward_plain(vprep.plan, x, gy, n_active), GRID_BWD_REL))
+
+    # 4. the inference slice, through the entry points a user calls
+    reset_counters()
+    model = tt.create_from_config(2, 3, cfg, seed=SEED + 1, device="cuda")
     tr, net = model.trainer, model.network
     tr.set_params(random_params(tr, gen))
     requests = (B_MAIN, B_MAIN, B_MAIN, 100_003, 1)
@@ -192,8 +481,8 @@ def main() -> int:
         fresh.trainer.load(path)
         for x, y in zip(xs, outs):
             check(torch.equal(fresh.trainer.inference(x), y), "save/load changed predictions")
-    launches = {"K1": grid_kernel.LAUNCHES, "K2": mlp_kernel.LAUNCHES, "K3": train_kernel.LAUNCHES}
-    emit({"phase": "slice", "requests": list(requests), "launches": launches,
+    launches = counters()
+    emit({"phase": "inference slice", "requests": list(requests), "launches": launches,
           "k3_launches_by_inference": k3_launches})
     check(k3_launches == len(requests), "trainer.inference did not run K3 once per request")
     check(launches["K1"] > 0 and launches["K2"] > 0, "model.apply did not run K1 and K2")
@@ -205,17 +494,102 @@ def main() -> int:
     compare("slice inference vs CPU plain twins", tr.inference(x_small).cpu(),
             cpu.trainer.inference(x_small.cpu()), rel_max=MLP_REL)
 
-    # 5. times at B = 2^18
-    x = xs[0]
+    # 5. the training slice: config_hash at full width, B = 2^18, targets
+    #    sampled on the card from a synthetic image
+    image = synthetic_image(1024, 1024, device=dev)
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def batch(B=B_MAIN):
+        x = torch.rand(B, 2, generator=dgen, device=dev)
+        return x, sample_image(image, x)
+
+    model = tt.create_from_config(2, 3, cfg, seed=SEED + 3, device="cuda")
+    tr, net = model.trainer, model.network
+    check(tr.use_fused(), "config_hash must take the fused train kernel")
+    batches = [batch() for _ in range(N_TRAIN)]
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = [tr.training_step(x, t) for x, t in batches]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    train_launches = counters()
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), "training loss not finite")
+    fall = float(losses[0] / losses[-10:].mean())
+    x_hold, t_hold = batch(1 << 16)
+    holdout_psnr = psnr(tr.inference(x_hold), t_hold)
+    emit({"phase": "training slice", "steps": N_TRAIN, "B": B_MAIN, "launches": train_launches,
+          "loss_first": float(losses[0]), "loss_last10_mean": float(losses[-10:].mean()),
+          "loss_at": {str(i): float(losses[i])
+                      for i in sorted({0, N_TRAIN // 10, N_TRAIN // 4, N_TRAIN // 2, N_TRAIN - 1})},
+          "loss_fall": fall, "loss_fall_min": LOSS_FALL, "holdout_psnr_db": holdout_psnr,
+          "psnr_min_db": PSNR_MIN, "loop_seconds": loop_s})
+    check(train_launches["K6"] == N_TRAIN, "training_step did not run K6 once per step")
+    check(all(train_launches[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5")),
+          "the fused training steps launched another kernel")
+    check(fall >= LOSS_FALL, f"loss fell only {fall}x")
+    check(holdout_psnr >= PSNR_MIN, f"holdout PSNR {holdout_psnr} dB")
+
+    # the composed route on a second model, same params, same batch
+    other = tt.create_from_config(2, 3, cfg, seed=SEED + 4, device="cuda")
+    other.trainer.set_params(tr.params)
+    other.trainer.use_fused_train_kernel = False
+    x, t = batch()
+    fl, fg = tr.loss_and_grad_fn(tr.params, x, t)
+    cl, cg = other.trainer.loss_and_grad_fn(other.trainer.params, x, t)
+    compare_norm("composed route (K1 K2 K5 K4) vs K6 gradient", cg, fg, ROUTE_REL,
+                 net.network.n_params)
+    check(abs(float(cl) - float(fl)) <= TRAIN_LOSS_RTOL * abs(float(fl)), "composed loss")
+    reset_counters()
+    other.trainer.training_step(x, t)
+    torch.cuda.synchronize()
+    composed_launches = counters()
+    emit({"phase": "composed step", "launches": composed_launches})
+    check(all(composed_launches[k] == 1 for k in ("K1", "K2", "K4", "K5"))
+          and composed_launches["K3"] == composed_launches["K6"] == 0,
+          "the composed step did not run K1, K2, K5 and K4 once each")
+
+    # save/load with the optimizer state, then one more step on each copy
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "trained.json")
+        tr.save(path)
+        copy = tt.create_from_config(2, 3, cfg, seed=SEED + 5, device="cuda")
+        copy.trainer.load(path)
+    for k, v in tr.state["opt"].items():
+        check(torch.equal(copy.trainer.state["opt"][k], v), f"optimizer state {k} not restored")
+    before = tr.params.clone()
+    x, t = batch()
+    tr.training_step(x, t)
+    copy.trainer.training_step(x, t)
+    compare_norm("resumed step vs original step", copy.trainer.params - before,
+                 tr.params - before, RESUME_REL)
+
+    # 6. times at B = 2^18
+    model = tt.create_from_config(2, 3, cfg, seed=SEED + 6, device="cuda")
+    tr, net = model.trainer, model.network
+    tr.set_params(random_params(tr, gen))
+    x, t = batch()
     enc = net.encoding.apply(tr.params[net.network.n_params:], x)
     prep = train_kernel.prepare_forward(net, tr.params)
+    gy_enc = torch.randn(B_MAIN, enc_w, generator=gen).to(torch.bfloat16).to(dev)
+    gy_out = torch.randn(B_MAIN, dims.out_w, generator=gen).to(torch.bfloat16).to(dev)
+    step_args = (plan, dims, L, prep.table, prep.weights, tr.loss_fn)
     timed = {
-        "K1": (lambda: grid_kernel.grid_encode(plan, prep.table, x, enc_w, plan.n_levels),
-               lambda: grid_kernel._grid_encode_plain(plan, prep.table, x, enc_w, plan.n_levels)),
+        "K1": (lambda: grid_kernel.grid_encode(plan, prep.table, x, enc_w, L),
+               lambda: grid_kernel._grid_encode_plain(plan, prep.table, x, enc_w, L)),
         "K2": (lambda: mlp_kernel.mlp_forward(dims, prep.weights, enc),
                lambda: mlp_kernel._mlp_forward_plain(dims, prep.weights, enc)),
         "K3": (lambda: train_kernel.fused_forward_prepared(prep, x),
                lambda: train_kernel._fused_forward_plain(prep, x)),
+        "K4": (lambda: grid_kernel.grid_backward(plan, x, gy_enc, L),
+               lambda: grid_kernel._grid_backward_plain(plan, x, gy_enc, L)),
+        "K5": (lambda: mlp_kernel.mlp_backward(dims, prep.weights, enc, gy_out),
+               lambda: mlp_kernel._mlp_backward_plain(dims, prep.weights, enc, gy_out)),
+        "K6": (lambda: train_kernel.fused_train_grads(net, tr.loss_fn, tr.params, x, t,
+                                                      tr.loss_scale),
+               lambda: train_kernel._fused_train_grads_plain(*step_args, x, t, tr.loss_scale,
+                                                             None, None, False)),
     }
     ms = {}
     for name, (kern, plain) in timed.items():
@@ -225,10 +599,17 @@ def main() -> int:
         p2 = cuda_ms(plain, 5)
         ms[name] = (min(k1, k2), min(p1, p2))
     infer_ms = cuda_ms(lambda: tr.inference(x), 50)
+    step_ms = {}
+    for route, flag in (("fused", None), ("composed", False), ("fused again", None)):
+        tr.use_fused_train_kernel = flag
+        step_ms[route] = cuda_ms(lambda: tr.training_step(x, t), 30)
     emit({"phase": "times", "B": B_MAIN, "card": smi,
           "ms": {k: {"kernel": v[0], "plain": v[1]} for k, v in ms.items()},
           "trainer_inference_ms": infer_ms,
-          "trainer_inference_Msamples_per_s": B_MAIN / infer_ms / 1e3})
+          "trainer_inference_Msamples_per_s": B_MAIN / infer_ms / 1e3,
+          "training_step_ms": step_ms,
+          "training_steps_per_s": {k: 1e3 / v for k, v in step_ms.items()},
+          "training_Msamples_per_s": {k: B_MAIN / v / 1e3 for k, v in step_ms.items()}})
 
     sources = {
         "K1": ("grid_fwd", "tcnn_tpu_torch/csrc/grid_fwd.cu",
@@ -237,12 +618,23 @@ def main() -> int:
                "tcnn_tpu/ops/pallas/mlp_kernel.py:65"),
         "K3": ("fused_infer", "tcnn_tpu_torch/csrc/fused_infer.cu",
                "tcnn_tpu/ops/pallas/train_kernel.py:1412"),
+        "K4": ("grid_bwd", "tcnn_tpu_torch/csrc/grid_bwd.cu",
+               "tcnn_tpu/ops/pallas/grid_kernel.py:644"),
+        "K5": ("mlp_bwd", "tcnn_tpu_torch/csrc/mlp_bwd.cu",
+               "tcnn_tpu/ops/pallas/mlp_kernel.py:71"),
+        "K6": ("fused_train", "tcnn_tpu_torch/csrc/fused_train.cu",
+               "tcnn_tpu/ops/pallas/train_kernel.py:587"),
     }
+    # launches: K1-K3 from the inference slice, K6 from the fused training
+    # loop, K4 and K5 from the composed training step
+    path_launches = {**{k: launches[k] for k in ("K1", "K2", "K3")},
+                     "K4": composed_launches["K4"], "K5": composed_launches["K5"],
+                     "K6": train_launches["K6"]}
     emit({"kernels": [
         {"name": sources[k][0], "route": "cuda", "source": sources[k][1],
-         "replaces": sources[k][2], "launches": launches[k], "max_abs_err": errs[k],
+         "replaces": sources[k][2], "launches": path_launches[k], "max_abs_err": errs[k],
          "ms": ms[k][0], "plain_ms": ms[k][1]}
-        for k in ("K1", "K2", "K3")
+        for k in sources
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -2,10 +2,12 @@
 
 Imports `torch` and never `jax`. Uses the JAX package's JSON "otype"
 configs, flat parameter layout ([network | encoding]) and checkpoint format.
-So far it serves inference of grid + MLP models: the grid forward (K1), the
-fully fused MLP forward (K2) and the fused grid + MLP inference (K3) are
-hand-written CUDA kernels for sm_90a under ``csrc/``, built at first use on
-a CUDA tensor; a CPU tensor takes each kernel's plain PyTorch twin.
+So far it trains and serves grid + MLP models with the nine losses and
+Adam. Six hand-written CUDA kernels for sm_90a under ``csrc/`` carry the
+path: grid forward (K1) and backward (K4), fully fused MLP forward (K2) and
+backward (K5), fused grid + MLP inference (K3) and the fused train step
+(K6). They build at first use on a CUDA tensor; a CPU tensor takes each
+kernel's plain PyTorch twin.
 """
 
 __version__ = "0.1.0"
@@ -37,11 +39,17 @@ from .log import (  # noqa: F401
 from .models.mlp import CutlassMLP, FullyFusedMLP  # noqa: F401
 from .models.network_with_input_encoding import NetworkWithInputEncoding  # noqa: F401
 from .ops.encodings.grid import GridEncoding  # noqa: F401
+from .ops.losses import Loss  # noqa: F401
+from .optimizers.adam import AdamOptimizer  # noqa: F401
 from .registry import (  # noqa: F401
     create_encoding,
+    create_loss,
     create_network,
+    create_optimizer,
     register_encoding,
+    register_loss,
     register_network,
+    register_optimizer,
 )
 from .trainer import Trainer  # noqa: F401
-from .utils.serialization import params_from_jax  # noqa: F401
+from .utils.serialization import opt_state_from_jax, params_from_jax  # noqa: F401

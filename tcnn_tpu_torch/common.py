@@ -16,6 +16,10 @@ import torch
 #: caller has to pad; the constant is kept for API parity.
 BATCH_SIZE_GRANULARITY = 128
 
+#: Loss scale of half-precision compute (common.h:229-233): multiplied into
+#: the loss gradient, divided out by the optimizer.
+DEFAULT_LOSS_SCALE = 128.0
+
 #: "Zoom" factor of Squareplus/Softplus activations (K_ACT, common_device.h:100).
 K_ACT = 10.0
 

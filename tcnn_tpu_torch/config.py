@@ -1,8 +1,8 @@
 """Top-level config entry point (counterpart of ``tcnn_tpu/config.py``;
 config.h:46-63): `create_from_config(n_input_dims, n_output_dims, config)`
 consumes the canonical 4-block JSON {loss, optimizer, encoding, network}
-and returns a TrainableModel. The loss and optimizer blocks stay config
-dicts until their port.
+and returns a TrainableModel bundling the loss, the optimizer, the composed
+NetworkWithInputEncoding and a Trainer.
 """
 
 from __future__ import annotations
@@ -11,7 +11,14 @@ import dataclasses
 import json as _json
 
 from .models.network_with_input_encoding import NetworkWithInputEncoding
-from .registry import cfg_get, create_encoding, create_network, minimum_alignment
+from .registry import (
+    cfg_get,
+    create_encoding,
+    create_loss,
+    create_network,
+    create_optimizer,
+    minimum_alignment,
+)
 from .trainer import Trainer
 
 
@@ -30,8 +37,8 @@ def create_network_with_input_encoding(
 
 @dataclasses.dataclass
 class TrainableModel:
-    loss: dict
-    optimizer: dict
+    loss: object
+    optimizer: object
     network: NetworkWithInputEncoding
     trainer: Trainer
 
@@ -39,8 +46,8 @@ class TrainableModel:
 def create_from_config(
     n_input_dims: int, n_output_dims: int, config: dict, seed: int = 1337, device="cpu"
 ) -> TrainableModel:
-    loss = cfg_get(config, "loss", {}) or {}
-    optimizer = cfg_get(config, "optimizer", {}) or {}
+    loss = create_loss(cfg_get(config, "loss", {}) or {})
+    optimizer = create_optimizer(cfg_get(config, "optimizer", {}) or {})
     network = create_network_with_input_encoding(
         n_input_dims,
         n_output_dims,

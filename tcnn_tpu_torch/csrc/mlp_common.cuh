@@ -1,5 +1,6 @@
 // The fully fused MLP layer chain, shared by K2 (mlp_fwd.cu) and K3
-// (fused_infer.cu).
+// (fused_infer.cu); its per-warp layer (warp_layer) and the activations,
+// forward and backward, also serve K5 and K6 (mlp_bwd_common.cuh).
 //
 // Shared-memory layout of a block of nt rows (nt/16 warps, 16 rows each):
 //   [weights: all layers, flat bf16, row-major [fan_out, fan_in] per matrix]
@@ -50,6 +51,25 @@ __device__ __forceinline__ float apply_act(float z, int act) {
   }
 }
 
+// grad * act'(x) from the post-activation output y (common_device.h:237-304,
+// activations.py:activation_bwd_out); Sine has no such form.
+__device__ __forceinline__ float act_bwd_out(float g, float y, int act) {
+  switch (act) {
+    case ACT_RELU: return g * (y > 0.f ? 1.f : 0.f);
+    case ACT_LEAKY_RELU: return g * (y > 0.f ? 1.f : 0.01f);
+    case ACT_EXPONENTIAL: return g * y;
+    case ACT_SIGMOID: return g * y * (1.f - y);
+    case ACT_SQUAREPLUS: {
+      const float yk = y * 10.f;
+      const float y2 = yk * yk;
+      return g * (y2 / (y2 + 1.f));
+    }
+    case ACT_SOFTPLUS: return g * (1.f - expf(-y * 10.f));
+    case ACT_TANH: return g * (1.f - y * y);
+    default: return g;
+  }
+}
+
 inline size_t mlp_n_weights(int in_w, int width, int n_hidden, int out_w) {
   return (size_t)width * in_w + (size_t)(n_hidden - 1) * width * width + (size_t)out_w * width;
 }
@@ -90,15 +110,41 @@ __device__ __forceinline__ void load_weights(const bf16* __restrict__ w, bf16* s
   for (size_t i = threadIdx.x; i < n_weights / 8; i += blockDim.x) dst[i] = src[i];
 }
 
+// One layer for the warp's 16 rows r0..r0+15 of a tile: z = in W^T on the
+// tensor cores (W row-major [fan_out, fan_in], read as a col-major B
+// operand), the activation in f32 through the warp's 16x16 f32 scratch `sc`,
+// and epi(row, col, bf16 value) for every output of those rows.
+template <class Epi>
+__device__ __forceinline__ void warp_layer(const bf16* in, int ld_in, const bf16* w, int fan_in,
+                                           int fan_out, int act, float* sc, Epi&& epi) {
+  using namespace nvcuda;
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;
+  for (int n0 = 0; n0 < fan_out; n0 += 16) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.f);
+    for (int k0 = 0; k0 < fan_in; k0 += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+      wmma::load_matrix_sync(a, in + r0 * ld_in + k0, ld_in);
+      wmma::load_matrix_sync(b, w + n0 * fan_in + k0, fan_in);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(sc, acc, 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < 256; e += 32) {
+      epi(r0 + e / 16, n0 + e % 16, __float2bfloat16_rn(apply_act(sc[e], act)));
+    }
+    __syncwarp();
+  }
+}
+
 // Runs the layer chain from act0 (the block's input tile, already in shared
 // memory and synchronised) and writes rows row0.. of the [B, out_w] output.
 template <int WIDTH>
 __device__ void mlp_chain(const MlpArgs& m, const MlpSmem& s, int ld, bf16* __restrict__ out,
                           long row0, long B) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  float* sc = s.scratch + warp * 256;
+  float* sc = s.scratch + (threadIdx.x / 32) * 256;
   const bf16* w = s.weights;
   bf16* cur = s.act0;
   bf16* nxt = s.act1;
@@ -107,30 +153,14 @@ __device__ void mlp_chain(const MlpArgs& m, const MlpSmem& s, int ld, bf16* __re
     const bool last = i == n_layers - 1;
     const int fan_in = i == 0 ? m.in_w : WIDTH;
     const int fan_out = last ? m.out_w : WIDTH;
-    const int act = last ? m.out_act : m.act;
-    for (int n0 = 0; n0 < fan_out; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k0 = 0; k0 < fan_in; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, cur + r0 * ld + k0, ld);
-        wmma::load_matrix_sync(b, w + n0 * fan_in + k0, fan_in);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(sc, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int mr = e / 16, nc = e % 16;
-        const bf16 h = __float2bfloat16_rn(apply_act(sc[e], act));
-        if (!last) {
-          nxt[(r0 + mr) * ld + n0 + nc] = h;
-        } else {
-          const long row = row0 + r0 + mr;
-          if (row < B) out[row * m.out_w + n0 + nc] = h;
-        }
-      }
-      __syncwarp();
+    if (!last) {
+      warp_layer(cur, ld, w, fan_in, fan_out, m.act,
+                 sc, [&](int r, int c, bf16 h) { nxt[r * ld + c] = h; });
+    } else {
+      warp_layer(cur, ld, w, fan_in, fan_out, m.out_act, sc, [&](int r, int c, bf16 h) {
+        const long row = row0 + r;
+        if (row < B) out[row * m.out_w + c] = h;
+      });
     }
     w += (size_t)fan_out * fan_in;
     bf16* t = cur;

@@ -1,9 +1,11 @@
 """MLP networks (counterpart of ``tcnn_tpu/models/mlp.py``).
 
   - `CutlassMLP` (otype "CutlassMLP"/"MLP"): arbitrary widths, >= 0 hidden
-    layers, as a chain of `torch.matmul`s (the JAX package leaves it to XLA).
+    layers, as a chain of `torch.matmul`s differentiated by torch autograd
+    (the JAX package leaves it to XLA).
   - `FullyFusedMLP` (otype "FullyFusedMLP"): widths {16, 32, 64, 128},
-    through kernel K2 (``ops/cuda/mlp_kernel.py``). Sine has no fused form
+    through `mlp_kernel.FusedMlpFn`: kernel K2 forward, kernel K5 backward
+    (``ops/cuda/mlp_kernel.py``). Sine has no fused form
     (mlp_kernel.py:44-48) and takes the matmul chain.
 
 Parameter layout (flat fp32, row-major per matrix, fully_fused_mlp.cu:659-677):
@@ -132,11 +134,7 @@ class FullyFusedMLP(CutlassMLP):
     def apply(self, params, x):
         if Activation.Sine in (self.activation, self.output_activation):
             return super().apply(params, x)
-        return mlp_kernel.mlp_forward(
-            self.dims,
-            params.to(torch.bfloat16).contiguous(),
-            x.to(torch.bfloat16).contiguous(),
-        )
+        return mlp_kernel.FusedMlpFn.apply(params, x, self.dims)
 
     def hyperparams(self):
         hp = super().hyperparams()

@@ -45,7 +45,10 @@ class NetworkWithInputEncoding(Network):
 
     def apply(self, params, x, *, max_level=None):
         """[B, D] -> [B, padded_output_width] bf16: the encoding (K1) into the
-        network (K2, or the matmul chain)."""
+        network (K2, or the matmul chain). Differentiable with respect to
+        `params` (network_with_input_encoding.py:59-111 without input
+        gradients): autograd runs K5 and K4 backward, or the matmul chain's
+        own backward, and returns the f32 gradient of the flat vector."""
         net_p, enc_p = self.split_params(params)
         kwargs = {} if max_level is None else {"max_level": max_level}
         enc_out = self.encoding.apply(enc_p, x, **kwargs)

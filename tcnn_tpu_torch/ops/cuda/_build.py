@@ -1,7 +1,8 @@
 """Builds and loads the port's CUDA kernels.
 
 All sources under ``tcnn_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
+``sm_90a``, one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The build happens at first use, never at import, into
 ``build/tcnn_tpu_torch/`` beside the package; the library's name carries a
 hash of the sources and flags, so an edited source is rebuilt. An
@@ -25,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "tcnn_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -70,18 +71,8 @@ def library() -> ctypes.CDLL:
         try:
             if not path.exists():
                 t0 = time.perf_counter()
-                cu, _ = _sources()
-                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-                os.close(fd)
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                if res.returncode != 0:
-                    os.unlink(tmp)
-                    raise RuntimeError(
-                        f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                        f"{res.stdout}\n{res.stderr}"
-                    )
-                os.replace(tmp, path)
+                with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                    _compile_and_link(_sources()[0], pathlib.Path(tmp), path)
                 build_seconds = time.perf_counter() - t0
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -90,6 +81,31 @@ def library() -> ctypes.CDLL:
     lib.tcnn_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the output of the first
+    that fails."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+
+
+def _compile_and_link(sources, tmp: pathlib.Path, path: pathlib.Path) -> None:
+    """One object per source, compiled in parallel, linked into a library
+    in `tmp` and moved to `path`."""
+    nvcc = _nvcc()
+    objects = [tmp / f"{src.stem}.o" for src in sources]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources, objects)])
+    lib = tmp / path.name
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objects)]])
+    os.replace(lib, path)
 
 
 def function(name: str, argtypes):

@@ -1,17 +1,19 @@
-"""Multiresolution grid forward: kernel K1 (``csrc/grid_fwd.cu``) and its
-plain PyTorch twin.
+"""Multiresolution grid forward and backward: kernels K1
+(``csrc/grid_fwd.cu``) and K4 (``csrc/grid_bwd.cu``), their plain PyTorch
+twins, and `GridEncodeFn`, the autograd Function that joins them.
 
-Replaces ``tcnn_tpu/ops/pallas/grid_kernel.py:_fwd_kernel`` (reached through
-``_fwd_call`` and ``grid_encode_pallas``). The TPU kernel gathers through
-one-hot matmuls against a 128-lane packed table because the TPU has no
-per-lane random access; on Hopper each thread owns one (sample, level) and
-reads its 2^D corner rows directly from a bf16 [total_rows, F] table that
-stays in L2. Only the cast of the table to bf16 carries over from the TPU
-layout; the public column order is the JAX package's (level-major,
-feature-minor).
+K1 replaces ``tcnn_tpu/ops/pallas/grid_kernel.py:_fwd_kernel`` (reached
+through ``_fwd_call`` and ``grid_encode_pallas``), K4 replaces its
+``_bwd_kernel`` (through ``_bwd_call`` and ``_grid_pallas_bwd``). The TPU
+kernels gather and scatter through one-hot matmuls against a 128-lane packed
+table because the TPU has no per-lane random access; on Hopper each thread
+owns one (sample, level), reads its 2^D corner rows directly from a bf16
+[total_rows, F] table that stays in L2, and scatters the table gradient with
+f32 atomics. Only the bf16 rounding carries over from the TPU layout; the
+public column order is the JAX package's (level-major, feature-minor).
 
-`grid_encode` takes the plain twin for a CPU tensor and the kernel for a
-CUDA tensor; there is no other route.
+`grid_encode` and `grid_backward` take the plain twin for a CPU tensor and
+the kernel for a CUDA tensor; there is no other route.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ import torch
 from ...common import GridType, HashType, InterpolationType, smoothstep
 from . import _build
 
-#: Launches of K1 since the last reset (counted where the kernel launches).
+#: Launches of K1 and of K4 since the last reset (counted where each
+#: kernel launches).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 U32 = 0xFFFFFFFF
 
@@ -171,43 +175,65 @@ class GridPlan:
         return self._device_consts[key]
 
 
-def _grid_encode_plain(plan: GridPlan, table, x, out_width: int, n_active: int):
-    """What K1 computes, in plain PyTorch on any device: f32 position,
-    cell and weight math with one rounding per operation, the corner
-    weight as a product over dims d = 0..D-1, bf16 table rows weighted and
-    summed over corners c = 0..C-1 in f32, one rounding to bf16, zeros in
-    levels >= n_active and in the padding columns."""
-    B = x.shape[0]
-    L, D, F = plan.n_levels, plan.d, plan.f
+def _corners(plan: GridPlan, x):
+    """Yields, for each corner c = 0..C-1, the absolute table rows
+    [B, L] int64 of every (sample, level) and the corner weights [B, L] f32
+    (the product over dims d = 0..D-1 of w_d or 1 - w_d; 1 for Nearest):
+    the f32 position, cell and weight math of K1/K4 with one rounding per
+    operation."""
+    L, D = plan.n_levels, plan.d
     dev = x.device
     scales = torch.from_numpy(plan.scales).to(dev)
     cells, w = positions(x, scales, plan.interpolation)  # [B, L, D]
-
     strides = torch.tensor(plan.strides, dtype=torch.int64, device=dev).reshape(L, D)
     use_hash = torch.tensor(plan.use_hash, dtype=torch.bool, device=dev)
     sizes = torch.tensor(plan.sizes, dtype=torch.int64, device=dev)
     offsets = torch.tensor(plan.offsets, dtype=torch.int64, device=dev)
-
     nearest = plan.interpolation == InterpolationType.Nearest
-    acc = torch.zeros((B, L, F), dtype=torch.float32, device=dev)
     for corner in range(plan.n_corners):
         bits = [(corner >> d) & 1 for d in range(D)]
         cc = (cells + torch.tensor(bits, dtype=torch.int64, device=dev)) & U32
         idx = index_within_level(
             cc[:, :, None, :], strides, use_hash, plan.hash_factors, sizes
         )[..., 0]
-        feats = table[offsets[None, :] + idx].float()  # [B, L, F]
+        cw = torch.ones_like(w[..., 0])
         if not nearest:
             cw = None
             for d in range(D):
                 term = w[..., d] if bits[d] else 1.0 - w[..., d]
                 cw = term if cw is None else cw * term
-            feats = feats * cw[..., None]
-        acc = acc + feats
+        yield offsets[None, :] + idx, cw
+
+
+def _grid_encode_plain(plan: GridPlan, table, x, out_width: int, n_active: int):
+    """What K1 computes, in plain PyTorch on any device: bf16 table rows
+    weighted and summed over corners c = 0..C-1 in f32, one rounding to
+    bf16, zeros in levels >= n_active and in the padding columns."""
+    B = x.shape[0]
+    L, F = plan.n_levels, plan.f
+    acc = torch.zeros((B, L, F), dtype=torch.float32, device=x.device)
+    for rows, cw in _corners(plan, x):
+        acc = acc + table[rows].float() * cw[..., None]
     acc[:, n_active:] = 0.0
-    y = torch.zeros((B, out_width), dtype=torch.bfloat16, device=dev)
+    y = torch.zeros((B, out_width), dtype=torch.bfloat16, device=x.device)
     y[:, : L * F] = acc.reshape(B, L * F).to(torch.bfloat16)
     return y
+
+
+def _grid_backward_plain(plan: GridPlan, x, gy, n_active: int):
+    """What K4 computes, in plain PyTorch on any device: the table gradient
+    f32 [total_rows, F] of the encoding's leading L*F columns of `gy`, each
+    corner's contribution w_c * gy rounded to bf16 before it is summed in
+    f32, as the TPU kernel rounds it (grid_kernel.py:674-677); levels
+    >= n_active contribute nothing."""
+    B = x.shape[0]
+    L, F = plan.n_levels, plan.f
+    g = gy[:, : L * F].float().reshape(B, L, F)[:, :n_active]
+    out = torch.zeros((plan.total_rows, F), dtype=torch.float32, device=x.device)
+    for rows, cw in _corners(plan, x):
+        contrib = (cw[:, :n_active, None] * g).to(torch.bfloat16).float()
+        out.index_add_(0, rows[:, :n_active].reshape(-1), contrib.reshape(-1, F))
+    return out
 
 
 def grid_encode(plan: GridPlan, table, x, out_width: int, n_active: int):
@@ -247,10 +273,86 @@ _GRID_FWD_ARGS = (
 )
 
 
-def _check_inputs(plan: GridPlan, table, x) -> int:
-    """Shared device/dtype/shape/contiguity checks of K1 and K3. Returns B."""
+def grid_backward(plan: GridPlan, x, gy, n_active: int):
+    """Table gradient f32 [total_rows, F] of the encoding at `x` [B, D] f32
+    for the cotangent `gy` [B, >= L*F] (bf16 on a CUDA tensor; its leading
+    L*F columns, level-major, are read)."""
+    B = _check_x(plan, x)
+    if gy.dim() != 2 or gy.shape[0] != B or gy.shape[1] < plan.n_levels * plan.f:
+        raise ValueError(f"gy must be [{B}, >= {plan.n_levels * plan.f}], got {tuple(gy.shape)}")
+    if gy.device != x.device:
+        raise ValueError(f"gy on {gy.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        return _grid_backward_plain(plan, x, gy, n_active)
+    if gy.dtype != torch.bfloat16 or not gy.is_contiguous() or gy.data_ptr() % 16:
+        raise ValueError(f"gy must be contiguous, 16-byte aligned bfloat16, got {gy.dtype}")
+    if gy.shape[1] % plan.f:
+        raise ValueError(f"gy's width {gy.shape[1]} must be a multiple of F = {plan.f}")
+    global BWD_LAUNCHES
+    out = torch.zeros((plan.total_rows, plan.f), dtype=torch.float32, device=x.device)
+    if B == 0 or n_active == 0:
+        return out
+    level_i32, level_f32 = plan.device_consts(x.device)
+    fn = _build.function("tcnn_grid_bwd", _GRID_BWD_ARGS)
+    _build.check(
+        fn(
+            x.data_ptr(), gy.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
+            out.data_ptr(), B, plan.d, plan.f, plan.n_levels, int(n_active),
+            INTERP_CODES[plan.interpolation], *plan.c_factors(), gy.shape[1],
+            x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        ),
+        "tcnn_grid_bwd",
+    )
+    BWD_LAUNCHES += 1
+    return out
+
+
+_GRID_BWD_ARGS = _GRID_FWD_ARGS
+
+
+class GridEncodeFn(torch.autograd.Function):
+    """The grid encoding as an autograd Function of its f32 params slice
+    (counterpart of ``_grid_pallas`` and its custom vjp, grid_kernel.py:
+    1363-1387). The params are cast to the bf16 table inside `forward`, so
+    the table gradient comes back in f32. Inputs get no gradient here: the
+    input-gradient path is ROADMAP Queue A item 7."""
+
+    @staticmethod
+    def forward(ctx, params, x, plan, out_width, n_active, stochastic):
+        table = params.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
+        ctx.save_for_backward(x)
+        ctx.plan, ctx.n_active, ctx.stochastic = plan, n_active, stochastic
+        return grid_encode(plan, table, x, out_width, n_active)
+
+    @staticmethod
+    def backward(ctx, gy):
+        if ctx.stochastic:
+            raise NotImplementedError(
+                "the stochastic-interpolation table gradient is not ported to "
+                "tcnn_tpu_torch yet (ROADMAP Queue A item 8)"
+            )
+        (x,) = ctx.saved_tensors
+        g = grid_backward(ctx.plan, x, gy.to(torch.bfloat16).contiguous(), ctx.n_active)
+        return g.reshape(-1), None, None, None, None, None
+
+
+def _check_x(plan: GridPlan, x) -> int:
+    """Device/dtype/shape checks of the inputs of K1, K3, K4 and K6. Returns B."""
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != plan.d:
         raise ValueError(f"x must be float32 [B, {plan.d}], got {x.dtype} {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda":
+        if not x.is_contiguous():
+            raise ValueError("x must be contiguous")
+        if plan.total_rows * plan.f >= 2**31:
+            raise ValueError("table exceeds the kernels' 2^31-element index range")
+    return x.shape[0]
+
+
+def _check_inputs(plan: GridPlan, table, x) -> int:
+    """Shared device/dtype/shape/contiguity checks of K1, K3 and K6. Returns B."""
+    _check_x(plan, x)
     if table.dtype != torch.bfloat16 or tuple(table.shape) != (plan.total_rows, plan.f):
         raise ValueError(
             f"table must be bfloat16 [{plan.total_rows}, {plan.f}], "
@@ -258,13 +360,7 @@ def _check_inputs(plan: GridPlan, table, x) -> int:
         )
     if table.device != x.device:
         raise ValueError(f"table on {table.device}, x on {x.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
     if x.device.type == "cuda":
-        if not (x.is_contiguous() and table.is_contiguous()):
-            raise ValueError("x and table must be contiguous")
-        if table.data_ptr() % 16:
-            raise ValueError("table must be 16-byte aligned")
-        if plan.total_rows * plan.f >= 2**31:
-            raise ValueError("table exceeds the kernels' 2^31-element index range")
+        if not table.is_contiguous() or table.data_ptr() % 16:
+            raise ValueError("table must be contiguous and 16-byte aligned")
     return x.shape[0]

@@ -1,16 +1,20 @@
-"""Fused grid + MLP inference: kernel K3 (``csrc/fused_infer.cu``), its
-plain PyTorch twin, and the prepared operands it runs from.
+"""Fused grid + MLP kernels: inference K3 (``csrc/fused_infer.cu``) and the
+train step K6 (``csrc/fused_train.cu``), their plain PyTorch twins, and the
+gate that decides which models the train step takes.
 
-Replaces ``tcnn_tpu/ops/pallas/train_kernel.py:_infer_kernel_vt`` (reached
-through ``fused_forward_prepared`` from ``Trainer.inference``). Per tile of
-samples, K1's gather fills an encoded tile [nt, enc_pad] bf16 in shared
-memory and K2's layer chain runs from there, so the encoding never touches
-device memory. The training kernels of this module come with the training
-port.
+K3 replaces ``tcnn_tpu/ops/pallas/train_kernel.py:_infer_kernel_vt``
+(reached through ``fused_forward_prepared`` from ``Trainer.inference``).
+Per tile of samples, K1's gather fills an encoded tile [nt, enc_pad] bf16 in
+shared memory and K2's layer chain runs from there, so the encoding never
+touches device memory. Its layout is carried explicitly: `prepare_forward`
+returns a `PreparedForward` that holds the grid plan, the MLP shape and the
+bf16 operands, and `fused_forward_prepared` reads nothing else.
 
-The layout is carried explicitly: `prepare_forward` returns a
-`PreparedForward` that holds the grid plan, the MLP shape and the bf16
-operands, and `fused_forward_prepared` reads nothing else.
+K6 replaces ``_kernel_vt`` (reached through ``fused_train_grads`` from
+``Trainer.loss_and_grad_fn``): per tile, K1's gather, the MLP forward
+keeping every layer's output, the loss value and gradient (or an external
+dL/doutput), the MLP backward and K4's scatter, with the encoding and the
+hidden activations kept in shared memory. `supported` is its gate.
 """
 
 from __future__ import annotations
@@ -21,17 +25,30 @@ import dataclasses
 import torch
 
 from ...common import Activation
+from ..activations import activation_bwd_out
+from ..losses import Loss, RelativeL2LuminanceLoss
 from . import _build
 from .grid_kernel import (
     INTERP_CODES,
     GridPlan,
     _check_inputs,
+    _grid_backward_plain,
     _grid_encode_plain,
 )
-from .mlp_kernel import MlpDims, _mlp_forward_plain, check_mlp_inputs
+from .mlp_kernel import (
+    MlpDims,
+    _forward_keep,
+    _mlp_forward_plain,
+    _weights,
+    bwd_tile,
+    check_mlp_inputs,
+    persistent_grid,
+)
 
-#: Launches of K3 since the last reset (counted where the kernel launches).
+#: Launches of K3 and of K6 since the last reset (counted where each kernel
+#: launches).
 LAUNCHES = 0
+TRAIN_LAUNCHES = 0
 
 
 def fused_plan_for(model):
@@ -131,3 +148,128 @@ _FUSED_INFER_ARGS = (
 def fused_forward(model, params, x):
     """Inference-only fused grid + MLP forward: [B, D] -> [B, out_pad] bf16."""
     return fused_forward_prepared(prepare_forward(model, params), x)
+
+
+# ---------------------------------------------------------------------------
+# The fused train step, K6
+# ---------------------------------------------------------------------------
+
+
+def supported(model, loss, perturbation_sigma: float = 0.0) -> bool:
+    """Whether K6 takes this (model, loss): a grid + FullyFusedMLP model
+    without Sine (`fused_plan_for`), one of the nine losses, a
+    deterministic table gradient (stochastic interpolation's is not
+    ported), and a tile whose shared memory fits the block
+    (`mlp_kernel.bwd_tile`), decided before any launch, as the JAX gate
+    decides on its VMEM estimate (train_kernel.py:238-288). Perturbation
+    noise and an external dL/doutput arrive as inputs and do not gate."""
+    if not isinstance(loss, Loss) or loss.kernel_code == 0:
+        return False
+    plan = fused_plan_for(model)
+    if plan is None or model.encoding.stochastic_interpolation:
+        return False
+    if isinstance(loss, RelativeL2LuminanceLoss) and model.n_output_dims < 3:
+        return False
+    return bwd_tile(model.network.dims, split=True) > 0
+
+
+def _fused_train_grads_plain(plan, dims, n_active, table, weights, loss, x, targets,
+                             loss_scale, pdf, noise, ext_dl):
+    """What K6 computes, in plain PyTorch on any device: (loss sum, f32
+    gradient [n_weights + n_table]). The MLP backward keeps the gradient in
+    f32 through the chain (train_kernel.py:891-903); the table gradient
+    rounds each corner's contribution to bf16 like K4."""
+    mats = _weights(dims, weights)
+    hs = _forward_keep(dims, mats, _grid_encode_plain(plan, table, x, dims.in_w, n_active))
+    if ext_dl:
+        loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        g = targets.float()
+    else:
+        pred = hs[-1] if noise is None else hs[-1] + noise
+        values, grad = loss.value_and_grad_fn(pred, targets, pdf)
+        loss_sum = values.sum()
+        g = grad * loss_scale
+    grads = [None] * len(mats)
+    for i in reversed(range(len(mats))):
+        act = dims.output_activation if i == len(mats) - 1 else dims.activation
+        g = activation_bwd_out(g, hs[i + 1], act)
+        grads[i] = (g.T @ hs[i]).reshape(-1)
+        g = g @ mats[i]
+    gtable = _grid_backward_plain(plan, x, g, n_active)
+    return loss_sum, torch.cat(grads + [gtable.reshape(-1)])
+
+
+def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noise=None,
+                      ext_dl=False):
+    """(loss sum, f32 gradient [n_params]) of one train step of a model that
+    `supported` takes, in one kernel (train_kernel.py:1655-1883).
+
+    targets [B, dims] f32; pdf optional [B, dims]; noise optional
+    [B, out_pad], added to the prediction before the loss; with `ext_dl`,
+    `targets` is dL/doutput [B, out_pad]: no loss (the sum is 0) and no
+    loss_scale. Values and gradients are normalised by n = B * dims once;
+    the JAX kernel normalises each tile by nt * dims and rescales by nt / B
+    afterwards, which is equal up to f32 rounding. The gradient carries
+    loss_scale, as the optimizer expects."""
+    plan = fused_plan_for(model)
+    dims = model.network.dims
+    n_active = model.encoding.active_levels()
+    net_p, enc_p = model.split_params(params)
+    table = enc_p.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
+    weights = net_p.to(torch.bfloat16).contiguous()
+    B = _check_inputs(plan, table, x)
+    check_mlp_inputs(dims, weights)
+    width = dims.out_w if ext_dl else model.n_output_dims
+    for name, t, w in (("targets", targets, width), ("pdf", pdf, width),
+                       ("noise", noise, dims.out_w)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, w) or t.device != x.device:
+            raise ValueError(f"{name} must be float32 [{B}, {w}] on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if ext_dl and (pdf is not None or noise is not None):
+        raise ValueError("an external dL/doutput takes no pdf and no noise")
+    if x.device.type == "cpu":
+        return _fused_train_grads_plain(plan, dims, n_active, table, weights, loss, x,
+                                        targets, loss_scale, pdf, noise, ext_dl)
+    for t in (targets, pdf, noise):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("targets, pdf and noise must be contiguous")
+    nt = bwd_tile(dims, split=True)
+    if nt == 0:
+        raise ValueError(f"{model!r} does not fit the fused train kernel's shared memory")
+    global TRAIN_LAUNCHES
+    dev = x.device
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    grads = torch.zeros(model.n_params, dtype=torch.float32, device=dev)
+    if B == 0:
+        return loss_sum, grads
+    grid = persistent_grid("tcnn_fused_train_grid", (B, plan.f, nt, *dims.c_args()[:4]), dev)
+    partials = torch.empty(grid * dims.n_weights, dtype=torch.float32, device=dev)
+    level_i32, level_f32 = plan.device_consts(dev)
+    fn = _build.function("tcnn_fused_train", _FUSED_TRAIN_ARGS)
+    _build.check(
+        fn(
+            x.data_ptr(), table.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
+            weights.data_ptr(), targets.data_ptr(),
+            0 if pdf is None else pdf.data_ptr(), 0 if noise is None else noise.data_ptr(),
+            grads.data_ptr(), partials.data_ptr(), loss_sum.data_ptr(),
+            grid, B, plan.d, plan.f, plan.n_levels, int(n_active),
+            INTERP_CODES[plan.interpolation], *plan.c_factors(),
+            nt, *dims.c_args(),
+            0 if ext_dl else loss.kernel_code, width, float(loss_scale),
+            dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        ),
+        "tcnn_fused_train",
+    )
+    TRAIN_LAUNCHES += 1
+    return loss_sum, grads
+
+
+_FUSED_TRAIN_ARGS = (
+    [ctypes.c_void_p] * 11
+    + [ctypes.c_int] * 7
+    + [ctypes.c_uint32] * 4
+    + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+)

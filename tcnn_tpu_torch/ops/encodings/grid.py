@@ -110,7 +110,7 @@ class GridEncoding(Encoding):
 
     @functools.cached_property
     def plan(self) -> grid_kernel.GridPlan:
-        """The explicit layout K1 and K3 run from."""
+        """The explicit layout the grid kernels (K1, K3, K4, K6) run from."""
         return grid_kernel.GridPlan(self)
 
     # -- shape / params -----------------------------------------------------
@@ -163,10 +163,14 @@ class GridEncoding(Encoding):
 
     # -- forward ------------------------------------------------------------
     def _encode(self, params, x, out_width: int, max_level):
-        table = params.reshape(self._total_table_rows, self.n_features_per_level)
-        table = table.to(torch.bfloat16).contiguous()
-        return grid_kernel.grid_encode(
-            self.plan, table, x, out_width, self.active_levels(max_level)
+        if x.requires_grad:
+            raise NotImplementedError(
+                "input gradients of the grid encoding are not ported to "
+                "tcnn_tpu_torch yet (ROADMAP Queue A item 7)"
+            )
+        return grid_kernel.GridEncodeFn.apply(
+            params, x, self.plan, out_width, self.active_levels(max_level),
+            self.stochastic_interpolation,
         )
 
     def apply_unpadded(self, params, x, *, max_level=None):

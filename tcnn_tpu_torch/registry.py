@@ -3,9 +3,9 @@
 src/network.cu:70-130). Keys and otypes match case-insensitively like the
 reference's ci_hashmap (common_host.h:242-246).
 
-The port registers the Grid family of encodings and the MLP networks so
-far; any other otype raises ValueError naming it as not ported yet. Loss and
-optimizer blocks stay plain config dicts until their port.
+The port registers the Grid family of encodings, the MLP networks, the nine
+losses and the Adam optimizer so far; any other otype raises ValueError
+naming it as not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ from .common import (
 from .models.mlp import CutlassMLP, FullyFusedMLP
 from .ops.encodings.base import Encoding
 from .ops.encodings.grid import GridEncoding
+from .ops.losses import LOSSES, Loss
+from .optimizers.adam import AdamOptimizer
+from .optimizers.base import Optimizer
 
 
 def cfg_get(config: dict, key: str, default=None):
@@ -147,3 +150,68 @@ def _mlp_args(cfg):
 
 register_network("FullyFusedMLP", lambda i, o, c: FullyFusedMLP(i, o, **_mlp_args(c)))
 register_network("CutlassMLP", lambda i, o, c: CutlassMLP(i, o, **_mlp_args(c)))
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+_LOSS_FACTORIES: dict = {}
+
+
+def register_loss(name: str, factory) -> None:
+    """factory(config) -> Loss (loss.cu:77-82)."""
+    _LOSS_FACTORIES[name.lower()] = factory
+
+
+def create_loss(loss: dict) -> Loss:
+    """loss.cu:85; the default otype is RelativeL2."""
+    name = str(cfg_get(loss, "otype", "RelativeL2"))
+    factory = _LOSS_FACTORIES.get(name.lower())
+    if factory is None:
+        raise ValueError(f"Loss '{name}' not found")
+    return factory(loss)
+
+
+for _name, _cls in LOSSES.items():
+    register_loss(_name, (lambda cls: (lambda c: cls()))(_cls))
+
+# ---------------------------------------------------------------------------
+# Optimizers
+# ---------------------------------------------------------------------------
+
+_OPTIMIZER_FACTORIES: dict = {}
+
+
+def register_optimizer(name: str, factory) -> None:
+    """factory(config) -> Optimizer."""
+    _OPTIMIZER_FACTORIES[name.lower()] = factory
+
+
+def create_optimizer(optimizer: dict) -> Optimizer:
+    """optimizer.cu:49-80; the default otype is Adam."""
+    name = str(cfg_get(optimizer, "otype", "Adam"))
+    factory = _OPTIMIZER_FACTORIES.get(name.lower())
+    if factory is None:
+        raise ValueError(f"Optimizer '{name}' is not ported to tcnn_tpu_torch yet")
+    return factory(optimizer)
+
+
+register_optimizer(
+    "Adam",
+    lambda c: AdamOptimizer(
+        learning_rate=float(cfg_get(c, "learning_rate", 1e-3)),
+        beta1=float(cfg_get(c, "beta1", 0.9)),
+        beta2=float(cfg_get(c, "beta2", 0.999)),
+        epsilon=float(cfg_get(c, "epsilon", 1e-8)),
+        l2_reg=float(cfg_get(c, "l2_reg", 1e-8)),
+        relative_decay=float(cfg_get(c, "relative_decay", 0.0)),
+        absolute_decay=float(cfg_get(c, "absolute_decay", 0.0)),
+        adabound=bool(cfg_get(c, "adabound", False)),
+        clipping_magnitude=float(cfg_get(c, "clipping_magnitude", 0.0)),
+        non_matrix_learning_rate_factor=float(
+            cfg_get(c, "non_matrix_learning_rate_factor", 1.0)
+        ),
+        optimize_matrix_params=bool(cfg_get(c, "optimize_matrix_params", True)),
+        optimize_non_matrix_params=bool(cfg_get(c, "optimize_non_matrix_params", True)),
+    ),
+)

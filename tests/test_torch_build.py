@@ -11,7 +11,7 @@ import pytest
 from tcnn_tpu_torch.ops.cuda import _build, grid_kernel, mlp_kernel, train_kernel
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
-            "int": ctypes.c_int, "unsigned": ctypes.c_uint32}
+            "int": ctypes.c_int, "unsigned": ctypes.c_uint32, "float": ctypes.c_float}
 
 
 def _c_signatures():
@@ -33,6 +33,12 @@ def test_argtypes_match_the_c_entry_points():
     assert sigs["tcnn_mlp_fwd"] == mlp_kernel._MLP_FWD_ARGS
     assert sigs["tcnn_fused_infer"] == train_kernel._FUSED_INFER_ARGS
     assert sigs["tcnn_mlp_tile"] == [ctypes.c_int] * 5
+    assert sigs["tcnn_grid_bwd"] == grid_kernel._GRID_BWD_ARGS
+    assert sigs["tcnn_mlp_bwd"] == mlp_kernel._MLP_BWD_ARGS
+    assert sigs["tcnn_fused_train"] == train_kernel._FUSED_TRAIN_ARGS
+    # the persistent grids, called as mlp_kernel.persistent_grid calls them
+    assert sigs["tcnn_mlp_bwd_grid"] == [ctypes.c_int] * 7
+    assert sigs["tcnn_fused_train_grid"] == [ctypes.c_int] * 8
 
 
 def test_library_path_tracks_the_sources(tmp_path, monkeypatch):
@@ -44,7 +50,33 @@ def test_library_path_tracks_the_sources(tmp_path, monkeypatch):
     assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
     edited = src / "grid_fwd.cu"
     edited.write_text(edited.read_text() + "\n// edited\n")
-    assert _build.library_path() != first
+    second = _build.library_path()
+    assert second != first
+    header = src / "mlp_bwd_common.cuh"  # a header every backward kernel includes
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != second
+
+
+def test_build_compiles_each_source_in_parallel_then_links(tmp_path, monkeypatch):
+    """One nvcc per source, all started before any is waited on, then one
+    link of the objects (a stand-in `nvcc` records its calls)."""
+    log = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$@\" >> {log}\n"
+        "while [ $# -gt 0 ]; do if [ \"$1\" = -o ]; then touch \"$2\"; fi; shift; done\n"
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    out = tmp_path / "lib.so"
+    _build._compile_and_link(sources, tmp_path, out)
+    calls = log.read_text().splitlines()
+    assert len(calls) == len(sources) + 1 and len(sources) == 6
+    assert all(" -c " in c for c in calls[:-1]) and " -shared " in calls[-1]
+    assert sorted(c.split()[-1] for c in calls[:-1]) == sorted(map(str, sources))
+    assert out.exists()
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
