@@ -29,9 +29,24 @@ Phases, each printing JSON lines:
      gradient; a save/load with the optimizer state and one more step on
      each copy;
   6. times on the card (CUDA events) of each kernel and its twin at B = 2^18,
-     of `trainer.inference` per call and of `training_step` on both routes.
-Then a line with every kernel, the `nvidia-smi` line, and as the last line
-{"ok": true, "device": {...}}. Any failed check raises, so the script exits
+     of `trainer.inference` per call and of `training_step` on both routes;
+  7. the input-gradient kernels against their twins at the SDF config
+     (samples/learn_a_sdf.py's HashGrid, 3-D, 12 levels, T = 2^17; 64 x 2
+     ReLU MLP), B = 2^16, 2^16 - 37 and 1, on the inputs the eikonal step
+     gives them: K7 grid backward with dL/dx, K8 grid double backward
+     (without and with a table cotangent; Linear and Smoothstep), K9 fused
+     input-gradient backward, each gradient part beside a control of lower
+     precision that its bound must reject; K7 and K8 also at D = 2 and 4;
+  8. the SDF slice: `create_from_config` on that config trains SDF_STEPS
+     eikonal steps through tcnn_tpu_torch.samples.learn_a_sdf (counters:
+     K3, K9, K1, K7, K8 and K1, K2, K5, K4 on every step), the loss falling
+     and the z = 0.5 slice error under limits set before the first run; the
+     fused route's eikonal gradient against the composed route's;
+  9. times of K7, K8, K9 and their twins at B = 2^16 and 2^18, and of one
+     SDF training step.
+Then a line with every kernel (its launches on the main path, error against
+its twin, time, twin's time, bound and what bounds it), the `nvidia-smi`
+line, and as the last line {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; it also exits non-zero when no GPU is present.
 """
 
@@ -114,6 +129,53 @@ PSNR_MIN = 20.0
 #: differs; readings 2.3e-9 to 6.6e-8).
 RESUME_REL = 1e-6
 
+#: The SDF slice: samples/learn_a_sdf.py's HashGrid config at full width.
+B_SDF = 1 << 16
+SDF_BATCHES = (B_SDF, B_SDF - 37, 1)
+#: K7 against its twin (H100 80GB HBM3, 700 W; the eikonal step's inputs):
+#: the same bf16-rounded contributions summed by f32 atomics in another
+#: order (gtable, readings up to 3.0e-7); dL/dx summed in the twin's order
+#: and rounded where the twin rounds (readings: bit-equal). Controls: the
+#: contributions unrounded, f32 (2.6e-4 and more); dL/dx rounded to bf16
+#: (1.5e-3 and more).
+K7_REL = {"gtable": 1e-6, "gx": 1e-6}
+#: K8 against its twin: ct_gy and ct_x bit-equal, gtable2 up to 5.7e-9.
+#: Controls: ct_gy and ct_x in bf16 (1.3e-3, 6.8e-4 and more), gtable2
+#: unrounded (1.5e-3).
+K8_REL = {"ct_gy": 1e-6, "gtable2": 2e-8, "ct_x": 1e-6}
+#: K9 against its twin: K6's differences (g split into bf16 hi + lo, 16
+#: significant bits, where the twin keeps f32), carried into dL/dx.
+#: Readings: weights up to 6.3e-6, table up to 1.2e-4. Controls: the
+#: weight gradient rounded to bf16 (bf16 partials, as K5's control); the
+#: composed route's precision, g rounded to bf16 at every layer, on the
+#: table (4.4e-4 and more) and on dL/dx.
+#: dL/dx per sample: a hidden unit whose bf16 rounding flips against the
+#: twin's flips a ReLU mask and moves that sample's dL/dx by order 1 (over
+#: the batch a norm then reads 1.3e-3, as the bf16 control does), so dL/dx
+#: is held per sample at the K9_GX_Q quantile: readings up to 1.8e-5,
+#: control 1.8e-3 and more.
+K9_REL = {"weights": 2e-5, "table": 4e-4, "gx": 6e-5}
+K9_GX_Q = 0.99
+#: Coverage of K7 and K8 at D = 2 and D = 4 (B = 2^16 - 37, random
+#: cotangents): a wrong branch errs by order 1.
+COVER_IG_REL = 1e-5
+#: SDF training: SDF_STEPS steps at B = 2^16 (1024 eikonal points); the
+#: loss must fall by SDF_LOSS_FALL (first step over the mean of the last
+#: ten) and the mean |SDF error| on the z = 0.5 slice must end under
+#: SDF_SLICE_MAX. Both set before the first run on the card from a CPU
+#: rehearsal of the same config on the twins (`python -m
+#: tcnn_tpu_torch.samples.learn_a_sdf 200 cpu`: 0.0384 -> 3.94e-4, ~97x;
+#: slice error 0.00445), with room for another seed and generator.
+SDF_STEPS = 200
+SDF_LOSS_FALL = 30.0
+SDF_SLICE_MAX = 0.015
+#: The fused route's eikonal gradient against the composed route's, after
+#: the training: the composed first order rounds g to bf16 per layer where
+#: K9 keeps f32, and its matmul chain sums in another order than K3, which
+#: flips the ReLU mask of a few points (reading 2.4e-2; the bound first
+#: written, 1e-2, came from a CPU reading at a small size, 9.1e-4).
+SDF_ROUTE_REL = 7e-2
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -191,21 +253,67 @@ def control(name, lower, want, bounds, split=None):
     check(rejected, f"control {name}: the bounds {bounds} pass a lower-precision twin ({rel})")
 
 
+def row_errors(got, want):
+    """Per-row relative error |got - want| / |want| (2-norms over a row)."""
+    import torch
+
+    g, w = got.double(), want.double()
+    return (torch.linalg.vector_norm(g - w, dim=1)
+            / torch.linalg.vector_norm(w, dim=1).clamp_min(1e-30))
+
+
+def compare_rows(name, got, want, q, bound):
+    """dL/dx against its twin's, per sample: the q-quantile of the per-row
+    relative error under `bound`. A hidden unit whose bf16 rounding flips
+    (the tensor cores sum in another order than the twin) flips a ReLU mask
+    and moves that one sample's dL/dx by order 1; such samples are counted
+    and reported, and the quantile holds the rest to the kernel's
+    precision."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype, f"{name}: shape/dtype")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    e = row_errors(got, want)
+    qv = float(torch.quantile(e.float(), q)) if e.numel() else 0.0
+    rel, err = norm_errors(got, want, {"all": None})
+    ok = qv <= bound
+    emit({"phase": "compare", "name": name, "shape": list(got.shape), "quantile": q,
+          "row_rel_err_at_quantile": qv, "rows_over_1e-3": int((e > 1e-3).sum()),
+          "row_rel_err_median": float(e.median()) if e.numel() else 0.0,
+          "norm_rel_err": rel, "max_abs_err": err, "limit": bound, "ok": ok})
+    check(ok, f"{name}: kernel disagrees with its plain twin (q{q} row error {qv})")
+    return err
+
+
+def control_rows(name, lower, want, q, bound):
+    """The row-quantile bound must reject a twin of lower precision."""
+    import torch
+
+    e = row_errors(lower, want)
+    qv = float(torch.quantile(e.float(), q)) if e.numel() else 0.0
+    emit({"phase": "control", "name": name, "quantile": q, "row_rel_err_at_quantile": qv,
+          "limit": bound, "rejected": qv > bound})
+    check(qv > bound, f"control {name}: the bound {bound} passes a lower-precision twin ({qv})")
+
+
 def counters():
     """Every kernel's launch counter, by name."""
     from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
 
     return {"K1": grid_kernel.LAUNCHES, "K2": mlp_kernel.LAUNCHES, "K3": train_kernel.LAUNCHES,
             "K4": grid_kernel.BWD_LAUNCHES, "K5": mlp_kernel.BWD_LAUNCHES,
-            "K6": train_kernel.TRAIN_LAUNCHES}
+            "K6": train_kernel.TRAIN_LAUNCHES, "K7": grid_kernel.IG_LAUNCHES,
+            "K8": grid_kernel.BWDBWD_LAUNCHES, "K9": train_kernel.IG_LAUNCHES}
 
 
 def reset_counters():
     from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
 
     grid_kernel.LAUNCHES = grid_kernel.BWD_LAUNCHES = 0
+    grid_kernel.IG_LAUNCHES = grid_kernel.BWDBWD_LAUNCHES = 0
     mlp_kernel.LAUNCHES = mlp_kernel.BWD_LAUNCHES = 0
-    train_kernel.LAUNCHES = train_kernel.TRAIN_LAUNCHES = 0
+    train_kernel.LAUNCHES = train_kernel.TRAIN_LAUNCHES = train_kernel.IG_LAUNCHES = 0
 
 
 def cuda_ms(fn, iters):
@@ -327,6 +435,143 @@ def check_mlp_bwd(name, dims, weights, enc, gout, bounds, control_too=False):
     if control_too:
         control(name + " gW in bf16", pw.to(torch.bfloat16).float(), pw, bounds["gW"])
     return err
+
+
+def to_bf16(t):
+    import torch
+
+    return t.to(torch.bfloat16).float()
+
+
+def scatter_f32(plan, x, g, z=None):
+    """The table-gradient scatter without the bf16 rounding of each
+    contribution, the control that the table-gradient bounds must reject:
+    K4's and K7's (corner weights W_c) or, with z, K8's (zw_c =
+    sum_d z_d dW_c/dx_d)."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel
+
+    L, F = plan.n_levels, plan.f
+    gl = g[:, : L * F].float().reshape(-1, L, F)
+    out = torch.zeros((plan.total_rows, F), dtype=torch.float32, device=x.device)
+    for k in grid_kernel._corners(plan, x, derivs=z is not None):
+        w = k.w if z is None else sum(z[:, None, d] * k.dw[d] for d in range(plan.d))
+        out.index_add_(0, k.rows.reshape(-1), (w[..., None] * gl).reshape(-1, F))
+    return out
+
+
+def eikonal_inputs(net, params, x):
+    """The cotangents the eikonal step hands K7, K8 and K9 at the points x:
+    K9's gy (d sum(out[:, 0]) / d out, f32 [B, out_w]); K7's gy (the MLP
+    chain's input gradient of the same, bf16 [B, enc_w], the composed
+    route's first order); K8's z (d eik / d gx at the twin's gx)."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel
+
+    net_p, enc_p = net.split_params(params)
+    plan = net.encoding.plan
+    table = enc_p.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
+    enc = grid_kernel._grid_encode_plain(plan, table, x, net.encoding.padded_output_width,
+                                         plan.n_levels).requires_grad_(True)
+    with torch.enable_grad():
+        out = net.network.apply(net_p, enc, second_order=True)
+        (gy_enc,) = torch.autograd.grad(out[:, 0].float().sum(), enc)
+    gy_out = torch.zeros((x.shape[0], net.network.padded_output_width), device=x.device)
+    gy_out[:, 0] = 1.0
+    gx = grid_kernel._grid_input_grad_plain(plan, table, x, gy_enc).requires_grad_(True)
+    with torch.enable_grad():
+        eik = 0.01 * torch.mean((torch.linalg.vector_norm(gx, dim=-1) - 1.0) ** 2)
+        (z,) = torch.autograd.grad(eik, gx)
+    return table, gy_out, gy_enc.to(torch.bfloat16).contiguous(), z.contiguous()
+
+
+def check_ig_kernels(tag, net, params, x, gen, control_too=True, bounds=None):
+    """K7, K8 (without and with a table cotangent) and K9 against their
+    twins on the eikonal step's inputs at x; each part under its bound, and
+    with `control_too` a lower-precision twin that must break it. Returns
+    the max abs errors {K7, K8, K9}."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
+
+    plan = net.encoding.plan
+    table, gy_out, gy_enc, z = eikonal_inputs(net, params, x)
+    errs = {}
+    b7 = bounds or K7_REL
+    kt, kx = grid_kernel.grid_backward_ig(plan, table, x, gy_enc)
+    pt, px = grid_kernel._grid_backward_ig_plain(plan, table, x, gy_enc)
+    errs["K7"] = max(compare_norm(f"K7 grid_bwd_ig gtable {tag}", kt, pt, b7["gtable"]),
+                     compare_norm(f"K7 grid_bwd_ig gx {tag}", kx, px, b7["gx"]))
+    if control_too:
+        control(f"K7 gtable unrounded {tag}", scatter_f32(plan, x, gy_enc), pt, b7["gtable"])
+        control(f"K7 gx in bf16 {tag}", to_bf16(px), px, b7["gx"])
+    b8 = bounds or K8_REL
+    ct = (torch.randn(plan.total_rows, plan.f, generator=gen) * 1e-2).to(torch.bfloat16).to(x.device)
+    errs["K8"] = 0.0
+    for label, ct_table in (("", None), (" ct_table", ct)):
+        k = grid_kernel.grid_backward_bwd(plan, table, ct_table, x, gy_enc, z)
+        q = grid_kernel._grid_backward_bwd_plain(plan, table, ct_table, x, gy_enc, z)
+        for part, a, b in zip(("ct_gy", "gtable2", "ct_x"), k, q):
+            errs["K8"] = max(errs["K8"], compare_norm(
+                f"K8 grid_bwd_bwd {part}{label} {tag}", a, b, b8[part]))
+        if control_too:
+            control(f"K8 ct_gy in bf16{label} {tag}", to_bf16(q[0]), q[0], b8["ct_gy"])
+            control(f"K8 ct_x in bf16{label} {tag}", to_bf16(q[2]), q[2], b8["ct_x"])
+            control(f"K8 gtable2 unrounded{label} {tag}",
+                    scatter_f32(plan, x, gy_enc, z), q[1], b8["gtable2"])
+    if bounds is not None:
+        return errs
+    prep = train_kernel.prepare_forward(net, params)
+    kg, kx9 = train_kernel.fused_ig_grads(net, params, x, gy_out)
+    pg, px9 = train_kernel._fused_ig_grads_plain(plan, prep.dims, prep.table, prep.weights, x,
+                                                 gy_out)
+    split = prep.dims.n_weights
+    errs["K9"] = max(compare_norm(f"K9 fused_ig grads {tag}", kg, pg,
+                                  {"weights": K9_REL["weights"], "table": K9_REL["table"]}, split),
+                     compare_rows(f"K9 fused_ig gx {tag}", kx9, px9, K9_GX_Q, K9_REL["gx"]))
+    if control_too:
+        enc = grid_kernel._grid_encode_plain(plan, prep.table, x, prep.dims.in_w, plan.n_levels)
+        gw, genc = mlp_kernel._mlp_backward_plain(prep.dims, prep.weights, enc,
+                                                  gy_out.to(torch.bfloat16))
+        lower = torch.cat([gw, grid_kernel._grid_backward_plain(plan, x, genc, plan.n_levels)
+                           .reshape(-1)])
+        control(f"K9 table {tag}, g in bf16", lower, pg, {"table": K9_REL["table"]}, split)
+        control(f"K9 weights {tag}, in bf16", to_bf16(pg), pg, {"weights": K9_REL["weights"]},
+                split)
+        control_rows(f"K9 gx {tag}, g in bf16",
+                     grid_kernel._grid_input_grad_plain(plan, prep.table, x, genc), px9, K9_GX_Q,
+                     K9_REL["gx"])
+    return errs
+
+
+#: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core
+#: and f32 (non-tensor) operations/s.
+HBM_BPS = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def bytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def grid_ops(B, plan, kind) -> float:
+    """f32 operations of the grid's work per (sample, level) and corner, as
+    the twins count them: the corner weight (D - 1 multiplies) and the
+    weighted row (2F) forward; the same plus F multiplies and F adds of the
+    scatter backward; with input gradients 2F more for the feature dot and
+    D * D for dW/dx; the double backward's zw (2D), d2W (D^3) and hessian
+    sums (2D^2), ct_gy (2F), the dot (2F) and the scatter (2F)."""
+    D, F, C = plan.d, plan.f, plan.n_corners
+    per = {"fwd": D - 1 + 2 * F, "bwd": D - 1 + 2 * F, "ig": D - 1 + 4 * F + D * D,
+           "bwdbwd": D * D + 2 * D + D ** 3 + 2 * D * D + 6 * F}[kind]
+    return float(B) * plan.n_levels * C * per
+
+
+def kernel_bound(n_bytes, f32=0.0, bf16=0.0):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their peaks."""
+    t_bytes = n_bytes / HBM_BPS
+    t_ops = f32 / PEAK_OPS["f32"] + bf16 / PEAK_OPS["bf16"]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 def main() -> int:
@@ -610,6 +855,143 @@ def main() -> int:
           "training_step_ms": step_ms,
           "training_steps_per_s": {k: 1e3 / v for k, v in step_ms.items()},
           "training_Msamples_per_s": {k: B_MAIN / v / 1e3 for k, v in step_ms.items()}})
+    # the least time the card could take for each kernel's work at the
+    # timed shapes (B = 2^18, this phase's inputs): bytes (each input read
+    # once, each output written once) over 3.35 TB/s, against operations
+    # over the peak of their type (989 TFLOP/s bf16 on the tensor cores,
+    # 67 TFLOP/s f32)
+    out_bytes = B_MAIN * dims.out_w * 2
+    bounds = {
+        "K1": kernel_bound(bytes_of(x, prep.table) + B_MAIN * enc_w * 2,
+                           f32=grid_ops(B_MAIN, plan, "fwd")),
+        "K2": kernel_bound(bytes_of(enc, prep.weights) + out_bytes,
+                           bf16=2 * B_MAIN * dims.n_weights),
+        "K3": kernel_bound(bytes_of(x, prep.table, prep.weights) + out_bytes,
+                           f32=grid_ops(B_MAIN, plan, "fwd"), bf16=2 * B_MAIN * dims.n_weights),
+        "K4": kernel_bound(bytes_of(x, gy_enc) + plan.total_rows * plan.f * 4,
+                           f32=grid_ops(B_MAIN, plan, "bwd")),
+        "K5": kernel_bound(bytes_of(enc, gy_out, prep.weights) + dims.n_weights * 4
+                           + B_MAIN * dims.in_w * 2, bf16=6 * B_MAIN * dims.n_weights),
+        "K6": kernel_bound(bytes_of(x, t, prep.table, prep.weights) + net.n_params * 4,
+                           f32=grid_ops(B_MAIN, plan, "fwd") + grid_ops(B_MAIN, plan, "bwd"),
+                           bf16=6 * B_MAIN * dims.n_weights),
+    }
+
+    # 7. the input-gradient kernels against their twins at the SDF config
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    for interp in ("Linear", "Smoothstep"):
+        scfg = json.loads(json.dumps(sdf.CONFIG))
+        scfg["encoding"]["interpolation"] = interp
+        sm = tt.create_from_config(3, 1, scfg, seed=SEED + 7, device=dev)
+        sm.trainer.set_params(random_params(sm.trainer, gen))
+        check(train_kernel.supported_ig(sm.network), "the SDF config must take the fused ig route")
+        for B in SDF_BATCHES:
+            x = torch.rand(B, 3, generator=gen).to(dev)
+            for k, v in check_ig_kernels(f"{interp} B={B}", sm.network, sm.trainer.params, x,
+                                         gen).items():
+                errs[k] = max(errs.get(k, 0.0), v)
+    cover = dict.fromkeys(("gtable", "gx", "ct_gy", "gtable2", "ct_x"), COVER_IG_REL)
+    for d, interp in ((2, "Smoothstep"), (4, "Linear")):
+        scfg = json.loads(json.dumps(sdf.CONFIG))
+        scfg["encoding"]["interpolation"] = interp
+        sm = tt.create_from_config(d, 1, scfg, seed=SEED + 8, device=dev)
+        sm.trainer.set_params(random_params(sm.trainer, gen))
+        x = torch.rand(B_SDF - 37, d, generator=gen).to(dev)
+        for k, v in check_ig_kernels(f"D={d} {interp} B={B_SDF - 37}", sm.network,
+                                     sm.trainer.params, x, gen, control_too=False,
+                                     bounds=cover).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    # 8. the SDF slice: eikonal training through the sample's own step
+    sm = tt.create_from_config(3, 1, sdf.CONFIG, seed=SEED + 9, device="cuda")
+    str_, snet = sm.trainer, sm.network
+    sgen = torch.Generator(device=dev).manual_seed(SEED)
+    sdf_batches = [torch.rand(B_SDF, 3, generator=sgen, device=dev) for _ in range(SDF_STEPS)]
+    slice_before = sdf.slice_error(snet, str_.params)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    sdf_losses = [sdf.train_step(str_, xs) for xs in sdf_batches]
+    torch.cuda.synchronize()
+    sdf_loop_s = time.perf_counter() - t0
+    sdf_launches = counters()
+    sdf_losses = torch.stack(sdf_losses).cpu()
+    check(bool(torch.isfinite(sdf_losses).all()), "SDF loss not finite")
+    sdf_fall = float(sdf_losses[0] / sdf_losses[-10:].mean())
+    slice_after = sdf.slice_error(snet, str_.params)
+    per_step = {"K1": 2, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 0, "K7": 1, "K8": 1, "K9": 1}
+    emit({"phase": "sdf slice", "steps": SDF_STEPS, "B": B_SDF, "eikonal_points": sdf.N_EIKONAL,
+          "launches": sdf_launches, "launches_per_step_expected": per_step,
+          "loss_first": float(sdf_losses[0]), "loss_last10_mean": float(sdf_losses[-10:].mean()),
+          "loss_at": {str(i): float(sdf_losses[i])
+                      for i in sorted({0, SDF_STEPS // 10, SDF_STEPS // 4, SDF_STEPS // 2,
+                                       SDF_STEPS - 1})},
+          "loss_fall": sdf_fall, "loss_fall_min": SDF_LOSS_FALL,
+          "slice_error_before": slice_before, "slice_error": slice_after,
+          "slice_error_max": SDF_SLICE_MAX, "loop_seconds": sdf_loop_s})
+    check(all(sdf_launches[k] == n * SDF_STEPS for k, n in per_step.items()),
+          f"the SDF steps did not run K3, K9, K1, K7, K8 and K1, K2, K5, K4 on every step: "
+          f"{sdf_launches}")
+    check(sdf_fall >= SDF_LOSS_FALL, f"SDF loss fell only {sdf_fall}x")
+    check(slice_after <= SDF_SLICE_MAX, f"SDF slice error {slice_after}")
+    # the fused route's eikonal gradient against the composed route's
+    xe = sdf_batches[-1][: sdf.N_EIKONAL]
+    eik_grads = []
+    for fused in (True, False):
+        p = str_.params.detach().requires_grad_(True)
+        g = sdf.eikonal_grad(snet, p, xe, fused_ig=fused)
+        eik = torch.mean((torch.linalg.vector_norm(g, dim=-1) - 1.0) ** 2)
+        eik_grads.append(torch.autograd.grad(eik, p)[0])
+    compare_norm("SDF eikonal gradient, fused route (K3 K9) vs composed (K1 K7)", eik_grads[0],
+                 eik_grads[1], SDF_ROUTE_REL)
+
+    # 9. times of K7, K8 and K9 at the SDF config, and of one SDF step
+    sm = tt.create_from_config(3, 1, sdf.CONFIG, seed=SEED + 10, device="cuda")
+    sm.trainer.set_params(random_params(sm.trainer, gen))
+    snet, sparams = sm.network, sm.trainer.params
+    splan = snet.encoding.plan
+    sprep = train_kernel.prepare_forward(snet, sparams)
+    ig_ms, ig_inputs = {}, {}
+    for B in (B_SDF, B_MAIN):
+        xi = torch.rand(B, 3, generator=gen).to(dev)
+        tbl, go, ge, zz = eikonal_inputs(snet, sparams, xi)
+        ig_inputs[B] = (xi, tbl, go, ge, zz)
+        timed_ig = {
+            "K7": (lambda: grid_kernel.grid_backward_ig(splan, tbl, xi, ge),
+                   lambda: grid_kernel._grid_backward_ig_plain(splan, tbl, xi, ge)),
+            "K8": (lambda: grid_kernel.grid_backward_bwd(splan, tbl, None, xi, ge, zz),
+                   lambda: grid_kernel._grid_backward_bwd_plain(splan, tbl, None, xi, ge, zz)),
+            "K9": (lambda: train_kernel.fused_ig_grads(snet, sparams, xi, go),
+                   lambda: train_kernel._fused_ig_grads_plain(splan, sprep.dims, sprep.table,
+                                                              sprep.weights, xi, go)),
+        }
+        for name, (kern, plain) in timed_ig.items():
+            p1 = cuda_ms(plain, 3)
+            k1 = cuda_ms(kern, 20)
+            k2 = cuda_ms(kern, 20)
+            p2 = cuda_ms(plain, 3)
+            ig_ms[(name, B)] = (min(k1, k2), min(p1, p2))
+    xs = torch.rand(B_SDF, 3, generator=gen).to(dev)
+    sdf_step_ms = cuda_ms(lambda: sdf.train_step(sm.trainer, xs), 20)
+    emit({"phase": "times ig", "card": smi,
+          "ms": {f"{k} B={b}": {"kernel": v[0], "plain": v[1]} for (k, b), v in ig_ms.items()},
+          "sdf_train_step_ms": sdf_step_ms, "sdf_steps_per_s": 1e3 / sdf_step_ms})
+    for k in ("K7", "K8", "K9"):
+        ms[k] = ig_ms[(k, B_MAIN)]
+
+    x18, table18, gy18, gye18, z18 = ig_inputs[B_MAIN]
+    bounds.update({
+        "K7": kernel_bound(bytes_of(x18, gye18, table18) + splan.total_rows * splan.f * 4
+                           + x18.numel() * 4, f32=grid_ops(B_MAIN, splan, "ig")),
+        "K8": kernel_bound(bytes_of(x18, gye18, z18, table18) + gye18.numel() * 4
+                           + splan.total_rows * splan.f * 4 + x18.numel() * 4,
+                           f32=grid_ops(B_MAIN, splan, "bwdbwd")),
+        "K9": kernel_bound(bytes_of(x18, gy18, table18, sprep.weights) + snet.n_params * 4
+                           + x18.numel() * 4,
+                           f32=grid_ops(B_MAIN, splan, "fwd") + grid_ops(B_MAIN, splan, "ig"),
+                           bf16=6 * B_MAIN * sprep.dims.n_weights),
+    })
 
     sources = {
         "K1": ("grid_fwd", "tcnn_tpu_torch/csrc/grid_fwd.cu",
@@ -624,16 +1006,25 @@ def main() -> int:
                "tcnn_tpu/ops/pallas/mlp_kernel.py:71"),
         "K6": ("fused_train", "tcnn_tpu_torch/csrc/fused_train.cu",
                "tcnn_tpu/ops/pallas/train_kernel.py:587"),
+        "K7": ("grid_bwd_ig", "tcnn_tpu_torch/csrc/grid_bwd_ig.cu",
+               "tcnn_tpu/ops/pallas/grid_kernel.py:815"),
+        "K8": ("grid_bwd_bwd", "tcnn_tpu_torch/csrc/grid_bwd_bwd.cu",
+               "tcnn_tpu/ops/pallas/grid_kernel.py:981"),
+        "K9": ("fused_ig", "tcnn_tpu_torch/csrc/fused_ig.cu",
+               "tcnn_tpu/ops/pallas/train_kernel.py:2106"),
     }
     # launches: K1-K3 from the inference slice, K6 from the fused training
-    # loop, K4 and K5 from the composed training step
+    # loop, K4 and K5 from the composed training step, K7-K9 from the SDF
+    # slice
     path_launches = {**{k: launches[k] for k in ("K1", "K2", "K3")},
                      "K4": composed_launches["K4"], "K5": composed_launches["K5"],
-                     "K6": train_launches["K6"]}
+                     "K6": train_launches["K6"],
+                     **{k: sdf_launches[k] for k in ("K7", "K8", "K9")}}
     emit({"kernels": [
         {"name": sources[k][0], "route": "cuda", "source": sources[k][1],
          "replaces": sources[k][2], "launches": path_launches[k], "max_abs_err": errs[k],
-         "ms": ms[k][0], "plain_ms": ms[k][1]}
+         "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1], "library_ms": None}
         for k in sources
     ]})
     print(smi, flush=True)

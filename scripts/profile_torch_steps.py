@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Where a training step of tcnn_tpu_torch spends its time on one CUDA GPU.
+
+    python3 scripts/profile_torch_steps.py
+
+Profiles, with torch.profiler (CPU and CUDA activity), a short steady window
+of each step after a warm-up:
+  - the SDF step of tcnn_tpu_torch.samples.learn_a_sdf (B = 2^16, 1024
+    eikonal points): the data term (K1 K2 K5 K4), the fused first order of
+    the eikonal term (K3 K9) and its second order (K1 K7 K8 and the matmul
+    chain's double backward), then Adam;
+  - `Trainer.training_step` on data/config_hash.json at B = 2^18, on the
+    fused route (K6) and the composed route (K1 K2 K5 K4).
+For each it prints one JSON line: wall ms per step (host clock around
+synchronised steps, without the profiler), device ms per step (the sum of
+the CUDA kernels' times under the profiler), the device's busy share of the
+profiled wall time, the number of kernel launches per step and the kernels
+that take the most device time. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+WARMUP = 10
+STEPS = 20
+
+
+def profile(name, step, smi):
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            step()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    kernels = {}
+    launches = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time_total > 0:
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total / 1e3
+            launches += 1
+    device_ms = sum(kernels.values()) / STEPS
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    print(json.dumps({
+        "step": name, "card": smi, "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
+        "device_ms": device_ms, "device_busy": device_ms / prof_wall_ms if prof_wall_ms else 0.0,
+        "kernel_launches_per_step": launches / STEPS,
+        "top_kernels_ms_per_step": {k[:80]: v / STEPS for k, v in top},
+    }), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_steps: no CUDA device available", file=sys.stderr)
+        return 1
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+    from tcnn_tpu_torch.utils.image import sample_image, synthetic_image
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    m = tt.create_from_config(3, 1, sdf.CONFIG, device=dev)
+    xs = torch.rand(sdf.BATCH, 3, generator=gen, device=dev)
+    profile("sdf train_step B=2^16", lambda: sdf.train_step(m.trainer, xs), smi)
+
+    cfg = tt.load_config(str(ROOT / "data" / "config_hash.json"))
+    image = synthetic_image(1024, 1024, device=dev)
+    x = torch.rand(1 << 18, 2, generator=gen, device=dev)
+    t = sample_image(image, x)
+    m = tt.create_from_config(2, 3, cfg, device=dev)
+    for route, flag in (("fused", None), ("composed", False)):
+        m.trainer.use_fused_train_kernel = flag
+        profile(f"config_hash training_step {route} B=2^18",
+                lambda: m.trainer.training_step(x, t), smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

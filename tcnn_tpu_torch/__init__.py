@@ -3,11 +3,17 @@
 Imports `torch` and never `jax`. Uses the JAX package's JSON "otype"
 configs, flat parameter layout ([network | encoding]) and checkpoint format.
 So far it trains and serves grid + MLP models with the nine losses and
-Adam. Six hand-written CUDA kernels for sm_90a under ``csrc/`` carry the
-path: grid forward (K1) and backward (K4), fully fused MLP forward (K2) and
-backward (K5), fused grid + MLP inference (K3) and the fused train step
-(K6). They build at first use on a CUDA tensor; a CPU tensor takes each
-kernel's plain PyTorch twin.
+Adam, and differentiates them with respect to their inputs to second order
+(`model.apply(..., prepare_input_gradients=True)`, then
+`torch.autograd.grad(..., create_graph=True)`; the eikonal SDF sample,
+`python -m tcnn_tpu_torch.samples.learn_a_sdf`). Nine hand-written CUDA
+kernels for sm_90a under ``csrc/`` carry those paths: grid forward (K1),
+backward (K4), backward with input gradients (K7) and double backward (K8);
+fully fused MLP forward (K2) and backward (K5); fused grid + MLP inference
+(K3), train step (K6) and input-gradient backward (K9). They build at first
+use on a CUDA tensor; a CPU tensor takes each kernel's plain PyTorch twin.
+Entry points run on the card unless the caller asks for the CPU
+(`device="cpu"`).
 """
 
 __version__ = "0.1.0"

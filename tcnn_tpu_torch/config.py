@@ -44,7 +44,7 @@ class TrainableModel:
 
 
 def create_from_config(
-    n_input_dims: int, n_output_dims: int, config: dict, seed: int = 1337, device="cpu"
+    n_input_dims: int, n_output_dims: int, config: dict, seed: int = 1337, device="cuda"
 ) -> TrainableModel:
     loss = create_loss(cfg_get(config, "loss", {}) or {})
     optimizer = create_optimizer(cfg_get(config, "optimizer", {}) or {})

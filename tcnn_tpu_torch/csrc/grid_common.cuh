@@ -1,6 +1,6 @@
 // One (sample, level) of the multiresolution grid, forward and backward,
-// shared by K1 (grid_fwd.cu), K3 (fused_infer.cu), K4 (grid_bwd.cu) and K6
-// (fused_train.cu).
+// shared by K1 (grid_fwd.cu), K3 (fused_infer.cu), K4 (grid_bwd.cu), K6 and
+// K9 (fused_train.cu), K7 (grid_bwd_ig.cu) and K8 (grid_bwd_bwd.cu).
 //
 // The arithmetic is written to round exactly where the plain PyTorch twin
 // (ops/cuda/grid_kernel.py:_corners) and the JAX package round: every float
@@ -11,8 +11,8 @@
 // c = 0..C-1, in the twin's order. Cells are int32(floor(pos)) reinterpreted
 // as uint32; strides, hashes and dense indices wrap in uint32
 // (grid.py:256-291), and the row within a level is an exact integer modulo.
-// The forward and the backward visit the corners through one function,
-// grid_corners, so both agree on every corner at cell boundaries.
+// The forward and the backwards visit the corners through one function,
+// grid_corners, so all agree on every corner at cell boundaries.
 #pragma once
 
 #include "common.cuh"
@@ -30,9 +30,46 @@ struct GridArgs {
   unsigned factors[4];     // hash factors (common_device.h:647-661)
 };
 
+// The per-corner derivative terms of the input-gradient kernels (K7, K8,
+// K9), in the twin's order (grid_kernel.py:_corners): term[d] is w_d (bit d
+// of corner c set) or 1 - w_d; deriv[d], deriv2[d] are dw_d/dx_d and
+// d2w_d/dx_d^2 (scale and 0 for Linear; 6t(1-t) scale and 6(1-2t) scale^2
+// for Smoothstep).
+struct CornerDerivs {
+  int c, D;
+  float term[4], deriv[4], deriv2[4];
+
+  __device__ __forceinline__ float sgn(int d) const { return ((c >> d) & 1) ? 1.f : -1.f; }
+  // product of the terms other than d and e, left to right; 1 when none
+  __device__ __forceinline__ float prod_except(int d, int e) const {
+    float p = 1.f;
+    bool first = true;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k < D && k != d && k != e) {
+        p = first ? term[k] : __fmul_rn(p, term[k]);
+        first = false;
+      }
+    }
+    return p;
+  }
+  // dW_c/dx_d = (s_d * prod_{d' != d} term_d') * dw_d
+  __device__ __forceinline__ float dw(int d) const {
+    return __fmul_rn(sgn(d) * prod_except(d, d), deriv[d]);
+  }
+  // d2W_c/dx_d dx_e: ((s_d s_e prod_{k not d, e} term_k) * dw_d) * dw_e off
+  // the diagonal, (s_d * prod_{k != d} term_k) * d2w_d on it
+  __device__ __forceinline__ float d2w(int d, int e) const {
+    if (d == e) return __fmul_rn(sgn(d) * prod_except(d, d), deriv2[d]);
+    return __fmul_rn(__fmul_rn(sgn(d) * sgn(e) * prod_except(d, e), deriv[d]), deriv[e]);
+  }
+};
+
 // Calls fn(row, w) for corner c = 0..C-1 of sample b at level l: `row` is the
-// absolute table row, `w` the corner weight (1 for Nearest).
-template <class Fn>
+// absolute table row, `w` the corner weight (1 for Nearest). With DERIV
+// (Linear or Smoothstep only) it calls fn(row, w, k), k the corner's
+// CornerDerivs.
+template <bool DERIV = false, class Fn>
 __device__ __forceinline__ void grid_corners(const GridArgs& g, long b, int l, Fn&& fn) {
   const int* li = g.level_i32 + l * 8;
   const unsigned offset = (unsigned)li[0];
@@ -40,21 +77,32 @@ __device__ __forceinline__ void grid_corners(const GridArgs& g, long b, int l, F
   const bool use_hash = li[2] != 0;
   const float scale = g.level_f32[l];
   const bool nearest = g.interp == INTERP_NEAREST;
+  const bool smooth = g.interp == INTERP_SMOOTHSTEP;
 
   unsigned cell[4];
   float w[4];
+  CornerDerivs k;
+  k.D = g.D;
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
     cell[d] = 0u;
     w[d] = 0.f;
+    k.deriv[d] = k.deriv2[d] = 0.f;
     if (d < g.D) {
       const float pos = __fadd_rn(__fmul_rn(g.x[b * g.D + d], scale), 0.5f);
       const float cf = floorf(pos);
       const float fr = __fsub_rn(pos, cf);
       cell[d] = (unsigned)(int)cf;
-      w[d] = g.interp == INTERP_SMOOTHSTEP
-                 ? __fmul_rn(__fmul_rn(fr, fr), __fsub_rn(3.0f, __fmul_rn(2.0f, fr)))
-                 : fr;
+      w[d] = smooth ? __fmul_rn(__fmul_rn(fr, fr), __fsub_rn(3.0f, __fmul_rn(2.0f, fr))) : fr;
+      if (DERIV) {
+        k.deriv[d] = smooth
+            ? __fmul_rn(__fmul_rn(__fmul_rn(6.0f, fr), __fsub_rn(1.0f, fr)), scale)
+            : scale;
+        k.deriv2[d] = smooth
+            ? __fmul_rn(__fmul_rn(__fmul_rn(6.0f, __fsub_rn(1.0f, __fmul_rn(2.0f, fr))), scale),
+                        scale)
+            : 0.f;
+      }
     }
   }
 
@@ -74,11 +122,17 @@ __device__ __forceinline__ void grid_corners(const GridArgs& g, long b, int l, F
           hash ^= cc * g.factors[d];
           const float term = bit ? w[d] : __fsub_rn(1.0f, w[d]);
           cw = d == 0 ? term : __fmul_rn(cw, term);
+          k.term[d] = term;
         }
       }
       const unsigned raw = use_hash ? hash : dense;
       const unsigned idx = pow2 ? (raw & (size - 1u)) : raw % size;
-      fn(offset + idx, nearest ? 1.f : cw);
+      if constexpr (DERIV) {
+        k.c = c;
+        fn(offset + idx, cw, k);
+      } else {
+        fn(offset + idx, nearest ? 1.f : cw);
+      }
     }
   }
 }
@@ -109,6 +163,64 @@ __device__ __forceinline__ void grid_level_bwd(const GridArgs& g, long b, int l,
       atomicAdd(gtable + (size_t)row * F + f, v);
     }
   });
+}
+
+// Backward with input gradients (K7, K9): K4's scatter, plus each corner's
+// feature row read again for dot = sum_f table[row, f] * gy[f], and
+// part[d] += dot * dW_c/dx_d, summed over corners c = 0..C-1 in order
+// (grid_kernel.py:884-921).
+template <int F>
+__device__ __forceinline__ void grid_level_bwd_ig(const GridArgs& g, long b, int l,
+                                                  const float* gy, float* __restrict__ gtable,
+                                                  float* part) {
+  grid_corners<true>(g, b, l, [&](unsigned row, float cw, const CornerDerivs& k) {
+    float v[F];
+    load_bf16<F>(g.table + (size_t)row * F, v);
+    float dot = __fmul_rn(v[0], gy[0]);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      if (f > 0) dot = __fadd_rn(dot, __fmul_rn(v[f], gy[f]));
+      atomicAdd(gtable + (size_t)row * F + f,
+                __bfloat162float(__float2bfloat16_rn(__fmul_rn(cw, gy[f]))));
+    }
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      if (d < g.D) part[d] = __fadd_rn(part[d], __fmul_rn(dot, k.dw(d)));
+    }
+  });
+}
+
+// Per-sample sums over levels of the partials in shared memory `parts`
+// [rows][L][D] of samples b0 .. b0 + rows - 1: out[b * D + d] = sum over
+// l = 0..L-1, in order, of parts[b - b0][l][d], for b < B. One thread per
+// (sample, dim); deterministic, and the twin's order
+// (grid_kernel.py:_level_sum). K9 calls it on its tile's partials.
+__device__ __forceinline__ void sum_level_parts(const float* parts, int rows, int D, int L,
+                                                long b0, long B, float* __restrict__ out) {
+  for (int q = threadIdx.x; q < rows * D; q += blockDim.x) {
+    const int r = q / D, d = q % D;
+    const long b = b0 + r;
+    if (b < B) {
+      float acc = parts[r * L * D + d];
+      for (int l = 1; l < L; ++l) acc = __fadd_rn(acc, parts[(r * L + l) * D + d]);
+      out[b * D + d] = acc;
+    }
+  }
+}
+
+// The same for a block whose thread t owns sample b0 + t / L at level t % L
+// (blockDim.x / L samples, blockDim.x <= 256) and holds that level's
+// partial part[d] (K7, K8). Every thread of the block must call it.
+__device__ __forceinline__ void sum_levels(const float* part, int D, int L, long b0, long B,
+                                           float* __restrict__ out) {
+  __shared__ float sm[256 * 4];
+  const int S = blockDim.x / L;
+  const int s = threadIdx.x / L, l = threadIdx.x % L;
+  if (s < S) {
+    for (int d = 0; d < D; ++d) sm[(s * L + l) * D + d] = part[d];
+  }
+  __syncthreads();
+  sum_level_parts(sm, S, D, L, b0, B, out);
 }
 
 }  // namespace tcnn

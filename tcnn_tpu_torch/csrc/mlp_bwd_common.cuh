@@ -1,5 +1,5 @@
-// The fully fused MLP backward, shared by K5 (mlp_bwd.cu, SPLIT = false) and
-// K6 (fused_train.cu, SPLIT = true).
+// The fully fused MLP backward, shared by K5 (mlp_bwd.cu, SPLIT = false), K6
+// and K9 (fused_train.cu, SPLIT = true).
 //
 // Shared-memory layout of a block of nt rows (nt/16 warps, 16 rows each),
 // the same bytes as ops/cuda/mlp_kernel.py:bwd_smem_bytes:
@@ -9,6 +9,7 @@
 //   [G_0][G_1]: two gradient tiles, each hi: nt x ldg bf16 and, when SPLIT,
 //       lo: nt x ldg bf16, ldg = max(in_w, width, out_w) + 8
 //   [scratch: nt/16 x 16x16 f32]
+//   [K9 only: nt x L*D f32, the dL/dx partials of each (row, level)]
 // Row pitches are multiples of 8 elements, so every 16-row fragment starts
 // 32-byte aligned.
 //
@@ -37,6 +38,7 @@ namespace tcnn {
 
 struct BwdLayout {
   int nt, in_w, width, n_hidden, out_w, split;
+  int ig;  // K9: f32 dL/dx partials per row (L * D), after the scratch; 0 otherwise
 
   __host__ __device__ int ld_h(int i) const {
     return (i == 0 ? in_w : i == n_hidden + 1 ? out_w : width) + 8;
@@ -60,7 +62,8 @@ struct BwdLayout {
   }
   __host__ __device__ size_t g_bytes() const { return (size_t)(split ? 2 : 1) * nt * ld_g() * 2; }
   __host__ __device__ size_t g_offset(int k) const { return h_offset(n_hidden + 2) + k * g_bytes(); }
-  __host__ __device__ size_t bytes() const { return g_offset(2) + (size_t)(nt / 16) * 256 * 4; }
+  __host__ __device__ size_t ig_offset() const { return g_offset(2) + (size_t)(nt / 16) * 256 * 4; }
+  __host__ __device__ size_t bytes() const { return ig_offset() + (size_t)nt * ig * 4; }
 };
 
 struct GTile {

@@ -6,7 +6,8 @@
   - `FullyFusedMLP` (otype "FullyFusedMLP"): widths {16, 32, 64, 128},
     through `mlp_kernel.FusedMlpFn`: kernel K2 forward, kernel K5 backward
     (``ops/cuda/mlp_kernel.py``). Sine has no fused form
-    (mlp_kernel.py:44-48) and takes the matmul chain.
+    (mlp_kernel.py:44-48) and takes the matmul chain, and so does a
+    `second_order` apply (the input-gradient path).
 
 Parameter layout (flat fp32, row-major per matrix, fully_fused_mlp.cu:659-677):
     [W_in (width x input_width), W_hidden_1..H-1 (width x width),
@@ -74,9 +75,10 @@ class CutlassMLP(Network):
         return torch.cat(parts)
 
     # -- compute -----------------------------------------------------------
-    def apply(self, params, x):
+    def apply(self, params, x, second_order=False):
         """bf16 operands, f32 products and activation, bf16 between layers
-        (mlp.py:98-108)."""
+        (mlp.py:98-108); differentiable to any order by autograd, so
+        `second_order` changes nothing here."""
         h = x.to(torch.bfloat16).float()
         off = 0
         sizes = self.layer_sizes()
@@ -131,8 +133,12 @@ class FullyFusedMLP(CutlassMLP):
             self.padded_output_width, self.activation, self.output_activation,
         )
 
-    def apply(self, params, x):
-        if Activation.Sine in (self.activation, self.output_activation):
+    def apply(self, params, x, second_order=False):
+        """K2 forward and K5 backward; `second_order` (the input-gradient
+        path, whose gradient is differentiated again) takes the matmul chain
+        under autograd instead, as tcnn_tpu does (mlp.py:153-170): K5's
+        backward is not differentiable."""
+        if second_order or Activation.Sine in (self.activation, self.output_activation):
             return super().apply(params, x)
         return mlp_kernel.FusedMlpFn.apply(params, x, self.dims)
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.cuda import train_kernel
 from ..ops.encodings.base import Encoding
 from .base import Network
 
@@ -43,16 +44,29 @@ class NetworkWithInputEncoding(Network):
         net = self.network.init_params(generator)
         return torch.cat([net, self.encoding.init_params(generator)])
 
-    def apply(self, params, x, *, max_level=None):
-        """[B, D] -> [B, padded_output_width] bf16: the encoding (K1) into the
-        network (K2, or the matmul chain). Differentiable with respect to
-        `params` (network_with_input_encoding.py:59-111 without input
-        gradients): autograd runs K5 and K4 backward, or the matmul chain's
-        own backward, and returns the f32 gradient of the flat vector."""
+    def apply(self, params, x, *, max_level=None, prepare_input_gradients=False,
+              _no_fused_ig=False):
+        """[B, D] -> [B, padded_output_width] bf16 (network_with_input_encoding.
+        py:59-111). Differentiable with respect to `params`: autograd runs K5
+        and K4 backward (or the matmul chain's own backward) and returns the
+        f32 gradient of the flat vector.
+
+        `prepare_input_gradients` mirrors the reference flag: the output is
+        then differentiable with respect to `x` as well, to second order.
+        A model that `train_kernel.supported_ig` takes runs the fused route
+        (K3 forward, K9 backward; its second order re-runs the composed
+        route); every other model, and `_no_fused_ig` (that fallback's
+        re-entry guard), runs the composed route: the encoding with
+        `needs_input_grad` (K1, K7, K8) into the MLP's matmul chain."""
+        if (prepare_input_gradients and not _no_fused_ig and max_level is None
+                and train_kernel.supported_ig(self)):
+            return train_kernel.FusedApplyIgFn.apply(params, x, self)
         net_p, enc_p = self.split_params(params)
         kwargs = {} if max_level is None else {"max_level": max_level}
+        if prepare_input_gradients:
+            kwargs["needs_input_grad"] = True
         enc_out = self.encoding.apply(enc_p, x, **kwargs)
-        return self.network.apply(net_p, enc_out)
+        return self.network.apply(net_p, enc_out, second_order=prepare_input_gradients)
 
     def hyperparams(self):
         return {

@@ -1,24 +1,32 @@
 """Multiresolution grid forward and backward: kernels K1
-(``csrc/grid_fwd.cu``) and K4 (``csrc/grid_bwd.cu``), their plain PyTorch
-twins, and `GridEncodeFn`, the autograd Function that joins them.
+(``csrc/grid_fwd.cu``), K4 (``csrc/grid_bwd.cu``), K7
+(``csrc/grid_bwd_ig.cu``) and K8 (``csrc/grid_bwd_bwd.cu``), their plain
+PyTorch twins, and the autograd Functions that join them: `GridEncodeFn`
+(table gradient only) and `GridIgFn` / `GridIgBackwardFn` (input gradients,
+differentiable twice).
 
 K1 replaces ``tcnn_tpu/ops/pallas/grid_kernel.py:_fwd_kernel`` (reached
-through ``_fwd_call`` and ``grid_encode_pallas``), K4 replaces its
-``_bwd_kernel`` (through ``_bwd_call`` and ``_grid_pallas_bwd``). The TPU
-kernels gather and scatter through one-hot matmuls against a 128-lane packed
-table because the TPU has no per-lane random access; on Hopper each thread
-owns one (sample, level), reads its 2^D corner rows directly from a bf16
-[total_rows, F] table that stays in L2, and scatters the table gradient with
-f32 atomics. Only the bf16 rounding carries over from the TPU layout; the
-public column order is the JAX package's (level-major, feature-minor).
+through ``_fwd_call`` and ``grid_encode_pallas``), K4 its ``_bwd_kernel``
+(through ``_bwd_call`` and ``_grid_pallas_bwd``), K7 its ``_bwd_ig_kernel``
+(through ``_bwd_ig_call`` and ``_ig_backward``) and K8 its
+``_bwd_bwd_kernel`` (through ``_bwd_bwd_call`` and ``_ig_backward_bwd``).
+The TPU kernels gather and scatter through one-hot matmuls against a
+128-lane packed table because the TPU has no per-lane random access; on
+Hopper each thread owns one (sample, level), reads its 2^D corner rows
+directly from a bf16 [total_rows, F] table that stays in L2, and scatters
+table gradients with f32 atomics. Only the bf16 rounding carries over from
+the TPU layout; the public column order is the JAX package's (level-major,
+feature-minor). Every kernel and twin visits the corners through one walker
+(`_corners` here, ``grid_corners`` in ``csrc/grid_common.cuh``).
 
-`grid_encode` and `grid_backward` take the plain twin for a CPU tensor and
-the kernel for a CUDA tensor; there is no other route.
+Each wrapper takes the plain twin for a CPU tensor and the kernel for a
+CUDA tensor; there is no other route.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,10 +34,12 @@ import torch
 from ...common import GridType, HashType, InterpolationType, smoothstep
 from . import _build
 
-#: Launches of K1 and of K4 since the last reset (counted where each
+#: Launches of K1, K4, K7 and K8 since the last reset (counted where each
 #: kernel launches).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+IG_LAUNCHES = 0
+BWDBWD_LAUNCHES = 0
 
 U32 = 0xFFFFFFFF
 
@@ -104,18 +114,32 @@ def index_within_level(cells, strides, use_hash, factors, sizes):
     return raw % sizes[:, None]
 
 
-def positions(x, scales, interpolation: InterpolationType):
+def positions(x, scales, interpolation: InterpolationType, derivs: bool = False):
     """pos_fract (common_device.h:826-867): x [..., D] f32 and per-level
     scales [..., L] -> (int64 uint32 cells, f32 weights) [..., L, D], with
     pos = x * scale + 0.5 rounded after the multiply and after the add, the
     cell int32(floor(pos)) reinterpreted as uint32, and the weight the
-    fraction (or its smoothstep)."""
-    pos = x[..., None, :] * scales[..., :, None] + 0.5
+    fraction (or its smoothstep).
+
+    With `derivs`, also dw/dx and d2w/dx2 [..., L, D] of the weight
+    (grid_kernel.py:842-848, 1008-1015): scale and 0 for Linear;
+    6 t (1 - t) scale and 6 (1 - 2t) scale^2 for Smoothstep, each rounded
+    after every operation in that order."""
+    scale = scales[..., :, None]
+    pos = x[..., None, :] * scale + 0.5
     cell_f = torch.floor(pos)
     fract = pos - cell_f
     cells = cell_f.to(torch.int32).to(torch.int64) & U32
     w = smoothstep(fract) if interpolation == InterpolationType.Smoothstep else fract
-    return cells, w
+    if not derivs:
+        return cells, w
+    if interpolation == InterpolationType.Smoothstep:
+        deriv = 6.0 * fract * (1.0 - fract) * scale
+        deriv2 = 6.0 * (1.0 - 2.0 * fract) * scale * scale
+    else:
+        deriv = scale.expand_as(fract)
+        deriv2 = torch.zeros_like(fract)
+    return cells, w, deriv, deriv2
 
 
 class GridPlan:
@@ -175,16 +199,40 @@ class GridPlan:
         return self._device_consts[key]
 
 
-def _corners(plan: GridPlan, x):
-    """Yields, for each corner c = 0..C-1, the absolute table rows
-    [B, L] int64 of every (sample, level) and the corner weights [B, L] f32
-    (the product over dims d = 0..D-1 of w_d or 1 - w_d; 1 for Nearest):
-    the f32 position, cell and weight math of K1/K4 with one rounding per
-    operation."""
+class Corner(NamedTuple):
+    """One corner c of every (sample, level): absolute table rows [B, L]
+    int64 and the weight W_c [B, L] f32; with derivatives, dW_c/dx_d [D] and
+    d2W_c/dx_d dx_d' [D][D], each [B, L] f32."""
+
+    rows: torch.Tensor
+    w: torch.Tensor
+    dw: list | None = None
+    d2w: list | None = None
+
+
+def _prod(terms):
+    """Left-to-right product of [B, L] factors; 1 when there are none."""
+    out = None
+    for t in terms:
+        out = t if out is None else out * t
+    return 1.0 if out is None else out
+
+
+def _corners(plan: GridPlan, x, derivs: bool = False):
+    """Yields a `Corner` for each corner c = 0..C-1, in the f32 position,
+    cell, weight and index math of K1/K4 with one rounding per operation:
+    W_c is the product over d = 0..D-1 of the per-dim terms w_d (bit set)
+    or 1 - w_d (1 for Nearest). With `derivs` (K7, K8, K9), also
+    dW_c/dx_d = (s_d * prod_{d' != d} term_d') * dw_d and
+    d2W_c/dx_d dx_d' = ((s_d s_d' prod_{d'' not in {d, d'}} term_d'') * dw_d)
+    * dw_d' for d != d', (s_d * prod_{d' != d} term_d') * d2w_d on the
+    diagonal, where s_d = +1 for a set bit and -1 otherwise
+    (grid_kernel.py:896-921, 1048-1057, 1125-1151)."""
     L, D = plan.n_levels, plan.d
     dev = x.device
     scales = torch.from_numpy(plan.scales).to(dev)
-    cells, w = positions(x, scales, plan.interpolation)  # [B, L, D]
+    pos = positions(x, scales, plan.interpolation, derivs)  # each [B, L, D]
+    cells, w = pos[0], pos[1]
     strides = torch.tensor(plan.strides, dtype=torch.int64, device=dev).reshape(L, D)
     use_hash = torch.tensor(plan.use_hash, dtype=torch.bool, device=dev)
     sizes = torch.tensor(plan.sizes, dtype=torch.int64, device=dev)
@@ -196,13 +244,28 @@ def _corners(plan: GridPlan, x):
         idx = index_within_level(
             cc[:, :, None, :], strides, use_hash, plan.hash_factors, sizes
         )[..., 0]
-        cw = torch.ones_like(w[..., 0])
-        if not nearest:
-            cw = None
-            for d in range(D):
-                term = w[..., d] if bits[d] else 1.0 - w[..., d]
-                cw = term if cw is None else cw * term
-        yield offsets[None, :] + idx, cw
+        rows = offsets[None, :] + idx
+        if nearest:
+            yield Corner(rows, torch.ones_like(w[..., 0]))
+            continue
+        terms = [w[..., d] if bits[d] else 1.0 - w[..., d] for d in range(D)]
+        cw = _prod(terms)
+        if not derivs:
+            yield Corner(rows, cw)
+            continue
+        deriv, deriv2 = pos[2], pos[3]
+        sgn = [1.0 if b else -1.0 for b in bits]
+        dw = [sgn[d] * _prod(terms[:d] + terms[d + 1 :]) * deriv[..., d] for d in range(D)]
+        d2w = [
+            [
+                sgn[d] * _prod(terms[:d] + terms[d + 1 :]) * deriv2[..., d] if d == e
+                else sgn[d] * sgn[e] * _prod([terms[k] for k in range(D) if k not in (d, e)])
+                * deriv[..., d] * deriv[..., e]
+                for e in range(D)
+            ]
+            for d in range(D)
+        ]
+        yield Corner(rows, cw, dw, d2w)
 
 
 def _grid_encode_plain(plan: GridPlan, table, x, out_width: int, n_active: int):
@@ -212,8 +275,8 @@ def _grid_encode_plain(plan: GridPlan, table, x, out_width: int, n_active: int):
     B = x.shape[0]
     L, F = plan.n_levels, plan.f
     acc = torch.zeros((B, L, F), dtype=torch.float32, device=x.device)
-    for rows, cw in _corners(plan, x):
-        acc = acc + table[rows].float() * cw[..., None]
+    for k in _corners(plan, x):
+        acc = acc + table[k.rows].float() * k.w[..., None]
     acc[:, n_active:] = 0.0
     y = torch.zeros((B, out_width), dtype=torch.bfloat16, device=x.device)
     y[:, : L * F] = acc.reshape(B, L * F).to(torch.bfloat16)
@@ -230,10 +293,91 @@ def _grid_backward_plain(plan: GridPlan, x, gy, n_active: int):
     L, F = plan.n_levels, plan.f
     g = gy[:, : L * F].float().reshape(B, L, F)[:, :n_active]
     out = torch.zeros((plan.total_rows, F), dtype=torch.float32, device=x.device)
-    for rows, cw in _corners(plan, x):
-        contrib = (cw[:, :n_active, None] * g).to(torch.bfloat16).float()
-        out.index_add_(0, rows[:, :n_active].reshape(-1), contrib.reshape(-1, F))
+    for k in _corners(plan, x):
+        contrib = (k.w[:, :n_active, None] * g).to(torch.bfloat16).float()
+        out.index_add_(0, k.rows[:, :n_active].reshape(-1), contrib.reshape(-1, F))
     return out
+
+
+def _fsum(terms):
+    """Left-to-right sum (the kernels' order)."""
+    out = None
+    for t in terms:
+        out = t if out is None else out + t
+    return out
+
+
+def _level_sum(part):
+    """[B, L, D] -> [B, D], summed over levels l = 0..L-1 in order, as the
+    kernels' per-sample reduction sums them."""
+    return _fsum(part.unbind(1))
+
+
+def _grid_input_grad_plain(plan: GridPlan, table, x, g):
+    """dL/dx f32 [B, D] of the encoding for its gradient `g` [B, >= L*F]
+    (values taken in f32): per (sample, level) and corner c, the dot
+    sum_f table[row_c, f] * g_f times dW_c/dx_d, summed over corners
+    c = 0..C-1, then over levels (grid_kernel.py:896-921)."""
+    B = x.shape[0]
+    L, F, D = plan.n_levels, plan.f, plan.d
+    gl = g[:, : L * F].float().reshape(B, L, F)
+    part = torch.zeros((B, L, D), dtype=torch.float32, device=x.device)
+    for k in _corners(plan, x, derivs=True):
+        feat = table[k.rows].float()
+        dot = _fsum(feat[..., f] * gl[..., f] for f in range(F))
+        part = part + torch.stack([dot * k.dw[d] for d in range(D)], -1)
+    return _level_sum(part)
+
+
+def _grid_backward_ig_plain(plan: GridPlan, table, x, gy):
+    """What K7 computes, in plain PyTorch on any device: (the table
+    gradient f32 [total_rows, F], as K4's twin computes it; dL/dx f32
+    [B, D])."""
+    return (_grid_backward_plain(plan, x, gy, plan.n_levels),
+            _grid_input_grad_plain(plan, table, x, gy))
+
+
+def _grid_backward_bwd_plain(plan: GridPlan, table, ct_table, x, gy, z):
+    """What K8 computes, in plain PyTorch on any device: the vjp of K7's
+    (gtable, gx) for the cotangents (ct_table, z) (grid_kernel.py:963-1155).
+    Per corner, with zw_c = sum_d z_d dW_c/dx_d:
+      ct_gy[l, f]  += table[row, f] zw_c + ct_table[row, f] W_c
+      gtable2[row] += bf16(gy_f zw_c)   (scattered like K4's contributions)
+      ct_x[d']     += dotf_c sum_d z_d d2W_c/dx_d dx_d' + dotf2_c dW_c/dx_d'
+    where dotf_c, dotf2_c = sum_f gy_f table[row, f], ct_table[row, f].
+    `ct_table` (bf16 [total_rows, F]) or `z` (f32 [B, D]) may be None: its
+    terms are then skipped. Returns (ct_gy f32 [B, gy width], zeros in the
+    padding; gtable2 f32 [total_rows, F]; ct_x f32 [B, D])."""
+    B = x.shape[0]
+    L, F, D = plan.n_levels, plan.f, plan.d
+    dev = x.device
+    gl = gy[:, : L * F].float().reshape(B, L, F)
+    zz = None if z is None else z.float()
+    ct_gy = torch.zeros((B, L, F), dtype=torch.float32, device=dev)
+    part = torch.zeros((B, L, D), dtype=torch.float32, device=dev)
+    gtable2 = torch.zeros((plan.total_rows, F), dtype=torch.float32, device=dev)
+    for k in _corners(plan, x, derivs=True):
+        cg, cx = [], [[] for _ in range(D)]
+        if zz is not None:
+            f1 = table[k.rows].float()
+            zw = _fsum(zz[:, None, d] * k.dw[d] for d in range(D))
+            cg.append(f1 * zw[..., None])
+            contrib = (gl * zw[..., None]).to(torch.bfloat16).float()
+            gtable2.index_add_(0, k.rows.reshape(-1), contrib.reshape(-1, F))
+            dotf = _fsum(f1[..., f] * gl[..., f] for f in range(F))
+            for e in range(D):
+                cx[e].append(dotf * _fsum(zz[:, None, d] * k.d2w[d][e] for d in range(D)))
+        if ct_table is not None:
+            f2 = ct_table[k.rows].float()
+            cg.append(f2 * k.w[..., None])
+            dotf2 = _fsum(f2[..., f] * gl[..., f] for f in range(F))
+            for e in range(D):
+                cx[e].append(dotf2 * k.dw[e])
+        ct_gy = ct_gy + _fsum(cg)
+        part = part + torch.stack([_fsum(c) for c in cx], -1)
+    out = torch.zeros((B, gy.shape[1]), dtype=torch.float32, device=dev)
+    out[:, : L * F] = ct_gy.reshape(B, L * F)
+    return out, gtable2, _level_sum(part)
 
 
 def grid_encode(plan: GridPlan, table, x, out_width: int, n_active: int):
@@ -273,21 +417,30 @@ _GRID_FWD_ARGS = (
 )
 
 
-def grid_backward(plan: GridPlan, x, gy, n_active: int):
-    """Table gradient f32 [total_rows, F] of the encoding at `x` [B, D] f32
-    for the cotangent `gy` [B, >= L*F] (bf16 on a CUDA tensor; its leading
-    L*F columns, level-major, are read)."""
+def _check_gy(plan: GridPlan, x, gy) -> int:
+    """Checks of the encoding cotangent that K4, K7 and K8 read: [B, >= L*F],
+    on x's device; on a CUDA tensor contiguous, 16-byte aligned bf16 of a
+    width that is a multiple of F. Returns B."""
     B = _check_x(plan, x)
     if gy.dim() != 2 or gy.shape[0] != B or gy.shape[1] < plan.n_levels * plan.f:
         raise ValueError(f"gy must be [{B}, >= {plan.n_levels * plan.f}], got {tuple(gy.shape)}")
     if gy.device != x.device:
         raise ValueError(f"gy on {gy.device}, x on {x.device}")
+    if x.device.type == "cuda":
+        if gy.dtype != torch.bfloat16 or not gy.is_contiguous() or gy.data_ptr() % 16:
+            raise ValueError(f"gy must be contiguous, 16-byte aligned bfloat16, got {gy.dtype}")
+        if gy.shape[1] % plan.f:
+            raise ValueError(f"gy's width {gy.shape[1]} must be a multiple of F = {plan.f}")
+    return B
+
+
+def grid_backward(plan: GridPlan, x, gy, n_active: int):
+    """Table gradient f32 [total_rows, F] of the encoding at `x` [B, D] f32
+    for the cotangent `gy` [B, >= L*F] (bf16 on a CUDA tensor; its leading
+    L*F columns, level-major, are read)."""
+    B = _check_gy(plan, x, gy)
     if x.device.type == "cpu":
         return _grid_backward_plain(plan, x, gy, n_active)
-    if gy.dtype != torch.bfloat16 or not gy.is_contiguous() or gy.data_ptr() % 16:
-        raise ValueError(f"gy must be contiguous, 16-byte aligned bfloat16, got {gy.dtype}")
-    if gy.shape[1] % plan.f:
-        raise ValueError(f"gy's width {gy.shape[1]} must be a multiple of F = {plan.f}")
     global BWD_LAUNCHES
     out = torch.zeros((plan.total_rows, plan.f), dtype=torch.float32, device=x.device)
     if B == 0 or n_active == 0:
@@ -307,6 +460,101 @@ def grid_backward(plan: GridPlan, x, gy, n_active: int):
     return out
 
 
+def _check_ig(plan: GridPlan, table, x, gy) -> int:
+    """Checks shared by K7 and K8; returns B."""
+    B = _check_inputs(plan, table, x)
+    _check_gy(plan, x, gy)
+    if plan.interpolation == InterpolationType.Nearest:
+        raise ValueError("Nearest interpolation has no input gradient kernel")
+    return B
+
+
+def grid_backward_ig(plan: GridPlan, table, x, gy):
+    """(table gradient f32 [total_rows, F], dL/dx f32 [B, D]) of the
+    encoding at `x` for the cotangent `gy` [B, >= L*F] (K7; every level
+    active). `table` is the bf16 [total_rows, F] feature table."""
+    B = _check_ig(plan, table, x, gy)
+    if x.device.type == "cpu":
+        return _grid_backward_ig_plain(plan, table, x, gy)
+    global IG_LAUNCHES
+    dev = x.device
+    gtable = torch.zeros((plan.total_rows, plan.f), dtype=torch.float32, device=dev)
+    gx = torch.empty((B, plan.d), dtype=torch.float32, device=dev)
+    if B == 0:
+        return gtable, gx
+    level_i32, level_f32 = plan.device_consts(dev)
+    fn = _build.function("tcnn_grid_bwd_ig", _GRID_BWD_IG_ARGS)
+    _build.check(
+        fn(
+            x.data_ptr(), gy.data_ptr(), table.data_ptr(), level_i32.data_ptr(),
+            level_f32.data_ptr(), gtable.data_ptr(), gx.data_ptr(), B, plan.d, plan.f,
+            plan.n_levels, INTERP_CODES[plan.interpolation], *plan.c_factors(), gy.shape[1],
+            dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        ),
+        "tcnn_grid_bwd_ig",
+    )
+    IG_LAUNCHES += 1
+    return gtable, gx
+
+
+_GRID_BWD_IG_ARGS = (
+    [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 5
+    + [ctypes.c_uint32] * 4
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def grid_backward_bwd(plan: GridPlan, table, ct_table, x, gy, z):
+    """(ct_gy f32 [B, gy width], gtable2 f32 [total_rows, F], ct_x f32
+    [B, D]): the vjp of `grid_backward_ig` at (table, x, gy) for the
+    cotangents ct_table (bf16 [total_rows, F] or None) of its table gradient
+    and z (f32 [B, D] or None) of its dL/dx (K8). A None cotangent skips
+    its terms, and with it K8's second gather."""
+    B = _check_ig(plan, table, x, gy)
+    dev = x.device
+    if ct_table is not None and (ct_table.dtype != torch.bfloat16 or ct_table.shape != table.shape
+                                 or ct_table.device != dev):
+        raise ValueError(f"ct_table must be bfloat16 {tuple(table.shape)} on {dev}")
+    if z is not None and (z.dtype != torch.float32 or tuple(z.shape) != (B, plan.d)
+                          or z.device != dev):
+        raise ValueError(f"z must be float32 [{B}, {plan.d}] on {dev}")
+    if dev.type == "cpu":
+        return _grid_backward_bwd_plain(plan, table, ct_table, x, gy, z)
+    for t in (ct_table, z):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError("ct_table and z must be contiguous and 16-byte aligned")
+    global BWDBWD_LAUNCHES
+    ct_gy = torch.zeros((B, gy.shape[1]), dtype=torch.float32, device=dev)
+    gtable2 = torch.zeros((plan.total_rows, plan.f), dtype=torch.float32, device=dev)
+    ct_x = torch.zeros((B, plan.d), dtype=torch.float32, device=dev)
+    if B == 0 or (ct_table is None and z is None):
+        return ct_gy, gtable2, ct_x
+    level_i32, level_f32 = plan.device_consts(dev)
+    fn = _build.function("tcnn_grid_bwd_bwd", _GRID_BWD_BWD_ARGS)
+    _build.check(
+        fn(
+            x.data_ptr(), gy.data_ptr(), 0 if z is None else z.data_ptr(), table.data_ptr(),
+            0 if ct_table is None else ct_table.data_ptr(), level_i32.data_ptr(),
+            level_f32.data_ptr(), ct_gy.data_ptr(), gtable2.data_ptr(), ct_x.data_ptr(),
+            B, plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation],
+            *plan.c_factors(), gy.shape[1], dev.index,
+            torch.cuda.current_stream(dev).cuda_stream,
+        ),
+        "tcnn_grid_bwd_bwd",
+    )
+    BWDBWD_LAUNCHES += 1
+    return ct_gy, gtable2, ct_x
+
+
+_GRID_BWD_BWD_ARGS = (
+    [ctypes.c_void_p] * 10
+    + [ctypes.c_int] * 5
+    + [ctypes.c_uint32] * 4
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+)
+
+
 _GRID_BWD_ARGS = _GRID_FWD_ARGS
 
 
@@ -315,7 +563,7 @@ class GridEncodeFn(torch.autograd.Function):
     (counterpart of ``_grid_pallas`` and its custom vjp, grid_kernel.py:
     1363-1387). The params are cast to the bf16 table inside `forward`, so
     the table gradient comes back in f32. Inputs get no gradient here: the
-    input-gradient path is ROADMAP Queue A item 7."""
+    input-gradient path is `GridIgFn`."""
 
     @staticmethod
     def forward(ctx, params, x, plan, out_width, n_active, stochastic):
@@ -334,6 +582,87 @@ class GridEncodeFn(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         g = grid_backward(ctx.plan, x, gy.to(torch.bfloat16).contiguous(), ctx.n_active)
         return g.reshape(-1), None, None, None, None, None
+
+
+class GridIgFn(torch.autograd.Function):
+    """The grid encoding as a function of its f32 params slice AND of x,
+    differentiable twice (counterpart of ``_grid_pallas_ig``,
+    grid_kernel.py:1238-1255): the forward is K1 over every level, the
+    backward is `GridIgBackwardFn`, whose own backward is K8."""
+
+    @staticmethod
+    def forward(ctx, params, x, plan, out_width):
+        table = params.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
+        ctx.save_for_backward(params, x)
+        ctx.plan = plan
+        ctx.set_materialize_grads(False)
+        return grid_encode(plan, table, x, out_width, plan.n_levels)
+
+    @staticmethod
+    def backward(ctx, gy):
+        if gy is None:
+            return None, None, None, None
+        params, x = ctx.saved_tensors
+        gparams, gx = GridIgBackwardFn.apply(params, x, gy, ctx.plan)
+        return gparams, gx, None, None
+
+
+class GridIgBackwardFn(torch.autograd.Function):
+    """(gparams f32 [n_params], gx f32 [B, D]) = the encoding's backward at
+    (params, x) for the cotangent gy, as a differentiable function
+    (counterpart of ``_ig_backward``, grid_kernel.py:1202-1235): the
+    forward is K7, the backward K8. A None cotangent of gparams (the
+    eikonal loss reads only gx) skips K8's second gather. A third
+    derivative raises, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, params, x, gy, plan):
+        table = params.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
+        gyb = gy.to(torch.bfloat16).contiguous()
+        gtable, gx = grid_backward_ig(plan, table, x, gyb)
+        ctx.save_for_backward(params, x, gyb)
+        ctx.plan = plan
+        ctx.set_materialize_grads(False)
+        return gtable.reshape(-1), gx
+
+    @staticmethod
+    def backward(ctx, ct_gparams, z):
+        if ct_gparams is None and z is None:
+            return None, None, None, None
+        params, x, gyb = ctx.saved_tensors
+        plan = ctx.plan
+        table = params.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
+        ct_table = (None if ct_gparams is None else
+                    ct_gparams.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous())
+        zz = None if z is None else z.float().contiguous()
+        ct_gy, gtable2, ct_x = grid_backward_bwd(plan, table, ct_table, x, gyb, zz)
+        return no_third_order(gtable2.reshape(-1), ct_x, ct_gy) + (None,)
+
+
+class _NoThirdOrder(torch.autograd.Function):
+    """Identity on the outputs of a second-order backward whose own
+    derivative is not implemented: differentiating them raises."""
+
+    @staticmethod
+    def forward(ctx, *ts):
+        return tuple(t.clone() for t in ts)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        raise NotImplementedError(
+            "third-order derivatives through the input-gradient kernels are not "
+            "implemented (the JAX package's Pallas path raises there too)"
+        )
+
+
+def no_third_order(*ts) -> tuple:
+    """`ts` as they are, unless autograd is recording (a create_graph
+    backward), where a third differentiation of them must raise."""
+    live = [t for t in ts if t is not None]
+    if not torch.is_grad_enabled() or not any(t.requires_grad for t in live):
+        return ts
+    wrapped = iter(_NoThirdOrder.apply(*live))
+    return tuple(None if t is None else next(wrapped) for t in ts)
 
 
 def _check_x(plan: GridPlan, x) -> int:

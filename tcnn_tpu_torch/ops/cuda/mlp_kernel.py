@@ -165,15 +165,15 @@ def mlp_forward(dims: MlpDims, weights, x):
 _MLP_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def bwd_smem_bytes(dims: MlpDims, nt: int, split: bool) -> int:
-    """Shared memory of a K5 (split=False) or K6 (split=True) block of nt
-    rows, for the gate that picks the tile before any device is asked (the
-    launch takes its bytes from csrc/mlp_bwd_common.cuh's BwdLayout, the
-    same count, and opts in to them there): the weights, every
-    layer's kept bf16 output (row pitch = width + 8), two gradient tiles
-    (bf16, and a second bf16 for the low half of the split f32 gradient in
-    K6) of pitch max(in_w, width, out_w) + 8, and a 16x16 f32 scratch per
-    warp."""
+def bwd_smem_bytes(dims: MlpDims, nt: int, split: bool, ig_floats: int = 0) -> int:
+    """Shared memory of a K5 (split=False), K6 or K9 (split=True) block of
+    nt rows, for the gate that picks the tile before any device is asked
+    (the launch takes its bytes from csrc/mlp_bwd_common.cuh's BwdLayout,
+    the same count, and opts in to them there): the weights, every layer's
+    kept bf16 output (row pitch = width + 8), two gradient tiles (bf16, and
+    a second bf16 for the low half of the split f32 gradient in K6/K9) of
+    pitch max(in_w, width, out_w) + 8, a 16x16 f32 scratch per warp, and
+    K9's `ig_floats` f32 per row (its dL/dx partials, L * D)."""
     ld_g = max(dims.in_w, dims.width, dims.out_w) + 8
     kept = (dims.in_w + 8) + dims.n_hidden * (dims.width + 8) + (dims.out_w + 8)
     return (
@@ -181,14 +181,15 @@ def bwd_smem_bytes(dims: MlpDims, nt: int, split: bool) -> int:
         + 2 * nt * kept
         + 2 * (2 if split else 1) * 2 * nt * ld_g
         + (nt // 16) * 256 * 4
+        + 4 * nt * ig_floats
     )
 
 
-def bwd_tile(dims: MlpDims, split: bool) -> int:
-    """Rows per block of K5/K6: the largest of 128, 64, 32, 16 whose shared
-    memory fits SMEM_OPTIN, else 0."""
+def bwd_tile(dims: MlpDims, split: bool, ig_floats: int = 0) -> int:
+    """Rows per block of K5/K6/K9: the largest of 128, 64, 32, 16 whose
+    shared memory fits SMEM_OPTIN, else 0."""
     for nt in (128, 64, 32, 16):
-        if bwd_smem_bytes(dims, nt, split) <= SMEM_OPTIN:
+        if bwd_smem_bytes(dims, nt, split, ig_floats) <= SMEM_OPTIN:
             return nt
     return 0
 

@@ -1,6 +1,9 @@
-"""Fused grid + MLP kernels: inference K3 (``csrc/fused_infer.cu``) and the
-train step K6 (``csrc/fused_train.cu``), their plain PyTorch twins, and the
-gate that decides which models the train step takes.
+"""Fused grid + MLP kernels: inference K3 (``csrc/fused_infer.cu``), the
+train step K6 (``csrc/fused_train.cu``) and the input-gradient backward K9
+(``csrc/fused_ig.cu``; one kernel template with K6, ``fused_train.cuh``),
+their plain PyTorch twins, the gates that decide
+which models K6 and K9 take, and the autograd Functions of the fused
+input-gradient route.
 
 K3 replaces ``tcnn_tpu/ops/pallas/train_kernel.py:_infer_kernel_vt``
 (reached through ``fused_forward_prepared`` from ``Trainer.inference``).
@@ -15,6 +18,11 @@ K6 replaces ``_kernel_vt`` (reached through ``fused_train_grads`` from
 keeping every layer's output, the loss value and gradient (or an external
 dL/doutput), the MLP backward and K4's scatter, with the encoding and the
 hidden activations kept in shared memory. `supported` is its gate.
+
+K9 replaces ``_ig_kernel_vt`` / ``_ig_kernel`` (reached through
+``fused_ig_grads`` from ``fused_apply_ig``'s backward): K6 with the raw
+output cotangent in place of the loss, plus dL/dx from the encoding's
+gradient and the corner features it re-reads. `supported_ig` is its gate.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from .grid_kernel import (
     _check_inputs,
     _grid_backward_plain,
     _grid_encode_plain,
+    _grid_input_grad_plain,
+    no_third_order,
 )
 from .mlp_kernel import (
     MlpDims,
@@ -45,10 +55,11 @@ from .mlp_kernel import (
     persistent_grid,
 )
 
-#: Launches of K3 and of K6 since the last reset (counted where each kernel
-#: launches).
+#: Launches of K3, K6 and K9 since the last reset (counted where each
+#: kernel launches).
 LAUNCHES = 0
 TRAIN_LAUNCHES = 0
+IG_LAUNCHES = 0
 
 
 def fused_plan_for(model):
@@ -159,14 +170,19 @@ def supported(model, loss, perturbation_sigma: float = 0.0) -> bool:
     """Whether K6 takes this (model, loss): a grid + FullyFusedMLP model
     without Sine (`fused_plan_for`), one of the nine losses, a
     deterministic table gradient (stochastic interpolation's is not
-    ported), and a tile whose shared memory fits the block
+    ported), a scalar max_level (a per-sample one is masked on the composed
+    route), and a tile whose shared memory fits the block
     (`mlp_kernel.bwd_tile`), decided before any launch, as the JAX gate
     decides on its VMEM estimate (train_kernel.py:238-288). Perturbation
     noise and an external dL/doutput arrive as inputs and do not gate."""
+    from ..encodings.grid import per_sample
+
     if not isinstance(loss, Loss) or loss.kernel_code == 0:
         return False
     plan = fused_plan_for(model)
     if plan is None or model.encoding.stochastic_interpolation:
+        return False
+    if model.encoding.max_level is not None and per_sample(model.encoding.max_level):
         return False
     if isinstance(loss, RelativeL2LuminanceLoss) and model.n_output_dims < 3:
         return False
@@ -189,14 +205,22 @@ def _fused_train_grads_plain(plan, dims, n_active, table, weights, loss, x, targ
         values, grad = loss.value_and_grad_fn(pred, targets, pdf)
         loss_sum = values.sum()
         g = grad * loss_scale
+    grads, g = _mlp_backward_f32(dims, mats, hs, g)
+    gtable = _grid_backward_plain(plan, x, g, n_active)
+    return loss_sum, torch.cat(grads + [gtable.reshape(-1)])
+
+
+def _mlp_backward_f32(dims, mats, hs, g):
+    """The MLP backward of K6/K9's twins from the output gradient `g` f32,
+    kept in f32 through the chain (train_kernel.py:891-903, 2033-2048):
+    (the flat weight gradients per layer, the encoding's gradient f32)."""
     grads = [None] * len(mats)
     for i in reversed(range(len(mats))):
         act = dims.output_activation if i == len(mats) - 1 else dims.activation
         g = activation_bwd_out(g, hs[i + 1], act)
         grads[i] = (g.T @ hs[i]).reshape(-1)
         g = g @ mats[i]
-    gtable = _grid_backward_plain(plan, x, g, n_active)
-    return loss_sum, torch.cat(grads + [gtable.reshape(-1)])
+    return grads, g
 
 
 def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noise=None,
@@ -273,3 +297,159 @@ _FUSED_TRAIN_ARGS = (
     + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+
+
+# ---------------------------------------------------------------------------
+# The fused input-gradient backward, K9
+# ---------------------------------------------------------------------------
+
+
+def ig_tile(model) -> int:
+    """Rows per block of K9 for a model `fused_plan_for` takes: K6's layout
+    plus L * D f32 per row of dL/dx partials, or 0 when no tile fits."""
+    plan = fused_plan_for(model)
+    return bwd_tile(model.network.dims, split=True, ig_floats=plan.n_levels * plan.d)
+
+
+def supported_ig(model) -> bool:
+    """Whether K9 takes the input-gradient path of this model
+    (train_kernel.py:1894-1931, without the VMEM arithmetic): a grid +
+    FullyFusedMLP model without Sine (`fused_plan_for`) whose encoding takes
+    the input-gradient kernels (fast_input_grads; no stochastic
+    interpolation, Nearest or max_level), and a tile whose shared memory
+    fits the block, decided before any launch."""
+    from ...common import InterpolationType
+
+    if fused_plan_for(model) is None:
+        return False
+    enc = model.encoding
+    if not enc.fast_input_grads or enc.stochastic_interpolation or enc.max_level is not None:
+        return False
+    if enc.interpolation == InterpolationType.Nearest:
+        return False
+    return ig_tile(model) > 0
+
+
+def _fused_ig_grads_plain(plan, dims, table, weights, x, gy):
+    """What K9 computes, in plain PyTorch on any device: the recomputed
+    grid + MLP forward, the MLP backward from the raw output cotangent `gy`
+    with g kept in f32, K4's scatter and dL/dx from the encoding's f32
+    gradient (train_kernel.py:1934-2103). Returns (f32 gradient
+    [n_weights + n_table], dL/dx f32 [B, D])."""
+    mats = _weights(dims, weights)
+    hs = _forward_keep(dims, mats, _grid_encode_plain(plan, table, x, dims.in_w, plan.n_levels))
+    grads, g = _mlp_backward_f32(dims, mats, hs, gy.float())
+    gtable = _grid_backward_plain(plan, x, g, plan.n_levels)
+    return torch.cat(grads + [gtable.reshape(-1)]), _grid_input_grad_plain(plan, table, x, g)
+
+
+def fused_ig_grads(model, params, x, gy):
+    """(f32 gradient [n_params], dL/dx f32 [B, D]) of a model that
+    `supported_ig` takes, for the raw output cotangent `gy` f32
+    [B, out_pad], in one kernel (train_kernel.py:2305-2426): no loss, no
+    normalisation, no loss_scale; the caller owns any scale."""
+    plan = fused_plan_for(model)
+    dims = model.network.dims
+    net_p, enc_p = model.split_params(params)
+    table = enc_p.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
+    weights = net_p.to(torch.bfloat16).contiguous()
+    B = _check_inputs(plan, table, x)
+    check_mlp_inputs(dims, weights)
+    if gy.dtype != torch.float32 or tuple(gy.shape) != (B, dims.out_w) or gy.device != x.device:
+        raise ValueError(f"gy must be float32 [{B}, {dims.out_w}] on {x.device}, "
+                         f"got {gy.dtype} {tuple(gy.shape)} on {gy.device}")
+    if x.device.type == "cpu":
+        return _fused_ig_grads_plain(plan, dims, table, weights, x, gy)
+    if not gy.is_contiguous():
+        raise ValueError("gy must be contiguous")
+    nt = ig_tile(model)
+    if nt == 0:
+        raise ValueError(f"{model!r} does not fit the fused input-gradient kernel's shared memory")
+    global IG_LAUNCHES
+    dev = x.device
+    grads = torch.zeros(model.n_params, dtype=torch.float32, device=dev)
+    gx = torch.empty((B, plan.d), dtype=torch.float32, device=dev)
+    if B == 0:
+        return grads, gx
+    grid = persistent_grid("tcnn_fused_ig_grid",
+                           (B, plan.f, plan.n_levels * plan.d, nt, *dims.c_args()[:4]), dev)
+    partials = torch.empty(grid * dims.n_weights, dtype=torch.float32, device=dev)
+    level_i32, level_f32 = plan.device_consts(dev)
+    fn = _build.function("tcnn_fused_ig", _FUSED_IG_ARGS)
+    _build.check(
+        fn(
+            x.data_ptr(), table.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
+            weights.data_ptr(), gy.data_ptr(), grads.data_ptr(), gx.data_ptr(),
+            partials.data_ptr(), grid, B, plan.d, plan.f, plan.n_levels,
+            INTERP_CODES[plan.interpolation], *plan.c_factors(), nt, *dims.c_args(),
+            dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        ),
+        "tcnn_fused_ig",
+    )
+    IG_LAUNCHES += 1
+    return grads, gx
+
+
+_FUSED_IG_ARGS = (
+    [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 6
+    + [ctypes.c_uint32] * 4
+    + [ctypes.c_int] * 8
+    + [ctypes.c_void_p]
+)
+
+
+class FusedApplyIgFn(torch.autograd.Function):
+    """The fused model forward whose backward is K9 (counterpart of
+    ``fused_apply_ig``, train_kernel.py:2474-2493): [B, D] -> [B, out_pad]
+    bf16 through K3, with gradients to the flat params and to x; second
+    order through `FusedIgBackwardFn`'s composed fallback."""
+
+    @staticmethod
+    def forward(ctx, params, x, model):
+        ctx.save_for_backward(params, x)
+        ctx.model = model
+        ctx.set_materialize_grads(False)
+        return fused_forward(model, params, x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        if gy is None:
+            return None, None, None
+        params, x = ctx.saved_tensors
+        gp, gx = FusedIgBackwardFn.apply(params, x, gy.float().contiguous(), ctx.model)
+        return gp, gx, None
+
+
+class FusedIgBackwardFn(torch.autograd.Function):
+    """(flat params gradient, dL/dx) = K9 at (params, x, gy), as a
+    differentiable function (counterpart of ``_fused_ig_backward``,
+    train_kernel.py:2437-2471). Its backward is ``_fib_bwd``'s: re-run the
+    composed route (`_no_fused_ig`; K1 forward, K7 backward, under autograd),
+    take its first-order gradient with create_graph, and differentiate that
+    (K8). A third derivative raises."""
+
+    @staticmethod
+    def forward(ctx, params, x, gy, model):
+        ctx.save_for_backward(params, x, gy)
+        ctx.model = model
+        ctx.set_materialize_grads(False)
+        return fused_ig_grads(model, params, x, gy)
+
+    @staticmethod
+    def backward(ctx, ct_grads, ct_gx):
+        if ct_grads is None and ct_gx is None:
+            return None, None, None, None
+        params, x, gy = ctx.saved_tensors
+        with torch.enable_grad():
+            p = params.detach().requires_grad_(True)
+            xx = x.detach().requires_grad_(True)
+            g = gy.detach().requires_grad_(True)
+            out = ctx.model.apply(p, xx, prepare_input_gradients=True, _no_fused_ig=True)
+            gp, gx = torch.autograd.grad(out, (p, xx), grad_outputs=g.to(out.dtype),
+                                         create_graph=True)
+            pairs = [(o, c) for o, c in ((gp, ct_grads), (gx, ct_gx)) if c is not None]
+            cts = torch.autograd.grad([o for o, _ in pairs], (p, xx, g),
+                                      grad_outputs=[c.float() for _, c in pairs],
+                                      allow_unused=True)
+        return no_third_order(*cts) + (None,)

@@ -98,6 +98,9 @@ def _make_grid(n_dims, cfg):
         hash_type=parse_hash_type(cfg_get(cfg, "hash", "CoherentPrime")),
         interpolation=parse_interpolation_type(cfg_get(cfg, "interpolation", "Linear")),
         stochastic_interpolation=bool(cfg_get(cfg, "stochastic_interpolation", False)),
+        # the JAX package's extension key (registry.py:144-146): the
+        # input-gradient kernels, default on
+        fast_input_grads=bool(cfg_get(cfg, "fast_input_grads", True)),
     )
 
 

@@ -56,7 +56,7 @@ def resolve_device(device) -> torch.device:
 
 
 class Trainer:
-    def __init__(self, model, optimizer, loss, seed: int = 1337, device="cpu",
+    def __init__(self, model, optimizer, loss, seed: int = 1337, device="cuda",
                  loss_scale: float | None = None, perturbation_sigma: float = 0.0):
         self.model = model
         self.optimizer = optimizer

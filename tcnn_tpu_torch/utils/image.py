@@ -14,7 +14,7 @@ import math
 import torch
 
 
-def synthetic_image(height: int = 512, width: int = 512, device="cpu") -> torch.Tensor:
+def synthetic_image(height: int = 512, width: int = 512, device="cuda") -> torch.Tensor:
     """Deterministic multi-scale test pattern [H, W, 3] f32 in [0, 1]:
     smooth gradients, rings and a high-frequency checker."""
     y, x = torch.meshgrid(

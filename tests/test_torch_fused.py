@@ -33,7 +33,7 @@ def _models(cfg, d=2, seed=0):
     """Both packages from one config, sharing one flat params vector whose
     table is redrawn from U(-1, 1) (the grid init is 1e-4)."""
     jm = tc.create_from_config(d, 3, cfg)
-    tm = tt.create_from_config(d, 3, cfg)
+    tm = tt.create_from_config(d, 3, cfg, device="cpu")
     p = np.asarray(jm.trainer.params).copy()
     n_net = jm.network.network.n_params
     p[n_net:] = np.random.default_rng(seed).uniform(-1, 1, p.size - n_net)

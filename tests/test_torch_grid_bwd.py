@@ -137,7 +137,7 @@ def test_padded_output_gradient_ignores_padding():
 def test_input_gradient_and_stochastic_backward_raise():
     te = tt.create_encoding(2, _enc_cfg())
     params = torch.zeros(te.n_params, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="prepare_input_gradients=True"):
         te.apply(params, torch.rand(8, 2, requires_grad=True))
     st = tt.create_encoding(2, _enc_cfg(stochastic_interpolation=True))
     y = st.apply(torch.zeros(st.n_params, requires_grad=True), torch.rand(8, 2))

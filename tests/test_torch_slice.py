@@ -46,7 +46,7 @@ def _pair(cfg=CONFIG, seed=0):
     """Both packages from one config; the JAX trainer's params (table redrawn
     from U(-1, 1)) carried into the port by params_from_jax."""
     jm = tc.create_from_config(2, 3, cfg)
-    tm = tt.create_from_config(2, 3, cfg)
+    tm = tt.create_from_config(2, 3, cfg, device="cpu")
     p = np.asarray(jm.trainer.params).copy()
     n_net = jm.network.network.n_params
     p[n_net:] = np.random.default_rng(seed).uniform(-1, 1, p.size - n_net)
@@ -71,14 +71,14 @@ def test_jax_snapshot_loads_into_port(tmp_path):
     jm, tm = _pair(seed=4)
     path = tmp_path / "snapshot.json"
     jm.trainer.save(str(path))  # includes the optimizer block
-    fresh = tt.create_from_config(2, 3, CONFIG, seed=99)
+    fresh = tt.create_from_config(2, 3, CONFIG, seed=99, device="cpu")
     fresh.trainer.load(str(path))
     assert torch.equal(fresh.trainer.params, tm.trainer.params)
     x = torch.rand(257, 2)
     assert torch.equal(fresh.trainer.inference(x), tm.trainer.inference(x))
     # and the port's own snapshot reads back the same way
     tm.trainer.save(str(tmp_path / "port.json"))
-    again = tt.create_from_config(2, 3, CONFIG, seed=5)
+    again = tt.create_from_config(2, 3, CONFIG, seed=5, device="cpu")
     again.trainer.load(str(tmp_path / "port.json"))
     assert torch.equal(again.trainer.inference(x), tm.trainer.inference(x))
 
@@ -162,6 +162,9 @@ def test_cuda_device_raises_without_a_gpu():
         pytest.skip("a GPU is present; the no-GPU error cannot arise")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tt.create_from_config(2, 3, CONFIG, device="cuda")
+    # the port runs on the card unless the caller asks for the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.create_from_config(2, 3, CONFIG)
 
 
 def test_package_source_never_imports_jax():
@@ -176,7 +179,7 @@ def test_import_and_inference_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import torch, tcnn_tpu_torch as tt\n"
-        "m = tt.create_from_config(2, 3, tt.load_config('data/config_hash.json'))\n"
+        "m = tt.create_from_config(2, 3, tt.load_config('data/config_hash.json'), device='cpu')\n"
         "y = m.trainer.inference(torch.rand(129, 2))\n"
         "assert y.shape == (129, 3) and bool(torch.isfinite(y).all())\n"
         "assert 'tcnn_tpu' not in sys.modules and sys.modules['jax'] is None\n"

@@ -70,7 +70,7 @@ def _pair(cfg, seed=0):
     jm = tc.create_from_config(2, 3, cfg)
     enc = jm.network.encoding
     enc._kernel_plan_cache = dataclasses.replace(enc._kernel_plan(), batch_tile=256)
-    tm = tt.create_from_config(2, 3, cfg, seed=seed + 11)
+    tm = tt.create_from_config(2, 3, cfg, seed=seed + 11, device="cpu")
     p = np.asarray(jm.trainer.params).copy()
     n_net = jm.network.network.n_params
     p[n_net:] = np.random.default_rng(seed).uniform(-1, 1, p.size - n_net)
@@ -209,7 +209,7 @@ def test_jax_snapshot_resumes_in_port(tmp_path):
         jtr.training_step(jnp.asarray(x), jnp.asarray(t))
     path = tmp_path / "jax.json"
     jtr.save(str(path))
-    tm = tt.create_from_config(2, 3, _cfg(), seed=99)
+    tm = tt.create_from_config(2, 3, _cfg(), seed=99, device="cpu")
     tm.trainer.load(str(path))
     jo = _jax_opt_numpy(jtr.state["opt"])
     assert np.array_equal(tm.trainer.params.numpy(), np.asarray(jtr.params))
@@ -233,7 +233,7 @@ def test_trajectory_follows_golden():
 
     ref = np.load(TRAJ_PATH)
     jm = tc.create_from_config(2, 3, CONFIG)
-    tm = tt.create_from_config(2, 3, CONFIG)
+    tm = tt.create_from_config(2, 3, CONFIG, device="cpu")
     assert tm.trainer.use_fused()
     tm.trainer.set_params(tt.params_from_jax(np.asarray(jm.trainer.params), tm.network.n_params))
     key = jax.random.PRNGKey(1337)  # the golden run's inputs
@@ -265,7 +265,7 @@ def test_snapshot_round_trip_with_optimizer_state(tmp_path):
     assert [leaf["dtype"] for leaf in snap["optimizer"]["state"]["leaves"]] == [
         "<f4", "<u4", "<f4", "<u4"]
     tr.save(str(tmp_path / "port.json"))
-    fresh = tt.create_from_config(2, 3, _cfg(), seed=5)
+    fresh = tt.create_from_config(2, 3, _cfg(), seed=5, device="cpu")
     fresh.trainer.load(str(tmp_path / "port.json"))
     for k, v in tr.state["opt"].items():
         assert torch.equal(fresh.trainer.state["opt"][k], v)
@@ -327,18 +327,19 @@ def test_route_gate():
     assert tm.trainer.use_fused()
     cut = tt.create_from_config(2, 3, {**_cfg(), "network": {"otype": "CutlassMLP",
                                                              "n_neurons": 32,
-                                                             "n_hidden_layers": 1}})
+                                                             "n_hidden_layers": 1}},
+                               device="cpu")
     assert not cut.trainer.use_fused()
     loss = cut.trainer.training_step(*map(_t, _batch(34)))  # composed route
     assert bool(torch.isfinite(loss))
     cut.trainer.use_fused_train_kernel = True
     with pytest.raises(ValueError, match="does not take"):
         cut.trainer.training_step(*map(_t, _batch(34)))
-    stoch = tt.create_from_config(2, 3, _cfg(stochastic_interpolation=True))
+    stoch = tt.create_from_config(2, 3, _cfg(stochastic_interpolation=True), device="cpu")
     assert not stoch.trainer.use_fused()
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         stoch.trainer.training_step(*map(_t, _batch(35)))
-    lum = tt.create_from_config(2, 1, _cfg("RelativeL2Luminance"))
+    lum = tt.create_from_config(2, 1, _cfg("RelativeL2Luminance"), device="cpu")
     assert not train_kernel.supported(lum.network, lum.trainer.loss_fn)
     dims = tm.network.network.dims
     assert mlp_kernel.bwd_tile(dims, split=True) == 128
@@ -364,11 +365,11 @@ def test_perturbation_noise():
     gives the same steps; the noise moves the loss."""
     losses = []
     for sigma in (0.5, 0.5, 0.0):
-        m = tt.create_from_config(2, 3, _cfg())
+        m = tt.create_from_config(2, 3, _cfg(), device="cpu")
         m.trainer.perturbation_sigma = sigma
         losses.append(float(m.trainer.training_step(*map(_t, _batch(37)))))
     assert losses[0] == losses[1] != losses[2]
-    m = tt.create_from_config(2, 3, _cfg())
+    m = tt.create_from_config(2, 3, _cfg(), device="cpu")
     m.trainer.perturbation_sigma = 1.0
     noise = m.trainer._noise((20000,))
     # logistic(0, s): mean 0, standard deviation s * pi / sqrt(3)
