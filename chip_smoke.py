@@ -43,15 +43,32 @@ Phases, each printing JSON lines:
      and the z = 0.5 slice error under limits set before the first run; the
      fused route's eikonal gradient against the composed route's;
   9. times of K7, K8, K9 and their twins at B = 2^16 and 2^18, and of one
-     SDF training step.
+     SDF training step;
+ 10. the PPNG kernels against their twins at the factory defaults of
+     PPNG1/2/3 (Q 64, 6 frequencies, 4 features, rank 4), B = 2^17, and at
+     the sample's configs (samples/learn_a_sdf.py:38-44), B = 2^16, whose
+     kernel instantiations phase 11 launches, on the rows and weights the
+     encodings compute from seeded points and the cotangents the SDF data
+     term gives: K10 ext_gather (PPNG1's f32 and PPNG2's bf16 tables), K11
+     ext_scatter, K12 ext_lookup and K13 ext_lookup_bwd (PPNG3; table and
+     dots halves), each beside a control its bound must reject; K2 and K5
+     at the sample models' MLP input widths (48 and 16); times of each
+     kernel, its twin and its one-call PyTorch yardstick at the defaults;
+ 11. the PPNG SDF slice: samples/learn_a_sdf.py's PPNG1, PPNG2 and PPNG3
+     configs train SDF_STEPS eikonal steps each (counters: K10 K11 for
+     PPNG1/2, K12 K13 for PPNG3, K2 K5 for the data term, no grid kernel),
+     the loss falling and the z = 0.5 slice error under limits set before
+     the first run; requests through `trainer.inference` on the trained
+     PPNG3 model equal `model.apply`; ms per step.
 Then a line with every kernel (its launches on the main path, error against
-its twin, time, twin's time, bound and what bounds it), the `nvidia-smi`
-line, and as the last line {"ok": true, "device": {...}}. Any failed check raises, so the script exits
+its twin, time, twin's time, bound, what bounds it and its yardstick's time),
+the `nvidia-smi` line, and as the last line {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; it also exits non-zero when no GPU is present.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -176,6 +193,53 @@ SDF_SLICE_MAX = 0.015
 #: written, 1e-2, came from a CPU reading at a small size, 9.1e-4).
 SDF_ROUTE_REL = 7e-2
 
+#: The PPNG kernels at the factory defaults (ppng_1.h:340-378), B = 2^17.
+B_PPNG = 1 << 17
+PPNG_VARIANTS = ("PPNG1", "PPNG2", "PPNG3")
+#: K10 and K12 against their twins: bit-equal (K10 copies the table's own
+#: values; K12 sums the corners in the twin's order with __fmul_rn and
+#: __fadd_rn; readings: bit-equal, H100 80GB HBM3, 700 W). Controls, each
+#: differing on 48-100% of the values: PPNG1's gather over a bf16 table,
+#: PPNG2's over a table truncated (not rounded) to bf16, K12 keeping its
+#: corner sum in bf16.
+#: K11 and K13's table half add the same contributions as their twins by
+#: f32 atomics in another order: norm-relative EXT_SCATTER_REL (readings:
+#: PPNG1 4.4e-7 to 4.6e-7, where thousands of adds land on each of its 37 K
+#: gradient floats; PPNG2 1.6e-7; K13 2.6e-8). Controls: PPNG1's
+#: contributions rounded to bf16 where its einsum does not round (3.5e-4);
+#: PPNG2's and PPNG3's not rounded where the dense-ext scatter rounds
+#: (9.1e-4, 1.0e-3).
+#: K13's dots: the twin's feature order and roundings, EXT_DOTS_REL
+#: (readings: bit-equal). Control: the dots rounded to bf16 (1.7e-3).
+EXT_SCATTER_REL = 2e-6
+EXT_DOTS_REL = 1e-6
+#: PPNG SDF training: SDF_STEPS steps of each sample config at B = 2^16;
+#: (least loss fall, largest z = 0.5 slice error). Set before the first run
+#: on the card from CPU rehearsals on the twins (PERF.md, §6): the loss of
+#: PPNG1 and PPNG2 falls ~300x, dominated by the eikonal term, and their
+#: slice error stays at its start (~0.122, the mean |SDF| of the slice) in
+#: 200 steps; PPNG3's falls ~19x to a slice error of 0.016 (the JAX
+#: package's own sample on the CPU: 0.019). On the card PPNG3 reads ~10.5x
+#: and 0.0366: other batches, from a CUDA generator.
+PPNG_SDF_LIMITS = {"PPNG1": (100.0, 0.15), "PPNG2": (100.0, 0.15), "PPNG3": (8.0, 0.04)}
+#: Neither limit sees PPNG1's or PPNG2's table gradient: in 200 steps their
+#: data term does not fall (CPU rehearsals: PPNG1 0.0275 -> 0.0286, PPNG2
+#: 0.0312 -> 0.0288 on held-out points; PPNG3 0.0288 -> 4.2e-4). So after
+#: the training, the sample's gradient on one batch through the kernels is
+#: held against the same step with K10-K13 swapped for their twins (K2, K5
+#: and torch's ops shared), per part: the atomics' order is all that differs
+#: (the kernel-level readings of EXT_SCATTER_REL). Control: the twins' scatters
+#: accumulating in bf16.
+PPNG_GRAD_REL = {"weights": EXT_SCATTER_REL, "table": EXT_SCATTER_REL}
+#: Launches per SDF step of each PPNG config: the data term's gather and its
+#: table gradient (K10, K11 or K12, K13) and K2, K5; the eikonal term's
+#: gather, its first order (PPNG3: K13's two halves, each a Function) and
+#: its second order's table gradient (K11 or K13) and, for PPNG3, K12 for
+#: the MLP chain's cotangent.
+PPNG_PER_STEP = {"PPNG1": {"K10": 2, "K11": 2, "K2": 1, "K5": 1},
+                 "PPNG2": {"K10": 2, "K11": 2, "K2": 1, "K5": 1},
+                 "PPNG3": {"K12": 3, "K13": 4, "K2": 1, "K5": 1}}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -299,21 +363,25 @@ def control_rows(name, lower, want, q, bound):
 
 def counters():
     """Every kernel's launch counter, by name."""
-    from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
+    from tcnn_tpu_torch.ops.cuda import ext_kernel, grid_kernel, mlp_kernel, train_kernel
 
     return {"K1": grid_kernel.LAUNCHES, "K2": mlp_kernel.LAUNCHES, "K3": train_kernel.LAUNCHES,
             "K4": grid_kernel.BWD_LAUNCHES, "K5": mlp_kernel.BWD_LAUNCHES,
             "K6": train_kernel.TRAIN_LAUNCHES, "K7": grid_kernel.IG_LAUNCHES,
-            "K8": grid_kernel.BWDBWD_LAUNCHES, "K9": train_kernel.IG_LAUNCHES}
+            "K8": grid_kernel.BWDBWD_LAUNCHES, "K9": train_kernel.IG_LAUNCHES,
+            "K10": ext_kernel.GATHER_LAUNCHES, "K11": ext_kernel.SCATTER_LAUNCHES,
+            "K12": ext_kernel.LOOKUP_LAUNCHES, "K13": ext_kernel.LOOKUP_BWD_LAUNCHES}
 
 
 def reset_counters():
-    from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
+    from tcnn_tpu_torch.ops.cuda import ext_kernel, grid_kernel, mlp_kernel, train_kernel
 
     grid_kernel.LAUNCHES = grid_kernel.BWD_LAUNCHES = 0
     grid_kernel.IG_LAUNCHES = grid_kernel.BWDBWD_LAUNCHES = 0
     mlp_kernel.LAUNCHES = mlp_kernel.BWD_LAUNCHES = 0
     train_kernel.LAUNCHES = train_kernel.TRAIN_LAUNCHES = train_kernel.IG_LAUNCHES = 0
+    ext_kernel.GATHER_LAUNCHES = ext_kernel.SCATTER_LAUNCHES = 0
+    ext_kernel.LOOKUP_LAUNCHES = ext_kernel.LOOKUP_BWD_LAUNCHES = 0
 
 
 def cuda_ms(fn, iters):
@@ -541,6 +609,324 @@ def check_ig_kernels(tag, net, params, x, gen, control_too=True, bounds=None):
                      grid_kernel._grid_input_grad_plain(plan, prep.table, x, genc), px9, K9_GX_Q,
                      K9_REL["gx"])
     return errs
+
+
+def control_exact(name, lower, want):
+    """A lower-precision twin against the twin: a bit-equality bound must
+    reject it."""
+    import torch
+
+    differ = float((lower.float() != want.float()).float().mean())
+    emit({"phase": "control", "name": name, "differing_share": differ, "limit": "bit-equal",
+          "rejected": differ > 0})
+    check(differ > 0, f"control {name}: bit-equal to the twin")
+
+
+def ppng_model(variant, seed, gen, device, encoding=None):
+    """A PPNG model (the sample's MLP, 64 x 2 ReLU) with the factory-default
+    encoding or `encoding`, its table redrawn from U(-1, 1)."""
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    cfg = sdf.config(variant)
+    cfg["encoding"] = encoding or {"otype": variant}
+    m = tt.create_from_config(3, 1, cfg, seed=seed, device=device)
+    m.trainer.set_params(random_params(m.trainer, gen))
+    return m
+
+
+def ppng_inputs(net, params, x):
+    """What the main path hands the PPNG kernels at x: the flat f32 table,
+    the rows (and PPNG3's weights), and the cotangents of the SDF data term
+    mean((f(x) - sdf(x))^2), from the twins and the MLP's matmul chain:
+    PPNG1/2 the picks' (f32 before the bf16 cast of PPNG2's), PPNG3 the
+    encoding's (bf16-valued, as autograd hands it to K13)."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import ext_kernel as ek
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    enc = net.encoding
+    spec = enc.spec
+    net_p, enc_p = net.split_params(params)
+    flat = enc.table(enc_p)
+    idx, w = enc.indices(x)
+
+    def data_ct(leaf, y):
+        y = torch.nn.functional.pad(y, (0, enc.n_to_pad))
+        out = net.network.apply(net_p, y, second_order=True)[:, :1].float()
+        loss = torch.mean((out - sdf.sdf_true(x)[:, None]) ** 2)
+        return torch.autograd.grad(loss, leaf)[0]
+
+    with torch.enable_grad():
+        if enc.otype_name == "PPNG3":  # the weighted lookup
+            y = ek._ext_lookup_plain(spec.table(flat), idx, w, spec.n_levels)
+            leaf = y.float().requires_grad_(True)
+            gy = data_ct(leaf, leaf.to(torch.bfloat16)).to(torch.bfloat16).float()
+            return dict(flat=flat, table=spec.table(flat), idx=idx, cw=w, gy=gy.contiguous())
+        picks = ek._ext_gather_plain(spec.table(flat), idx)
+        leaf = picks.float().requires_grad_(True)
+        ct = data_ct(leaf, enc.combine(leaf, w))
+    return dict(flat=flat, table=spec.table(flat), idx=idx, ct=ct.to(spec.dtype).contiguous(),
+                ct_f32=ct)
+
+
+def time_pair(kern, plain, library=None, iters=20, plain_iters=3):
+    """(kernel ms, twin ms, yardstick ms or None), in turns plain, kernel,
+    kernel, plain (and the yardstick twice)."""
+    p1 = cuda_ms(plain, plain_iters)
+    k1 = cuda_ms(kern, iters)
+    k2 = cuda_ms(kern, iters)
+    p2 = cuda_ms(plain, plain_iters)
+    lib = None if library is None else min(cuda_ms(library, iters), cuda_ms(library, iters))
+    return min(k1, k2), min(p1, p2), lib
+
+
+def check_ppng_variant(tag, net, params, x, errs, timed=False):
+    """K10 and K11 (PPNG1/2) or K12 and K13 (PPNG3) of one PPNG model
+    against their twins at the points x, each beside a control its bound
+    must reject. Adds to `errs`; with `timed`, returns ({kernel: (ms, twin
+    ms, yardstick ms)}, {kernel: (bound ms, bound_by)})."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import ext_kernel as ek
+
+    inp = ppng_inputs(net, params, x)
+    spec, idx, tbl = net.encoding.spec, inp["idx"], inp["table"]
+    B, F, P = x.shape[0], spec.f, inp["idx"].numel()
+    ms, bounds = {}, {}
+    if net.encoding.otype_name != "PPNG3":
+        picks = ek.ext_gather(tbl, idx)
+        want = ek._ext_gather_plain(tbl, idx)
+        errs["K10"] = max(errs["K10"], compare(f"K10 ext_gather {tag}", picks, want, rel_ulp=0.0))
+        if spec.dtype == torch.float32:
+            control_exact(f"K10 {tag} over a bf16 table",
+                          ek._ext_gather_plain(tbl.to(torch.bfloat16), idx), want)
+        else:
+            trunc = (inp["flat"].reshape(spec.n_rows, F).contiguous().view(torch.int32)
+                     & -65536).view(torch.float32).to(torch.bfloat16)
+            control_exact(f"K10 {tag} over a truncated bf16 table",
+                          ek._ext_gather_plain(trunc, idx), want)
+        ct = inp["ct"]
+        got = ek.ext_scatter(idx, ct, spec.n_rows)
+        want = ek._ext_scatter_plain(idx, ct, spec.n_rows)
+        errs["K11"] = max(errs["K11"], compare_norm(f"K11 ext_scatter {tag}", got, want,
+                                                    EXT_SCATTER_REL))
+        if spec.dtype == torch.bfloat16:
+            control(f"K11 {tag}, unrounded",
+                    ek._ext_scatter_plain(idx, inp["ct_f32"], spec.n_rows), want, EXT_SCATTER_REL)
+        else:
+            control(f"K11 {tag}, rounded to bf16",
+                    ek._ext_scatter_plain(idx, ct.to(torch.bfloat16), spec.n_rows), want,
+                    EXT_SCATTER_REL)
+        if timed:
+            ct32 = ct.float()
+            out = torch.zeros((spec.n_rows, F), device=x.device)
+            ms["K10"] = time_pair(
+                lambda: ek.ext_gather(tbl, idx), lambda: ek._ext_gather_plain(tbl, idx),
+                lambda: tbl.index_select(0, idx.reshape(-1)))
+            ms["K11"] = time_pair(
+                lambda: ek.ext_scatter(idx, ct, spec.n_rows),
+                lambda: ek._ext_scatter_plain(idx, ct, spec.n_rows),
+                lambda: out.zero_().index_add_(0, idx.reshape(-1), ct32.reshape(P, F)))
+            bounds["K10"] = kernel_bound(bytes_of(idx, tbl, picks))
+            bounds["K11"] = kernel_bound(bytes_of(idx, ct, got), f32=P * F)
+        return ms, bounds
+    cw, gy = inp["cw"], inp["gy"]
+    NL = spec.n_levels
+    y = ek.ext_lookup(tbl, idx, cw, NL)
+    want = ek._ext_lookup_plain(tbl, idx, cw, NL)
+    errs["K12"] = max(errs["K12"], compare(f"K12 ext_lookup {tag}", y, want, rel_ulp=0.0))
+    picks = tbl[idx.long()].float().reshape(B, -1, NL, F)
+    wc = cw.reshape(B, -1, NL, 1)
+    acc = torch.zeros_like(picks[:, 0])
+    for c in range(picks.shape[1]):
+        acc = (acc + wc[:, c] * picks[:, c]).to(torch.bfloat16).float()
+    control_exact(f"K12 {tag}, corner sum in bf16", acc.reshape(B, -1).to(torch.bfloat16), want)
+    dT, dcw = ek.ext_lookup_bwd(tbl, idx, cw, gy, spec.n_rows, NL)
+    wT, wcw = ek._ext_lookup_bwd_plain(tbl, idx, cw, gy, spec.n_rows, NL, True, True)
+    errs["K13"] = max(errs["K13"],
+                      compare_norm(f"K13 ext_lookup_bwd table {tag}", dT, wT, EXT_SCATTER_REL),
+                      compare_norm(f"K13 ext_lookup_bwd dots {tag}", dcw, wcw, EXT_DOTS_REL))
+    for half, kw in (("table", dict(want_dots=False)), ("dots", dict(want_table=False))):
+        one = ek.ext_lookup_bwd(tbl, idx, cw, gy, spec.n_rows, NL, **kw)
+        errs["K13"] = max(errs["K13"], compare_norm(
+            f"K13 ext_lookup_bwd {half} alone {tag}", one[0 if half == "table" else 1],
+            wT if half == "table" else wcw, EXT_SCATTER_REL if half == "table" else EXT_DOTS_REL))
+    unrounded = torch.zeros_like(wT).index_add_(
+        0, idx.reshape(-1).long(), (cw.reshape(B, -1, NL, 1) * gy.reshape(B, 1, NL, F)).reshape(-1, F))
+    control(f"K13 table {tag}, unrounded", unrounded, wT, EXT_SCATTER_REL)
+    control(f"K13 dots {tag}, in bf16", to_bf16(wcw), wcw, EXT_DOTS_REL)
+    if timed:
+        bag_idx = idx.reshape(B, -1, NL).transpose(1, 2).reshape(B * NL, -1)
+        bag_w = cw.reshape(B, -1, NL).transpose(1, 2).reshape(B * NL, -1)
+        tbl32 = tbl.float()
+        ms["K12"] = time_pair(
+            lambda: ek.ext_lookup(tbl, idx, cw, NL),
+            lambda: ek._ext_lookup_plain(tbl, idx, cw, NL),
+            lambda: torch.nn.functional.embedding_bag(bag_idx, tbl32, mode="sum",
+                                                      per_sample_weights=bag_w))
+        ms["K13"] = time_pair(
+            lambda: ek.ext_lookup_bwd(tbl, idx, cw, gy, spec.n_rows, NL),
+            lambda: ek._ext_lookup_bwd_plain(tbl, idx, cw, gy, spec.n_rows, NL, True, True))
+        bounds["K12"] = kernel_bound(bytes_of(idx, cw, tbl, y), f32=2 * P * F)
+        bounds["K13"] = kernel_bound(bytes_of(idx, cw, gy, tbl, dT, dcw), f32=4 * P * F)
+    return ms, bounds
+
+
+def check_ppng_kernels(gen, dev, smi, errs):
+    """Phase 10: for each PPNG variant, K10-K13 against their twins with
+    their controls at the factory defaults (B_PPNG, timed), then at the
+    sample's config (B_SDF), whose kernel instantiations phase 11 launches,
+    with K2 and K5 at its MLP input width. Adds to `errs`; returns
+    ({(kernel, variant): (ms, twin ms, yardstick ms)}, {(kernel, variant):
+    (bound ms, bound_by)})."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import mlp_kernel
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    ppng_ms, ppng_bounds = {}, {}
+    for k in ("K10", "K11", "K12", "K13"):
+        errs[k] = 0.0
+    for variant in PPNG_VARIANTS:
+        pm = ppng_model(variant, SEED + 11, gen, dev)
+        x = torch.rand(B_PPNG, 3, generator=gen).to(dev)
+        ms, bounds = check_ppng_variant(f"{variant} defaults B={B_PPNG}", pm.network,
+                                        pm.trainer.params, x, errs, timed=True)
+        ppng_ms.update({(k, variant): v for k, v in ms.items()})
+        ppng_bounds.update({(k, variant): v for k, v in bounds.items()})
+
+        pm = ppng_model(variant, SEED + 12, gen, dev, encoding=dict(sdf.ENCODINGS[variant]))
+        pnet, pparams = pm.network, pm.trainer.params
+        x = torch.rand(B_SDF, 3, generator=gen).to(dev)
+        check_ppng_variant(f"{variant} sample B={B_SDF}", pnet, pparams, x, errs)
+        # K2 and K5 at the MLP input width the sample config gives them
+        pdims = pnet.network.dims
+        net_p, enc_p = pnet.split_params(pparams)
+        enc_out = pnet.encoding.apply(enc_p, x)
+        weights = net_p.to(torch.bfloat16).contiguous()
+        errs["K2"] = max(errs["K2"], compare(
+            f"K2 mlp_fwd {variant} in_w={pdims.in_w}", mlp_kernel.mlp_forward(pdims, weights, enc_out),
+            mlp_kernel._mlp_forward_plain(pdims, weights, enc_out), rel_max=MLP_REL))
+        gout = loss_cotangent(pdims, weights, enc_out, pm.loss, sdf.sdf_true(x)[:, None],
+                              pm.trainer.loss_scale)
+        errs["K5"] = max(errs["K5"], check_mlp_bwd(
+            f"K5 mlp_bwd {variant} in_w={pdims.in_w}", pdims, weights, enc_out, gout,
+            K5_REL["config_hash"], control_too=True))
+    emit({"phase": "times ppng", "card": smi, "B": B_PPNG,
+          "ms": {f"{k} {v}": {"kernel": t[0], "plain": t[1], "library": t[2],
+                             "bound": ppng_bounds[(k, v)][0]}
+                 for (k, v), t in ppng_ms.items()}})
+    return ppng_ms, ppng_bounds
+
+
+@contextlib.contextmanager
+def ext_twins(acc_bf16=False):
+    """K10-K13's wrappers swapped for their plain twins where the autograd
+    Functions call them; with `acc_bf16`, the scatters (K11's and K13's
+    table half) accumulate in bf16, the control of lower precision."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import ext_kernel as ek
+
+    def add_rows(n_rows, idx, contrib):
+        out = torch.zeros((n_rows, contrib.shape[1]), dtype=torch.bfloat16, device=idx.device)
+        return out.index_add_(0, idx.reshape(-1).long(), contrib.to(torch.bfloat16)).float()
+
+    def scatter(idx, ct, n_rows):
+        if acc_bf16:
+            return add_rows(n_rows, idx, ct.reshape(idx.numel(), -1))
+        return ek._ext_scatter_plain(idx, ct, n_rows)
+
+    def lookup_bwd(table, idx, cw, gy, n_rows, n_levels, want_table=True, want_dots=True):
+        dT, dcw = ek._ext_lookup_bwd_plain(table, idx, cw, gy, n_rows, n_levels, want_table,
+                                           want_dots)
+        if acc_bf16 and want_table:
+            B, CNL = idx.shape
+            contrib = (cw.reshape(B, CNL // n_levels, n_levels, 1)
+                       * gy.reshape(B, 1, n_levels, -1)).to(torch.bfloat16)
+            dT = add_rows(n_rows, idx, contrib.reshape(B * CNL, -1))
+        return dT, dcw
+
+    saved = ek.ext_gather, ek.ext_scatter, ek.ext_lookup, ek.ext_lookup_bwd
+    ek.ext_gather, ek.ext_scatter = ek._ext_gather_plain, scatter
+    ek.ext_lookup, ek.ext_lookup_bwd = ek._ext_lookup_plain, lookup_bwd
+    try:
+        yield
+    finally:
+        ek.ext_gather, ek.ext_scatter, ek.ext_lookup, ek.ext_lookup_bwd = saved
+
+
+def ppng_sdf_slice(gen, dev, smi):
+    """Phase 11: each PPNG sample config trains SDF_STEPS steps through the
+    sample's step; its launches, loss fall and slice error are checked, and
+    PPNG3's trainer.inference against model.apply. Returns ({variant:
+    launches}, {variant: ms per step})."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.ops.cuda import train_kernel
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    ppng_launches, ppng_step_ms = {}, {}
+    for variant in PPNG_VARIANTS:
+        pm = tt.create_from_config(3, 1, sdf.config(variant), seed=SEED + 13, device=dev)
+        ptr, pnet = pm.trainer, pm.network
+        check(not ptr.use_fused() and not train_kernel.supported_ig(pnet),
+              f"{variant} must take the composed route")
+        pgen = torch.Generator(device=dev).manual_seed(SEED)
+        batches = [torch.rand(B_SDF, 3, generator=pgen, device=dev) for _ in range(SDF_STEPS)]
+        held_out = torch.rand(B_SDF, 3, generator=pgen, device=dev)
+        before = sdf.slice_error(pnet, ptr.params)
+        with torch.no_grad():
+            data_before = float(sdf.data_term(pnet, ptr.params, held_out))
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        plosses = [sdf.train_step(ptr, xs) for xs in batches]
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        launched = counters()
+        plosses = torch.stack(plosses).cpu()
+        check(bool(torch.isfinite(plosses).all()), f"{variant} SDF loss not finite")
+        fall = float(plosses[0] / plosses[-10:].mean())
+        after = sdf.slice_error(pnet, ptr.params)
+        with torch.no_grad():
+            data_after = float(sdf.data_term(pnet, ptr.params, held_out))
+        per_step = PPNG_PER_STEP[variant]
+        fall_min, slice_max = PPNG_SDF_LIMITS[variant]
+        emit({"phase": "ppng sdf slice", "variant": variant, "steps": SDF_STEPS, "B": B_SDF,
+              "eikonal_points": sdf.N_EIKONAL, "launches": launched,
+              "launches_per_step_expected": per_step,
+              "loss_first": float(plosses[0]), "loss_last10_mean": float(plosses[-10:].mean()),
+              "loss_at": {str(i): float(plosses[i])
+                          for i in sorted({0, SDF_STEPS // 10, SDF_STEPS // 4, SDF_STEPS // 2,
+                                           SDF_STEPS - 1})},
+              "loss_fall": fall, "loss_fall_min": fall_min, "slice_error_before": before,
+              "slice_error": after, "slice_error_max": slice_max,
+              "data_term_held_out": [data_before, data_after], "loop_seconds": loop_s})
+        check(all(launched[k] == per_step.get(k, 0) * SDF_STEPS for k in launched),
+              f"the {variant} SDF steps did not run {per_step} on every step: {launched}")
+        check(fall >= fall_min, f"{variant} SDF loss fell only {fall}x")
+        check(after <= slice_max, f"{variant} SDF slice error {after}")
+        # the trained model's gradient through K10-K13 against their twins'
+        split = pnet.network.n_params
+        _, gk = sdf.loss_and_grad(ptr, batches[-1])
+        with ext_twins():
+            _, gp = sdf.loss_and_grad(ptr, batches[-1])
+        compare_norm(f"{variant} SDF gradient, K10-K13 vs twins", gk, gp, PPNG_GRAD_REL, split)
+        with ext_twins(acc_bf16=True):
+            _, gl = sdf.loss_and_grad(ptr, batches[-1])
+        control(f"{variant} SDF gradient, scatters in bf16", gl, gp, PPNG_GRAD_REL, split)
+        ppng_launches[variant] = launched
+        ppng_step_ms[variant] = cuda_ms(lambda: sdf.train_step(ptr, batches[-1]), 20)
+        if variant == "PPNG3":
+            for B in (B_SDF, 100_003, 1):
+                xq = torch.rand(B, 3, generator=gen).to(dev)
+                yq = ptr.inference(xq)
+                check(yq.shape == (B, 1) and bool(torch.isfinite(yq).all()),
+                      "PPNG3 inference shape/finite")
+                check(torch.equal(yq, pnet.apply(ptr.params, xq)[:, :1].float()),
+                      "PPNG3 trainer.inference differs from model.apply")
+    emit({"phase": "times ppng sdf", "card": smi, "B": B_SDF, "sdf_train_step_ms": ppng_step_ms,
+          "sdf_steps_per_s": {k: 1e3 / v for k, v in ppng_step_ms.items()}})
+    return ppng_launches, ppng_step_ms
 
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core
@@ -836,13 +1222,8 @@ def main() -> int:
                lambda: train_kernel._fused_train_grads_plain(*step_args, x, t, tr.loss_scale,
                                                              None, None, False)),
     }
-    ms = {}
-    for name, (kern, plain) in timed.items():
-        p1 = cuda_ms(plain, 5)
-        k1 = cuda_ms(kern, 50)
-        k2 = cuda_ms(kern, 50)
-        p2 = cuda_ms(plain, 5)
-        ms[name] = (min(k1, k2), min(p1, p2))
+    ms = {name: time_pair(kern, plain, iters=50, plain_iters=5)
+          for name, (kern, plain) in timed.items()}
     infer_ms = cuda_ms(lambda: tr.inference(x), 50)
     step_ms = {}
     for route, flag in (("fused", None), ("composed", False), ("fused again", None)):
@@ -967,11 +1348,7 @@ def main() -> int:
                                                               sprep.weights, xi, go)),
         }
         for name, (kern, plain) in timed_ig.items():
-            p1 = cuda_ms(plain, 3)
-            k1 = cuda_ms(kern, 20)
-            k2 = cuda_ms(kern, 20)
-            p2 = cuda_ms(plain, 3)
-            ig_ms[(name, B)] = (min(k1, k2), min(p1, p2))
+            ig_ms[(name, B)] = time_pair(kern, plain)
     xs = torch.rand(B_SDF, 3, generator=gen).to(dev)
     sdf_step_ms = cuda_ms(lambda: sdf.train_step(sm.trainer, xs), 20)
     emit({"phase": "times ig", "card": smi,
@@ -993,6 +1370,15 @@ def main() -> int:
                            bf16=6 * B_MAIN * sprep.dims.n_weights),
     })
 
+    # 10. the PPNG kernels against their twins at the factory defaults
+    ppng_ms, ppng_bounds = check_ppng_kernels(gen, dev, smi, errs)
+
+    # 11. the PPNG SDF slice: each sample config trains through the sample's step
+    ppng_launches, _ = ppng_sdf_slice(gen, dev, smi)
+    for k, variant in (("K10", "PPNG2"), ("K11", "PPNG2"), ("K12", "PPNG3"), ("K13", "PPNG3")):
+        ms[k] = ppng_ms[(k, variant)]
+        bounds[k] = ppng_bounds[(k, variant)]
+
     sources = {
         "K1": ("grid_fwd", "tcnn_tpu_torch/csrc/grid_fwd.cu",
                "tcnn_tpu/ops/pallas/grid_kernel.py:597"),
@@ -1012,19 +1398,30 @@ def main() -> int:
                "tcnn_tpu/ops/pallas/grid_kernel.py:981"),
         "K9": ("fused_ig", "tcnn_tpu_torch/csrc/fused_ig.cu",
                "tcnn_tpu/ops/pallas/train_kernel.py:2106"),
+        "K10": ("ext_gather", "tcnn_tpu_torch/csrc/ext_gather.cu",
+                "tcnn_tpu/ops/pallas/dense_ext_kernel.py:95"),
+        "K11": ("ext_scatter", "tcnn_tpu_torch/csrc/ext_scatter.cu",
+                "tcnn_tpu/ops/pallas/dense_ext_kernel.py:134"),
+        "K12": ("ext_lookup", "tcnn_tpu_torch/csrc/ext_gather.cu",
+                "tcnn_tpu/ops/pallas/binned_kernel.py:770"),
+        "K13": ("ext_lookup_bwd", "tcnn_tpu_torch/csrc/ext_scatter.cu",
+                "tcnn_tpu/ops/pallas/binned_kernel.py:1717"),
     }
     # launches: K1-K3 from the inference slice, K6 from the fused training
     # loop, K4 and K5 from the composed training step, K7-K9 from the SDF
-    # slice
+    # slice, K10-K13 from the PPNG SDF slice (all three configs); times of
+    # K10 and K11 at PPNG2's defaults, of K12 and K13 at PPNG3's
     path_launches = {**{k: launches[k] for k in ("K1", "K2", "K3")},
                      "K4": composed_launches["K4"], "K5": composed_launches["K5"],
                      "K6": train_launches["K6"],
-                     **{k: sdf_launches[k] for k in ("K7", "K8", "K9")}}
+                     **{k: sdf_launches[k] for k in ("K7", "K8", "K9")},
+                     **{k: sum(n[k] for n in ppng_launches.values())
+                        for k in ("K10", "K11", "K12", "K13")}}
     emit({"kernels": [
         {"name": sources[k][0], "route": "cuda", "source": sources[k][1],
          "replaces": sources[k][2], "launches": path_launches[k], "max_abs_err": errs[k],
          "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
-         "bound_by": bounds[k][1], "library_ms": None}
+         "bound_by": bounds[k][1], "library_ms": ms[k][2]}
         for k in sources
     ]})
     print(smi, flush=True)

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Where a training step of tcnn_tpu_torch spends its time on one CUDA GPU.
 
-    python3 scripts/profile_torch_steps.py
+    python3 scripts/profile_torch_steps.py [encoding_otype ...]
 
 Profiles, with torch.profiler (CPU and CUDA activity), a short steady window
 of each step after a warm-up:
   - the SDF step of tcnn_tpu_torch.samples.learn_a_sdf (B = 2^16, 1024
-    eikonal points): the data term (K1 K2 K5 K4), the fused first order of
-    the eikonal term (K3 K9) and its second order (K1 K7 K8 and the matmul
-    chain's double backward), then Adam;
-  - `Trainer.training_step` on data/config_hash.json at B = 2^18, on the
-    fused route (K6) and the composed route (K1 K2 K5 K4).
+    eikonal points) with each encoding named (HashGrid, PPNG1, PPNG2,
+    PPNG3; default HashGrid). HashGrid: the data term (K1 K2 K5 K4), the
+    fused first order of the eikonal term (K3 K9) and its second order (K1
+    K7 K8 and the matmul chain's double backward), then Adam. PPNG: the
+    encoding's gathers (K10 K11, or K12 K13) with the torch combine, K2 K5
+    for the data term, the matmul chain for the eikonal term, then Adam;
+  - with no argument or with "config_hash", `Trainer.training_step` on
+    data/config_hash.json at B = 2^18, on the fused route (K6) and the
+    composed route (K1 K2 K5 K4).
 For each it prints one JSON line: wall ms per step (host clock around
 synchronised steps, without the profiler), device ms per step (the sum of
 the CUDA kernels' times under the profiler), the device's busy share of the
-profiled wall time, the number of kernel launches per step and the kernels
-that take the most device time. Exits non-zero without a CUDA device.
+profiled wall time, the number of kernel launches per step, and the kernels
+and the operators that take the most device time. Exits non-zero without a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -55,19 +60,24 @@ def profile(name, step, smi):
     launches = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.device_time_total > 0:
-            kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total / 1e3
+            key = ev.name[:80]  # the printed key: names that share it add up
+            kernels[key] = kernels.get(key, 0.0) + ev.device_time_total / 1e3
             launches += 1
     device_ms = sum(kernels.values()) / STEPS
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    # the operators (aten ops, autograd Functions) whose own kernels take the most device time
+    ops = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                  if e.self_device_time_total > 0), key=lambda kv: -kv[1])[:8]
     print(json.dumps({
         "step": name, "card": smi, "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
         "device_ms": device_ms, "device_busy": device_ms / prof_wall_ms if prof_wall_ms else 0.0,
         "kernel_launches_per_step": launches / STEPS,
-        "top_kernels_ms_per_step": {k[:80]: v / STEPS for k, v in top},
+        "top_kernels_ms_per_step": {k: v / STEPS for k, v in top},
+        "top_ops_ms_per_step": {k[:80]: v / STEPS for k, v in ops},
     }), flush=True)
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -82,9 +92,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    m = tt.create_from_config(3, 1, sdf.CONFIG, device=dev)
-    xs = torch.rand(sdf.BATCH, 3, generator=gen, device=dev)
-    profile("sdf train_step B=2^16", lambda: sdf.train_step(m.trainer, xs), smi)
+    names = argv[1:] or ["HashGrid", "config_hash"]
+    for otype in (n for n in names if n != "config_hash"):
+        m = tt.create_from_config(3, 1, sdf.config(otype), device=dev)
+        xs = torch.rand(sdf.BATCH, 3, generator=gen, device=dev)
+        profile(f"sdf train_step {otype} B=2^16", lambda: sdf.train_step(m.trainer, xs), smi)
+    if "config_hash" not in names:
+        return 0
 
     cfg = tt.load_config(str(ROOT / "data" / "config_hash.json"))
     image = synthetic_image(1024, 1024, device=dev)
@@ -99,4 +113,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

@@ -2,16 +2,18 @@
 
 Imports `torch` and never `jax`. Uses the JAX package's JSON "otype"
 configs, flat parameter layout ([network | encoding]) and checkpoint format.
-So far it trains and serves grid + MLP models with the nine losses and
-Adam, and differentiates them with respect to their inputs to second order
-(`model.apply(..., prepare_input_gradients=True)`, then
+So far it trains and serves grid + MLP and PPNG1/2/3 + MLP models with the
+nine losses and Adam, and differentiates them with respect to their inputs
+to second order (`model.apply(..., prepare_input_gradients=True)`, then
 `torch.autograd.grad(..., create_graph=True)`; the eikonal SDF sample,
-`python -m tcnn_tpu_torch.samples.learn_a_sdf`). Nine hand-written CUDA
-kernels for sm_90a under ``csrc/`` carry those paths: grid forward (K1),
-backward (K4), backward with input gradients (K7) and double backward (K8);
-fully fused MLP forward (K2) and backward (K5); fused grid + MLP inference
-(K3), train step (K6) and input-gradient backward (K9). They build at first
-use on a CUDA tensor; a CPU tensor takes each kernel's plain PyTorch twin.
+`python -m tcnn_tpu_torch.samples.learn_a_sdf [encoding_otype]`). Thirteen
+hand-written CUDA kernels for sm_90a under ``csrc/`` carry those paths:
+grid forward (K1), backward (K4), backward with input gradients (K7) and
+double backward (K8); fully fused MLP forward (K2) and backward (K5); fused
+grid + MLP inference (K3), train step (K6) and input-gradient backward
+(K9); the PPNG tables' row gather (K10), its scatter (K11), weighted lookup
+(K12) and the lookup's backward (K13). They build at first use on a CUDA
+tensor; a CPU tensor takes each kernel's plain PyTorch twin.
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`).
 """
@@ -45,6 +47,12 @@ from .log import (  # noqa: F401
 from .models.mlp import CutlassMLP, FullyFusedMLP  # noqa: F401
 from .models.network_with_input_encoding import NetworkWithInputEncoding  # noqa: F401
 from .ops.encodings.grid import GridEncoding  # noqa: F401
+from .ops.encodings.ppng import (  # noqa: F401
+    PPNG1Encoding,
+    PPNG2Encoding,
+    PPNG3Encoding,
+    PPNGBase,
+)
 from .ops.losses import Loss  # noqa: F401
 from .optimizers.adam import AdamOptimizer  # noqa: F401
 from .registry import (  # noqa: F401

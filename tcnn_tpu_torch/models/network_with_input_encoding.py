@@ -56,15 +56,19 @@ class NetworkWithInputEncoding(Network):
         A model that `train_kernel.supported_ig` takes runs the fused route
         (K3 forward, K9 backward; its second order re-runs the composed
         route); every other model, and `_no_fused_ig` (that fallback's
-        re-entry guard), runs the composed route: the encoding with
-        `needs_input_grad` (K1, K7, K8) into the MLP's matmul chain."""
+        re-entry guard), runs the composed route: the encoding into the
+        MLP's matmul chain. An encoding that declares
+        `supports_input_grad_opt` (the grid: K1, K7, K8) is told
+        `needs_input_grad`, as the JAX package tells it
+        (network_with_input_encoding.py:93-94); any other (PPNG) is
+        differentiable in x as it is."""
         if (prepare_input_gradients and not _no_fused_ig and max_level is None
                 and train_kernel.supported_ig(self)):
             return train_kernel.FusedApplyIgFn.apply(params, x, self)
         net_p, enc_p = self.split_params(params)
         kwargs = {} if max_level is None else {"max_level": max_level}
-        if prepare_input_gradients:
-            kwargs["needs_input_grad"] = True
+        if getattr(self.encoding, "supports_input_grad_opt", False):
+            kwargs["needs_input_grad"] = prepare_input_gradients
         enc_out = self.encoding.apply(enc_p, x, **kwargs)
         return self.network.apply(net_p, enc_out, second_order=prepare_input_gradients)
 

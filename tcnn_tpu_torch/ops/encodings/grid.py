@@ -54,6 +54,8 @@ class GridEncoding(Encoding):
     """Trainable multiresolution feature grid (hash / tiled / dense)."""
 
     pad_value = 0.0  # grid zero-pads (grid.h:749-759)
+    #: takes `needs_input_grad` (NetworkWithInputEncoding passes it)
+    supports_input_grad_opt = True
 
     def __init__(
         self,

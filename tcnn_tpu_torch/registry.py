@@ -3,9 +3,9 @@
 src/network.cu:70-130). Keys and otypes match case-insensitively like the
 reference's ci_hashmap (common_host.h:242-246).
 
-The port registers the Grid family of encodings, the MLP networks, the nine
-losses and the Adam optimizer so far; any other otype raises ValueError
-naming it as not ported yet.
+The port registers the Grid family and PPNG1/2/3 encodings, the MLP
+networks, the nine losses and the Adam optimizer so far; any other otype
+raises ValueError naming it as not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from .common import (
 from .models.mlp import CutlassMLP, FullyFusedMLP
 from .ops.encodings.base import Encoding
 from .ops.encodings.grid import GridEncoding
+from .ops.encodings.ppng import PPNG1Encoding, PPNG2Encoding, PPNG3Encoding
 from .ops.losses import LOSSES, Loss
 from .optimizers.adam import AdamOptimizer
 from .optimizers.base import Optimizer
@@ -106,6 +107,28 @@ def _make_grid(n_dims, cfg):
 
 for _name in ("Grid", "HashGrid", "TiledGrid", "DenseGrid"):
     register_encoding(_name, _make_grid)
+
+
+def _make_ppng(cls):
+    def make(n_dims, cfg):
+        # factory defaults: ppng_1.h:340-367 (shared by all three variants)
+        kw = dict(
+            log2_min_freq=int(cfg_get(cfg, "log2_min_freq", 0)),
+            log2_max_freq=int(cfg_get(cfg, "log2_max_freq", 6)),
+            n_quants=int(cfg_get(cfg, "n_quants", 64)),
+            n_frequencies=int(cfg_get(cfg, "n_frequencies", 6)),
+            n_features=int(cfg_get(cfg, "n_features", 4)),
+        )
+        if cls is not PPNG3Encoding:
+            kw["rank"] = int(cfg_get(cfg, "rank", 4))
+        return cls(n_dims, **kw)
+
+    return make
+
+
+register_encoding("PPNG1", _make_ppng(PPNG1Encoding))
+register_encoding("PPNG2", _make_ppng(PPNG2Encoding))
+register_encoding("PPNG3", _make_ppng(PPNG3Encoding))
 
 # ---------------------------------------------------------------------------
 # Networks

@@ -1,15 +1,18 @@
-"""Fit a signed-distance field with a 3-D hash grid + MLP, trained with an
-eikonal term through second-order autodiff (counterpart of
-``samples/learn_a_sdf.py``, HashGrid config).
+"""Fit a signed-distance field with a 3-D hash grid or a PPNG encoding +
+MLP, trained with an eikonal term through second-order autodiff
+(counterpart of ``samples/learn_a_sdf.py``, with its four configs).
 
-    python -m tcnn_tpu_torch.samples.learn_a_sdf [n_steps] [device]
+    python -m tcnn_tpu_torch.samples.learn_a_sdf [encoding_otype] [n_steps] [device]
 
-The model supervises distances to an analytic shape (a sphere-box blend)
-and regularises ||df/dx|| = 1 on the first points of each batch. The
-eikonal term's first-order gradient runs the fused input-gradient route
-(K3 forward, K9 backward); its parameter gradient runs the composed route
-again (K1, K7, K8); the data term runs K1, K2, K5 and K4. The device
-defaults to the card.
+encoding_otype: HashGrid (default) | PPNG1 | PPNG2 | PPNG3. The model
+supervises distances to an analytic shape (a sphere-box blend) and
+regularises ||df/dx|| = 1 on the first points of each batch. With HashGrid
+the eikonal term's first-order gradient runs the fused input-gradient route
+(K3 forward, K9 backward) and its parameter gradient the composed route
+again (K1, K7, K8); the data term runs K1, K2, K5 and K4. A PPNG model runs
+the composed route for both terms: the encoding's gathers (K10, K11 for
+PPNG1/2; K12, K13 for PPNG3) into the MLP's matmul chain for the eikonal
+term and into K2/K5 for the data term. The device defaults to the card.
 """
 
 from __future__ import annotations
@@ -29,12 +32,26 @@ ENCODING = {
     "base_resolution": 8,
     "per_level_scale": 1.5,
 }
-CONFIG = {
-    "loss": {"otype": "L2"},
-    "optimizer": {"otype": "Adam", "learning_rate": 3e-3},
-    "encoding": ENCODING,
-    "network": {"otype": "FullyFusedMLP", "n_neurons": 64, "n_hidden_layers": 2},
+#: The encodings of samples/learn_a_sdf.py:26-44.
+ENCODINGS = {
+    "HashGrid": ENCODING,
+    "PPNG1": {"otype": "PPNG1", "n_quants": 64, "n_frequencies": 6, "n_features": 4, "rank": 4},
+    "PPNG2": {"otype": "PPNG2", "n_quants": 32, "n_frequencies": 4, "n_features": 2, "rank": 2},
+    "PPNG3": {"otype": "PPNG3", "n_quants": 32, "n_frequencies": 4, "n_features": 2},
 }
+
+
+def config(otype: str = "HashGrid") -> dict:
+    """The sample's model config with the encoding `otype`."""
+    return {
+        "loss": {"otype": "L2"},
+        "optimizer": {"otype": "Adam", "learning_rate": 3e-3},
+        "encoding": dict(ENCODINGS[otype]),
+        "network": {"otype": "FullyFusedMLP", "n_neurons": 64, "n_hidden_layers": 2},
+    }
+
+
+CONFIG = config()
 BATCH = 1 << 16
 N_EIKONAL = 1024
 EIKONAL_WEIGHT = 0.01
@@ -59,13 +76,17 @@ def eikonal_grad(model, params, xe: torch.Tensor, fused_ig: bool = True) -> torc
     return g
 
 
+def data_term(model, params, xs: torch.Tensor) -> torch.Tensor:
+    """mean((f(x) - sdf(x))^2) over the points `xs`."""
+    out = model.apply(params, xs)[:, :1].float()
+    return torch.mean((out - sdf_true(xs)[:, None]) ** 2)
+
+
 def sdf_loss(model, params, xs: torch.Tensor, n_eikonal: int = N_EIKONAL,
              eikonal_weight: float = EIKONAL_WEIGHT, fused_ig: bool = True) -> torch.Tensor:
-    """mean((f(x) - sdf(x))^2) + eikonal_weight * mean((||df/dx|| - 1)^2),
-    the eikonal term on the first `n_eikonal` points (samples/learn_a_sdf.py:
-    72-94)."""
-    out = model.apply(params, xs)[:, :1].float()
-    data = torch.mean((out - sdf_true(xs)[:, None]) ** 2)
+    """data_term + eikonal_weight * mean((||df/dx|| - 1)^2), the eikonal
+    term on the first `n_eikonal` points (samples/learn_a_sdf.py:72-94)."""
+    data = data_term(model, params, xs)
     g = eikonal_grad(model, params, xs[:n_eikonal], fused_ig)
     eik = torch.mean((torch.linalg.vector_norm(g, dim=-1) - 1.0) ** 2)
     return data + eikonal_weight * eik
@@ -101,12 +122,18 @@ def slice_error(model, params, n: int = 128) -> float:
 
 
 def main(argv) -> int:
-    n_steps = int(argv[1]) if len(argv) > 1 else 2000
-    device = argv[2] if len(argv) > 2 else "cuda"
-    model = create_from_config(3, 1, CONFIG, device=device)
+    args = list(argv[1:])
+    otype = args.pop(0) if args and args[0] in ENCODINGS else "HashGrid"
+    n_steps = int(args[0]) if args else 2000
+    device = args[1] if len(args) > 1 else "cuda"
+    model = create_from_config(3, 1, config(otype), device=device)
     trainer = model.trainer
-    print(f"SDF with HashGrid: {model.network.n_params} params on {trainer.device}")
+    print(f"SDF with {otype}: {model.network.n_params} params on {trainer.device}")
     gen = torch.Generator(device=trainer.device).manual_seed(1337)
+    held_out = torch.rand(BATCH, 3, generator=torch.Generator(device=trainer.device).manual_seed(7),
+                          device=trainer.device)
+    with torch.no_grad():
+        data_before = float(data_term(model.network, trainer.params, held_out))
     t0 = time.time()
     interval = 10
     for step in range(1, n_steps + 1):
@@ -116,6 +143,9 @@ def main(argv) -> int:
             print(f"step {step}: loss {float(loss):.6e} ({step / (time.time() - t0):.1f} steps/s)")
             if step // interval == 10:
                 interval *= 10
+    with torch.no_grad():
+        data_after = float(data_term(model.network, trainer.params, held_out))
+    print(f"data term on {BATCH} held-out points: {data_before:.6e} -> {data_after:.6e}")
     print(f"mean |SDF error| on z=0.5 slice: {slice_error(model.network, trainer.params):.5f}")
     return 0
 

@@ -83,8 +83,9 @@ def opt_state_from_jax(state: dict, like: dict) -> dict:
 def params_from_jax(arr: np.ndarray, n_params: int) -> torch.Tensor:
     """The port's flat fp32 params from a `tcnn_tpu` params vector passed
     as numpy (`np.asarray(trainer.params)`). Both packages lay the vector
-    out [network | encoding] (network_with_input_encoding.py:49-51), so
-    this checks the length and dtype and converts."""
+    out [network | encoding] (network_with_input_encoding.py:49-51), the
+    encoding block in the JAX package's own layout (a grid's table, PPNG's
+    [F, 2, ...] tables), so this checks the length and dtype and converts."""
     arr = np.asarray(arr)
     if arr.dtype != np.float32:
         raise ValueError(f"expected float32 params, got {arr.dtype}")

@@ -8,7 +8,7 @@ import shutil
 
 import pytest
 
-from tcnn_tpu_torch.ops.cuda import _build, grid_kernel, mlp_kernel, train_kernel
+from tcnn_tpu_torch.ops.cuda import _build, ext_kernel, grid_kernel, mlp_kernel, train_kernel
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "int": ctypes.c_int, "unsigned": ctypes.c_uint32, "float": ctypes.c_float}
@@ -39,6 +39,10 @@ def test_argtypes_match_the_c_entry_points():
     assert sigs["tcnn_grid_bwd_ig"] == grid_kernel._GRID_BWD_IG_ARGS
     assert sigs["tcnn_grid_bwd_bwd"] == grid_kernel._GRID_BWD_BWD_ARGS
     assert sigs["tcnn_fused_ig"] == train_kernel._FUSED_IG_ARGS
+    assert sigs["tcnn_ext_gather"] == ext_kernel._EXT_GATHER_ARGS
+    assert sigs["tcnn_ext_scatter"] == ext_kernel._EXT_SCATTER_ARGS
+    assert sigs["tcnn_ext_lookup"] == ext_kernel._EXT_LOOKUP_ARGS
+    assert sigs["tcnn_ext_lookup_bwd"] == ext_kernel._EXT_LOOKUP_BWD_ARGS
     # the persistent grids, called as mlp_kernel.persistent_grid calls them
     assert sigs["tcnn_mlp_bwd_grid"] == [ctypes.c_int] * 7
     assert sigs["tcnn_fused_train_grid"] == [ctypes.c_int] * 8
@@ -77,7 +81,7 @@ def test_build_compiles_each_source_in_parallel_then_links(tmp_path, monkeypatch
     out = tmp_path / "lib.so"
     _build._compile_and_link(sources, tmp_path, out)
     calls = log.read_text().splitlines()
-    assert len(calls) == len(sources) + 1 and len(sources) == 9
+    assert len(calls) == len(sources) + 1 and len(sources) == 11
     assert all(" -c " in c for c in calls[:-1]) and " -shared " in calls[-1]
     assert sorted(c.split()[-1] for c in calls[:-1]) == sorted(map(str, sources))
     assert out.exists()
