@@ -59,16 +59,35 @@ Phases, each printing JSON lines:
      PPNG1/2, K12 K13 for PPNG3, K2 K5 for the data term, no grid kernel),
      the loss falling and the z = 0.5 slice error under limits set before
      the first run; requests through `trainer.inference` on the trained
-     PPNG3 model equal `model.apply`; ms per step.
-Then a line with every kernel (its launches on the main path, error against
-its twin, time, twin's time, bound, what bounds it and its yardstick's time),
-the `nvidia-smi` line, and as the last line {"ok": true, "device": {...}}. Any failed check raises, so the script exits
+     PPNG3 model equal `model.apply`; ms per step;
+ 12. the stochastic-interpolation and Rng options of the grid kernels
+     against their twins on the card: at config_hash with "stochastic",
+     "rng" and "both" (B = 2^18, 2^18 - 37 and 1), K1 and K3 with Rng, K4
+     and K6 with each option (K4's stochastic inputs hold rows where a
+     draw equals its weight); K7, K8 and K9 with Rng at the SDF config
+     (B = 2^16, 2^16 - 37, 1); K1 and K4 with Rng at D = 4. Each bound
+     beside a control that must break it: the twin drawing with key 1338 or
+     hashing with seed 1338. Then each option and its twin timed at B = 2^18
+     with its bound, the hash's integer work counted apart, and K4's
+     stochastic option beside one `index_add_` of the rows it scatters;
+ 13. the options' training slice: config_hash with each option trains
+     N_TRAIN steps at B = 2^18 through K6 only (counters), the loss falling
+     and the holdout PSNR under limits set before the first run; a
+     composed-route step (K1 K2 K5 K4, counters) against K6's gradient;
+     `trainer.inference` (K3) against `model.apply`; ms per step of both
+     routes.
+Then a line with every kernel and option (its launches on the main path,
+error against its twin, time, twin's time, bound, what bounds it and its
+yardstick's time), the `nvidia-smi` line, and as the last line
+{"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; it also exits non-zero when no GPU is present.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import json
 import os
 import pathlib
@@ -239,6 +258,36 @@ PPNG_GRAD_REL = {"weights": EXT_SCATTER_REL, "table": EXT_SCATTER_REL}
 PPNG_PER_STEP = {"PPNG1": {"K10": 2, "K11": 2, "K2": 1, "K5": 1},
                  "PPNG2": {"K10": 2, "K11": 2, "K2": 1, "K5": 1},
                  "PPNG3": {"K12": 3, "K13": 4, "K2": 1, "K5": 1}}
+
+#: The options of config_hash's grid that phases 12 and 13 drive.
+OPTIONS = {"stochastic": {"stochastic_interpolation": True}, "rng": {"hash": "Rng"},
+           "both": {"stochastic_interpolation": True, "hash": "Rng"}}
+#: The controls of phase 12: each option's twin drawing with this key or
+#: hashing with this seed, where the kernels take 1337.
+CONTROL_SEED = 1338
+#: Phase 12's bounds are the base kernels' (K1_REL, MLP_REL, GRID_BWD_REL,
+#: K6_REL, K7_REL, K8_REL, K9_REL): the hash is integer math and the draw a
+#: bit-equal cipher, so an option adds no rounding of its own; a corner
+#: chosen otherwise than the twin's moves a whole contribution and reads
+#: 1e-4 and more.
+#: K6's options read more than K6 on their own models (H100 80GB HBM3,
+#: 700 W; table part at config_hash, B = 2^18 and 2^18 - 37, over two
+#: runs): stochastic 5.0e-5 to 2.06e-4, rng 3.5e-5 to 1.68e-4, both 5.0e-5
+#: to 1.14e-4. A stochastic row is one bf16 value per feature, so where K6's
+#: g (16 significant bits) and the twin's (f32) round to neighbouring bf16
+#: values a table row moves by a whole ulp of one or two contributions; and
+#: a few samples whose loss gradient is large (RelativeL2 near a zero
+#: prediction) carry most of the norm. The options' faults (another corner
+#: or row) read 0.37 and more, as their controls do; the precision of K6's
+#: backward, which the options share, is held by the base check (K6_REL and
+#: its control with g in bf16, 4.3e-4 to 5.0e-4). So the options' table
+#: bound is 6e-4, about 3x the largest reading.
+K6_OPT_REL = {"weights": K6_REL["weights"], "table": 6e-4}
+#: Phase 13: (least loss fall, least holdout PSNR in dB) of each option over
+#: N_TRAIN steps at B = 2^18, set before the first run on the card from CPU
+#: rehearsals of both packages at B = 2^16 (scripts/rehearse_train_options.py;
+#: PERF.md, section 6).
+OPTION_LIMITS = {"stochastic": (100.0, 20.0), "rng": (100.0, 20.0), "both": (100.0, 20.0)}
 
 
 def emit(obj) -> None:
@@ -461,11 +510,12 @@ def composed_twin(prep, n_active, loss, x, targets, loss_scale, pdf=None, noise=
 
 
 def check_train_step(name, net, loss, params, x, targets, loss_scale, bounds, control_too=False,
-                     **kw):
+                     ctl_plan=None, **kw):
     """K6 against its twin on one step: the loss sum within TRAIN_LOSS_RTOL,
     the gradient's weights and table parts within `bounds`; with
-    `control_too`, the composed route's precision must break them. Returns
-    the max abs error of the gradient."""
+    `control_too`, the composed route's precision must break them, and with
+    `ctl_plan`, the twin on that plan (other draws or another hash seed).
+    Returns the max abs error of the gradient."""
     import torch
     from tcnn_tpu_torch.ops.cuda import train_kernel
 
@@ -486,6 +536,11 @@ def check_train_step(name, net, loss, params, x, targets, loss_scale, bounds, co
     if control_too:
         lower = composed_twin(prep, n_active, loss, x, targets, loss_scale, **kw)
         control(f"K6 {name}, g in bf16", lower, pg, bounds, split)
+    if ctl_plan is not None:
+        _, other = train_kernel._fused_train_grads_plain(
+            ctl_plan, prep.dims, n_active, prep.table, prep.weights, loss, x, targets, loss_scale,
+            kw.get("pdf"), kw.get("noise"), kw.get("ext_dl", False))
+        control(f"K6 {name}, {control_label(ctl_plan)}", other, pg, bounds, split)
     return err
 
 
@@ -960,6 +1015,394 @@ def kernel_bound(n_bytes, f32=0.0, bf16=0.0):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+# ---------------------------------------------------------------------------
+# Phases 12 and 13: the stochastic-interpolation and Rng options
+# ---------------------------------------------------------------------------
+
+
+def control_plan(plan, option):
+    """The plan's twin with the draws of key CONTROL_SEED (stochastic) or
+    the hash seeded with CONTROL_SEED (Rng); the kernels refuse it."""
+    ctl = copy.copy(plan)
+    if plan.stochastic:
+        ctl.draw_seed = CONTROL_SEED
+    if plan.rng:
+        ctl.hash_seed = CONTROL_SEED
+    assert option in OPTIONS and (ctl.draw_seed, ctl.hash_seed) != (plan.draw_seed, plan.hash_seed)
+    return ctl
+
+
+def control_label(plan) -> str:
+    parts = []
+    if plan.draw_seed == CONTROL_SEED:
+        parts.append(f"drawing with key {CONTROL_SEED}")
+    if plan.hash_seed == CONTROL_SEED:
+        parts.append(f"hashing with seed {CONTROL_SEED}")
+    return " and ".join(parts)
+
+
+def control_ulp(name, lower, want, rel_ulp):
+    """A twin of another hash against the twin: the per-value bound must
+    reject it."""
+    import torch
+
+    diff = (lower.float() - want.float()).abs()
+    over = float((diff > rel_ulp * torch.maximum(lower.float().abs(), want.float().abs()))
+                 .float().mean())
+    emit({"phase": "control", "name": name, "share_over_bound": over, "limit": f"{rel_ulp} x |value|",
+          "rejected": over > 0})
+    check(over > 0, f"control {name}: the bound {rel_ulp} passes it")
+
+
+def control_max(name, lower, want, rel_max):
+    """The same for a bound on the max abs error relative to max |want|."""
+    err = float((lower.float() - want.float()).abs().max())
+    limit = rel_max * max(1.0, float(want.float().abs().max()))
+    emit({"phase": "control", "name": name, "max_abs_err": err, "limit": limit,
+          "rejected": err > limit})
+    check(err > limit, f"control {name}: the bound {limit} passes it ({err})")
+
+
+def with_ties(plan, x, n=64):
+    """x with its first n rows moved so that dimension 0's weight at level
+    b % L equals the draw u[b, b % L] exactly: the stochastic corner keeps
+    cell 0 there (u < w is false), which a kernel must reproduce."""
+    import numpy as np
+    import torch
+    from tcnn_tpu_torch.ops.encodings.grid import stochastic_uniforms
+
+    n = min(n, x.shape[0])
+    u = stochastic_uniforms(n, plan.n_levels, "cpu").numpy()
+    xs = x[:n].cpu().numpy().copy()
+    for b in range(n):
+        l = b % plan.n_levels
+        if plan.interpolation.value != "Linear" or not 0.0 < u[b, l] < 1.0:
+            continue
+        uu, s = np.float32(u[b, l]), np.float32(plan.scales[l])
+        v = np.float32((uu - np.float32(0.5)) / s)
+        for _ in range(200):
+            pos = np.float32(np.float32(v * s) + np.float32(0.5))
+            if pos == uu:
+                xs[b, 0] = v
+                break
+            v = np.nextafter(v, np.float32(np.inf) if pos < uu else np.float32(-np.inf))
+    out = x.clone()
+    out[:n] = torch.from_numpy(xs).to(x.device)
+    return out
+
+
+def option_model(cfg, option, seed, dev, gen, d=2, n_out=3):
+    """A model of `cfg` with `option` set, its table redrawn from U(-1, 1)."""
+    import tcnn_tpu_torch as tt
+
+    ocfg = json.loads(json.dumps(cfg))
+    ocfg["encoding"].update(OPTIONS[option])
+    m = tt.create_from_config(d, n_out, ocfg, seed=seed, device=dev)
+    m.trainer.set_params(random_params(m.trainer, gen))
+    return m
+
+
+def hash_int_ops(plan, x) -> float:
+    """64-bit multiplies the Rng hashes of the corners of x need (two per
+    set bit of each hashed corner's delta), counted apart from the bound."""
+    import torch
+    from tcnn_tpu_torch.ops import pcg32
+    from tcnn_tpu_torch.ops.cuda import grid_kernel
+
+    cells, _ = grid_kernel.positions(x, torch.from_numpy(plan.scales).to(x.device),
+                                     plan.interpolation)
+    hashed = torch.tensor(plan.use_hash, device=x.device)
+    total = 0
+    for corner in range(plan.n_corners):
+        cc = (cells + torch.tensor([(corner >> d) & 1 for d in range(plan.d)],
+                                   device=x.device)) & 0xFFFFFFFF
+        halves = [torch.zeros_like(cc[..., 0]), torch.zeros_like(cc[..., 0])]
+        for d in range(plan.d):
+            hi, lo = pcg32._shl64(cc[..., d], d * (64 // plan.d))
+            halves = [halves[0] ^ hi, halves[1] ^ lo]
+        bits = torch.zeros_like(halves[0])
+        for v in halves:
+            for _ in range(32):
+                bits += v & 1
+                v = v >> 1
+        total += int(bits[:, hashed].sum())
+    return 2.0 * total
+
+
+def check_option_kernels(cfg, gen, dev, smi, enc_w):
+    """Phase 12: each option of the grid kernels against its twin with a
+    control; returns ({entry: max abs err}, {entry: (ms, twin ms, yardstick
+    ms)}, {entry: (bound ms, bound_by)}), entries named "K4 stochastic" and
+    the like."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, train_kernel
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    errs, ms, bounds, extra = {}, {}, {}, {}
+
+    def note(key, err):
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    models = {}
+    for option in OPTIONS:
+        m = option_model(cfg, option, SEED + 20, dev, gen)
+        net, tr = m.network, m.trainer
+        prep = train_kernel.prepare_forward(net, tr.params)
+        plan, L = prep.plan, prep.plan.n_levels
+        check(plan.rng == ("Rng" in str(OPTIONS[option])) and plan.stochastic
+              == ("stochastic_interpolation" in OPTIONS[option]), f"{option}: plan options")
+        ctl = control_plan(plan, option)
+        models[option] = m
+        for B in BATCHES:
+            x = torch.rand(B, 2, generator=gen).to(dev)
+            if plan.stochastic and B == B_MAIN:
+                x = with_ties(plan, x)
+            if plan.rng:
+                want = grid_kernel._grid_encode_plain(plan, prep.table, x, enc_w, L)
+                note(f"K1 {option}", compare(f"K1 grid_fwd {option} B={B}",
+                                             grid_kernel.grid_encode(plan, prep.table, x, enc_w, L),
+                                             want, rel_ulp=K1_REL))
+                want3 = train_kernel._fused_forward_plain(prep, x)
+                note(f"K3 {option}", compare(f"K3 fused_infer {option} B={B}",
+                                             train_kernel.fused_forward_prepared(prep, x), want3,
+                                             rel_max=MLP_REL))
+                if B == B_MAIN:
+                    control_ulp(f"K1 {option}, {control_label(ctl)}",
+                                grid_kernel._grid_encode_plain(ctl, prep.table, x, enc_w, L), want,
+                                K1_REL)
+                    control_max(f"K3 {option}, {control_label(ctl)}",
+                                train_kernel._fused_forward_plain(
+                                    dataclasses.replace(prep, plan=ctl), x), want3, MLP_REL)
+            gy = torch.randn(B, enc_w, generator=gen).to(torch.bfloat16).to(dev)
+            want4 = grid_kernel._grid_backward_plain(plan, x, gy, L)
+            note(f"K4 {option}", compare_norm(f"K4 grid_bwd {option} B={B}",
+                                              grid_kernel.grid_backward(plan, x, gy, L), want4,
+                                              GRID_BWD_REL))
+            if B == B_MAIN:
+                control(f"K4 {option}, {control_label(ctl)}",
+                        grid_kernel._grid_backward_plain(ctl, x, gy, L), want4, GRID_BWD_REL)
+            t = torch.rand(B, 3, generator=gen).to(dev)
+            note(f"K6 {option}", check_train_step(
+                f"{option} B={B}", net, tr.loss_fn, tr.params, x, t, tr.loss_scale,
+                K6_OPT_REL,
+                ctl_plan=ctl if B == B_MAIN else None))
+
+    # K7, K8, K9 with Rng at the SDF config (3-D: 21-bit lanes of delta)
+    scfg = json.loads(json.dumps(sdf.CONFIG))
+    sm = option_model(scfg, "rng", SEED + 21, dev, gen, d=3, n_out=1)
+    snet, sparams = sm.network, sm.trainer.params
+    check(sm.network.encoding.plan.rng and train_kernel.supported_ig(snet),
+          "the Rng SDF config must take the fused ig route")
+    for B in SDF_BATCHES:
+        x = torch.rand(B, 3, generator=gen).to(dev)
+        for k, v in check_ig_kernels(f"Rng B={B}", snet, sparams, x, gen,
+                                     control_too=False).items():
+            note(f"{k} rng", v)
+    splan = snet.encoding.plan
+    sctl = control_plan(splan, "rng")
+    x = torch.rand(B_SDF, 3, generator=gen).to(dev)
+    table, gy_out, gy_enc, z = eikonal_inputs(snet, sparams, x)
+    label = control_label(sctl)
+    pt, _ = grid_kernel._grid_backward_ig_plain(splan, table, x, gy_enc)
+    control(f"K7 gtable Rng, {label}",
+            grid_kernel._grid_backward_ig_plain(sctl, table, x, gy_enc)[0], pt, K7_REL["gtable"])
+    q = grid_kernel._grid_backward_bwd_plain(splan, table, None, x, gy_enc, z)
+    control(f"K8 gtable2 Rng, {label}",
+            grid_kernel._grid_backward_bwd_plain(sctl, table, None, x, gy_enc, z)[1], q[1],
+            K8_REL["gtable2"])
+    sprep = train_kernel.prepare_forward(snet, sparams)
+    pg, _ = train_kernel._fused_ig_grads_plain(splan, sprep.dims, sprep.table, sprep.weights, x,
+                                               gy_out)
+    cg, _ = train_kernel._fused_ig_grads_plain(sctl, sprep.dims, sprep.table, sprep.weights, x,
+                                               gy_out)
+    control(f"K9 table Rng, {label}", cg, pg, {"table": K9_REL["table"]}, sprep.dims.n_weights)
+    # their times at B = 2^18, as phase 9 times them without the hash
+    x = torch.rand(B_MAIN, 3, generator=gen).to(dev)
+    table, gy_out, gy_enc, z = eikonal_inputs(snet, sparams, x)
+    hash_ops = hash_int_ops(splan, x)
+    for k, kern, plain in (
+            ("K7", lambda: grid_kernel.grid_backward_ig(splan, table, x, gy_enc),
+             lambda: grid_kernel._grid_backward_ig_plain(splan, table, x, gy_enc)),
+            ("K8", lambda: grid_kernel.grid_backward_bwd(splan, table, None, x, gy_enc, z),
+             lambda: grid_kernel._grid_backward_bwd_plain(splan, table, None, x, gy_enc, z)),
+            ("K9", lambda: train_kernel.fused_ig_grads(snet, sparams, x, gy_out),
+             lambda: train_kernel._fused_ig_grads_plain(splan, sprep.dims, sprep.table,
+                                                        sprep.weights, x, gy_out))):
+        ms[f"{k} rng"] = time_pair(kern, plain, iters=20, plain_iters=1)
+        extra[f"{k} rng"] = {"hash_mul64": hash_ops}
+    gtable_bytes = splan.total_rows * splan.f * 4
+    bounds["K7 rng"] = kernel_bound(bytes_of(x, gy_enc, table) + gtable_bytes + x.numel() * 4,
+                                    f32=grid_ops(B_MAIN, splan, "ig"))
+    bounds["K8 rng"] = kernel_bound(bytes_of(x, gy_enc, z, table) + gy_enc.numel() * 4
+                                    + gtable_bytes + x.numel() * 4,
+                                    f32=grid_ops(B_MAIN, splan, "bwdbwd"))
+    bounds["K9 rng"] = kernel_bound(bytes_of(x, gy_out, table, sprep.weights) + snet.n_params * 4
+                                    + x.numel() * 4,
+                                    f32=grid_ops(B_MAIN, splan, "fwd") + grid_ops(B_MAIN, splan, "ig"),
+                                    bf16=6 * B_MAIN * sprep.dims.n_weights)
+
+    # K1 and K4 with Rng at D = 4 (16-bit lanes of delta that overlap)
+    scfg["encoding"]["interpolation"] = "Linear"
+    dm = option_model(scfg, "rng", SEED + 23, dev, gen, d=4, n_out=1)
+    dplan = dm.network.encoding.plan
+    dprep = train_kernel.prepare_forward(dm.network, dm.trainer.params)
+    dctl = control_plan(dplan, "rng")
+    x = torch.rand(B_SDF - 37, 4, generator=gen).to(dev)
+    w = dm.network.encoding.padded_output_width
+    want = grid_kernel._grid_encode_plain(dplan, dprep.table, x, w, dplan.n_levels)
+    note("K1 rng", compare("K1 grid_fwd Rng D=4", grid_kernel.grid_encode(
+        dplan, dprep.table, x, w, dplan.n_levels), want, rel_ulp=K1_REL))
+    control_ulp(f"K1 Rng D=4, {control_label(dctl)}",
+                grid_kernel._grid_encode_plain(dctl, dprep.table, x, w, dplan.n_levels), want, K1_REL)
+    gy = torch.randn(x.shape[0], w, generator=gen).to(torch.bfloat16).to(dev)
+    want = grid_kernel._grid_backward_plain(dplan, x, gy, dplan.n_levels)
+    note("K4 rng", compare_norm("K4 grid_bwd Rng D=4", grid_kernel.grid_backward(
+        dplan, x, gy, dplan.n_levels), want, GRID_BWD_REL))
+    control(f"K4 Rng D=4, {control_label(dctl)}",
+            grid_kernel._grid_backward_plain(dctl, x, gy, dplan.n_levels), want, GRID_BWD_REL)
+
+    # times at B = 2^18, each option beside its twin
+    for option, m in models.items():
+        net, tr = m.network, m.trainer
+        prep = train_kernel.prepare_forward(net, tr.params)
+        plan, dims, L = prep.plan, prep.dims, prep.plan.n_levels
+        x = torch.rand(B_MAIN, 2, generator=gen).to(dev)
+        t = torch.rand(B_MAIN, 3, generator=gen).to(dev)
+        gy = torch.randn(B_MAIN, enc_w, generator=gen).to(torch.bfloat16).to(dev)
+        n_table = plan.total_rows * plan.f * 4
+        hash_ops = hash_int_ops(plan, x) if plan.rng else 0.0
+        fwd_ops = grid_ops(B_MAIN, plan, "fwd")
+        bwd_ops = grid_ops(B_MAIN, plan, "bwd") / (plan.n_corners if plan.stochastic else 1)
+        if plan.rng:
+            ms[f"K1 {option}"] = time_pair(
+                lambda: grid_kernel.grid_encode(plan, prep.table, x, enc_w, L),
+                lambda: grid_kernel._grid_encode_plain(plan, prep.table, x, enc_w, L),
+                iters=50, plain_iters=1)
+            bounds[f"K1 {option}"] = kernel_bound(bytes_of(x, prep.table) + B_MAIN * enc_w * 2,
+                                                  f32=fwd_ops)
+            ms[f"K3 {option}"] = time_pair(
+                lambda: train_kernel.fused_forward_prepared(prep, x),
+                lambda: train_kernel._fused_forward_plain(prep, x), iters=50, plain_iters=1)
+            bounds[f"K3 {option}"] = kernel_bound(
+                bytes_of(x, prep.table, prep.weights) + B_MAIN * dims.out_w * 2, f32=fwd_ops,
+                bf16=2 * B_MAIN * dims.n_weights)
+            extra[f"K1 {option}"] = extra[f"K3 {option}"] = {"hash_mul64": hash_ops}
+        library = None
+        if plan.stochastic:
+            rows = grid_kernel.stochastic_rows(plan, x).reshape(-1)
+            grow = gy[:, : L * plan.f].float().reshape(-1, plan.f)
+            out = torch.zeros((plan.total_rows, plan.f), device=dev)
+            library = lambda: out.zero_().index_add_(0, rows, grow)  # noqa: E731
+        ms[f"K4 {option}"] = time_pair(
+            lambda: grid_kernel.grid_backward(plan, x, gy, L),
+            lambda: grid_kernel._grid_backward_plain(plan, x, gy, L), library, iters=50,
+            plain_iters=1)
+        bounds[f"K4 {option}"] = kernel_bound(bytes_of(x, gy) + n_table, f32=bwd_ops)
+        ms[f"K6 {option}"] = time_pair(
+            lambda: train_kernel.fused_train_grads(net, tr.loss_fn, tr.params, x, t, tr.loss_scale),
+            lambda: train_kernel._fused_train_grads_plain(plan, dims, L, prep.table, prep.weights,
+                                                          tr.loss_fn, x, t, tr.loss_scale, None,
+                                                          None, False), iters=50, plain_iters=1)
+        bounds[f"K6 {option}"] = kernel_bound(
+            bytes_of(x, t, prep.table, prep.weights) + net.n_params * 4, f32=fwd_ops + bwd_ops,
+            bf16=6 * B_MAIN * dims.n_weights)
+        extra[f"K4 {option}"] = extra[f"K6 {option}"] = {"hash_mul64": hash_ops}
+    emit({"phase": "times options", "card": smi, "B": B_MAIN,
+          "ms": {k: {"kernel": v[0], "plain": v[1], "library": v[2], "bound": bounds[k][0],
+                     **extra.get(k, {})} for k, v in ms.items()}})
+    return errs, ms, bounds
+
+
+def options_slice(cfg, dev, smi, batch):
+    """Phase 13: each option of config_hash trains N_TRAIN steps through K6
+    (counters), its loss falling and holdout PSNR under OPTION_LIMITS; one
+    composed step (K1 K2 K5 K4) against K6's gradient; trainer.inference
+    (K3) against model.apply; ms per step of both routes. Returns ({option:
+    {route: launches}}, {option: {route: ms per step}})."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.utils.image import psnr
+
+    launches, step_ms = {}, {}
+    for option in OPTIONS:
+        ocfg = json.loads(json.dumps(cfg))
+        ocfg["encoding"].update(OPTIONS[option])
+        model = tt.create_from_config(2, 3, ocfg, seed=SEED + 24, device=dev)
+        tr, net = model.trainer, model.network
+        check(tr.use_fused(), f"config_hash {option} must take the fused train kernel")
+        batches = [batch() for _ in range(N_TRAIN)]
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        losses = [tr.training_step(x, t) for x, t in batches]
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        fused = counters()
+        losses = torch.stack(losses).cpu()
+        check(bool(torch.isfinite(losses).all()), f"{option} training loss not finite")
+        fall = float(losses[0] / losses[-10:].mean())
+        x_hold, t_hold = batch(1 << 16)
+        reset_counters()
+        holdout_psnr = psnr(tr.inference(x_hold), t_hold)
+        infer = counters()
+        fall_min, psnr_min = OPTION_LIMITS[option]
+        emit({"phase": "options slice", "option": option, "steps": N_TRAIN, "B": B_MAIN,
+              "launches": fused, "loss_first": float(losses[0]),
+              "loss_last10_mean": float(losses[-10:].mean()),
+              "loss_at": {str(i): float(losses[i])
+                          for i in sorted({0, N_TRAIN // 10, N_TRAIN // 4, N_TRAIN // 2,
+                                           N_TRAIN - 1})},
+              "loss_fall": fall, "loss_fall_min": fall_min, "holdout_psnr_db": holdout_psnr,
+              "psnr_min_db": psnr_min, "loop_seconds": loop_s})
+        check(fused["K6"] == N_TRAIN and all(v == 0 for k, v in fused.items() if k != "K6"),
+              f"the {option} training steps did not run K6 alone: {fused}")
+        check(fall >= fall_min, f"{option} loss fell only {fall}x")
+        check(holdout_psnr >= psnr_min, f"{option} holdout PSNR {holdout_psnr} dB")
+
+        # the composed route on a second model: its gradient against K6's
+        other = tt.create_from_config(2, 3, ocfg, seed=SEED + 25, device=dev)
+        other.trainer.set_params(tr.params)
+        other.trainer.use_fused_train_kernel = False
+        x, t = batch()
+        fl, fg = tr.loss_and_grad_fn(tr.params, x, t)
+        cl, cg = other.trainer.loss_and_grad_fn(other.trainer.params, x, t)
+        compare_norm(f"{option} composed route (K1 K2 K5 K4) vs K6 gradient", cg, fg, ROUTE_REL,
+                     net.network.n_params)
+        check(abs(float(cl) - float(fl)) <= TRAIN_LOSS_RTOL * abs(float(fl)),
+              f"{option} composed loss")
+        reset_counters()
+        other.trainer.training_step(x, t)
+        torch.cuda.synchronize()
+        composed = counters()
+        emit({"phase": "options composed step", "option": option, "launches": composed})
+        check(all(composed[k] == 1 for k in ("K1", "K2", "K4", "K5"))
+              and composed["K3"] == composed["K6"] == 0,
+              f"the {option} composed step did not run K1, K2, K5 and K4 once each")
+
+        # trainer.inference (K3) against model.apply (K1 + K2)
+        reset_counters()
+        requests = (B_MAIN, 100_003, 1)
+        for B in requests:
+            xq = torch.rand(B, 2, device=dev)
+            y = tr.inference(xq)
+            check(y.shape == (B, 3) and bool(torch.isfinite(y).all()), "inference shape/finite")
+            compare(f"{option} trainer.inference vs model.apply", y,
+                    net.apply(tr.params, xq)[:, :3].float(), rel_max=MLP_REL)
+        infer_k3 = counters()["K3"]
+        check(infer_k3 == len(requests), f"{option} trainer.inference did not run K3")
+        launches[option] = {"fused": fused, "composed": composed,
+                            "inference": infer["K3"] + infer_k3}
+        step_ms[option] = {}
+        for route, flag in (("fused", None), ("composed", False), ("fused again", None)):
+            tr.use_fused_train_kernel = flag
+            step_ms[option][route] = cuda_ms(lambda: tr.training_step(x, t), 30)
+    emit({"phase": "times options slice", "card": smi, "B": B_MAIN, "training_step_ms": step_ms,
+          "training_steps_per_s": {o: {r: 1e3 / v for r, v in d.items()}
+                                   for o, d in step_ms.items()}})
+    return launches, step_ms
+
+
 def main() -> int:
     import torch
 
@@ -1379,6 +1822,12 @@ def main() -> int:
         ms[k] = ppng_ms[(k, variant)]
         bounds[k] = ppng_bounds[(k, variant)]
 
+    # 12. the stochastic and Rng options against their twins, and their times
+    opt_errs, opt_ms, opt_bounds = check_option_kernels(cfg, gen, dev, smi, enc_w)
+
+    # 13. the options' training slice
+    opt_launches, _ = options_slice(cfg, dev, smi, batch)
+
     sources = {
         "K1": ("grid_fwd", "tcnn_tpu_torch/csrc/grid_fwd.cu",
                "tcnn_tpu/ops/pallas/grid_kernel.py:597"),
@@ -1417,13 +1866,38 @@ def main() -> int:
                      **{k: sdf_launches[k] for k in ("K7", "K8", "K9")},
                      **{k: sum(n[k] for n in ppng_launches.values())
                         for k in ("K10", "K11", "K12", "K13")}}
+    for k in ("K7", "K8", "K9"):  # phase 12's Rng checks of the input-gradient kernels
+        errs[k] = max(errs[k], opt_errs[f"{k} rng"])
+    # the options: launches from phase 13's runs of each config (K6 from its
+    # fused steps, K1 and K4 from its composed step, K3 from its
+    # trainer.inference calls); errors, times and bounds from phase 12
+    option_sources = {
+        "K1": ("grid_fwd", "tcnn_tpu/ops/pallas/grid_kernel.py:597"),
+        "K3": ("fused_infer", "tcnn_tpu/ops/pallas/train_kernel.py:1331"),
+        "K4": ("grid_bwd", "tcnn_tpu/ops/pallas/grid_kernel.py:644"),
+        "K6": ("fused_train", "tcnn_tpu/ops/pallas/train_kernel.py:968"),
+    }
+    entries = [(k, sources[k][0], sources[k][1], sources[k][2], path_launches[k], errs[k], ms[k],
+                bounds[k]) for k in sources]
+    for option in OPTIONS:
+        for k, (name, replaces) in option_sources.items():
+            key = f"{k} {option}"
+            if key not in opt_ms:
+                continue  # K1 and K3 take only the Rng option
+            if k == "K4" and option in ("stochastic", "both"):
+                replaces = "tcnn_tpu/ops/pallas/grid_kernel.py:734"
+            run = opt_launches[option]
+            n = (run["fused"]["K6"] if k == "K6" else run["inference"] if k == "K3"
+                 else run["composed"][k])
+            entries.append((key, f"{name} ({option})", sources[k][1], replaces, n, opt_errs[key],
+                            opt_ms[key], opt_bounds[key]))
     emit({"kernels": [
-        {"name": sources[k][0], "route": "cuda", "source": sources[k][1],
-         "replaces": sources[k][2], "launches": path_launches[k], "max_abs_err": errs[k],
-         "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
-         "bound_by": bounds[k][1], "library_ms": ms[k][2]}
-        for k in sources
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": n, "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": bound[0],
+         "bound_by": bound[1], "library_ms": t[2]}
+        for _, name, source, replaces, n, err, t, bound in entries
     ]})
+    check(all(e[4] > 0 for e in entries), "a kernel or option of the path was never launched")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -46,7 +46,7 @@ extern "C" int tcnn_fused_ig(const void* x, const void* table, const void* level
                              const void* level_f32, const void* weights, const void* gy,
                              void* grads, void* gx, void* partials, int grid, int B, int D, int F,
                              int L, int interp, unsigned f0, unsigned f1, unsigned f2,
-                             unsigned f3, int nt, int in_w, int width, int n_hidden, int out_w,
+                             unsigned f3, int hash, int nt, int in_w, int width, int n_hidden, int out_w,
                              int act, int out_act, int device, void* stream) {
   using namespace tcnn;
   const BwdLayout lay{nt, in_w, width, n_hidden, out_w, 1, L * D};
@@ -54,7 +54,7 @@ extern "C" int tcnn_fused_ig(const void* x, const void* table, const void* level
     return (int)cudaErrorInvalidValue;
   GridArgs g{static_cast<const float*>(x), static_cast<const bf16*>(table),
              static_cast<const int*>(level_i32), static_cast<const float*>(level_f32),
-             D, L, interp, {f0, f1, f2, f3}};
+             D, L, interp, {f0, f1, f2, f3}, hash, 0};
   MlpArgs m{static_cast<const bf16*>(weights), in_w, width, n_hidden, out_w, act, out_act};
   LossArgs la{static_cast<const float*>(gy), nullptr, nullptr, 0, out_w, 1.f, 1.f};
   float* gr = static_cast<float*>(grads);

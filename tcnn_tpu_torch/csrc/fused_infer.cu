@@ -13,6 +13,9 @@
 //   per-(sample, level) gather (grid_common.cuh) and zero its padding
 //   columns, then K2's layer chain (mlp_common.cuh) runs from that tile
 //   with every weight resident in shared memory. The batch tail is masked.
+// Rng option: replaces train_kernel.py:_infer_kernel's Rng plans (:1331), which
+//   read hashes precomputed outside the kernel; here each thread hashes its
+//   corners (grid_common.cuh:rng_hash), as K1 does.
 #include "grid_common.cuh"
 #include "mlp_common.cuh"
 
@@ -79,7 +82,7 @@ static int launch_fused_width(const GridArgs& g, const MlpArgs& m, bf16* out, lo
 extern "C" int tcnn_fused_infer(const void* x, const void* table, const void* level_i32,
                                 const void* level_f32, const void* weights, void* out, int B,
                                 int D, int F, int L, int interp, unsigned f0, unsigned f1,
-                                unsigned f2, unsigned f3, int in_w, int width, int n_hidden,
+                                unsigned f2, unsigned f3, int hash, int in_w, int width, int n_hidden,
                                 int out_w, int act, int out_act, int device, void* stream) {
   using namespace tcnn;
   if (in_w < L * F) return (int)cudaErrorInvalidValue;
@@ -89,7 +92,7 @@ extern "C" int tcnn_fused_infer(const void* x, const void* table, const void* le
   if (nt == 0) return (int)cudaErrorInvalidValue;
   GridArgs g{static_cast<const float*>(x), static_cast<const bf16*>(table),
              static_cast<const int*>(level_i32), static_cast<const float*>(level_f32),
-             D, L, interp, {f0, f1, f2, f3}};
+             D, L, interp, {f0, f1, f2, f3}, hash, 0};
   MlpArgs m{static_cast<const bf16*>(weights), in_w, width, n_hidden, out_w, act, out_act};
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

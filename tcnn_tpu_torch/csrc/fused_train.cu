@@ -4,7 +4,14 @@
 // Replaces: tcnn_tpu/ops/pallas/train_kernel.py:_kernel_vt (through
 //   fused_train_grads, from Trainer.loss_and_grad_fn), for Linear, Smoothstep
 //   and Nearest interpolation, the Prime-family hashes, the nine losses, a
-//   data pdf, output noise, an external dL/doutput and max_level.
+//   data pdf, output noise, an external dL/doutput and max_level; and, as
+//   options, train_kernel.py:_kernel (:968), where the JAX package sends
+//   stochastic and Rng plans: the Rng hash in the gather and the scatter
+//   (grid_common.cuh:rng_hash; each corner's row is hashed again in the
+//   scatter rather than kept from the gather, which would take 8 KB more
+//   shared memory a block at config_hash's 128-row tile), and stochastic
+//   interpolation's one-corner scatter of the active levels
+//   (train_kernel.py:1221-1283).
 // What bounds it on this card: shared memory and the scatter. A block keeps
 //   the weights, every layer's output of its tile and two gradient tiles
 //   (mlp_bwd_common.cuh): at config_hash and 128 rows that is 146 KB, so one
@@ -51,7 +58,7 @@ extern "C" int tcnn_fused_train(const void* x, const void* table, const void* le
                                 const void* level_f32, const void* weights, const void* targets,
                                 const void* pdf, const void* noise, void* grads, void* partials,
                                 void* loss_sum, int grid, int B, int D, int F, int L, int n_active,
-                                int interp, unsigned f0, unsigned f1, unsigned f2, unsigned f3,
+                                int interp, unsigned f0, unsigned f1, unsigned f2, unsigned f3, int hash, int stochastic,
                                 int nt, int in_w, int width, int n_hidden, int out_w, int act,
                                 int out_act, int loss_code, int dims, float loss_scale, int device,
                                 void* stream) {
@@ -61,7 +68,7 @@ extern "C" int tcnn_fused_train(const void* x, const void* table, const void* le
     return (int)cudaErrorInvalidValue;
   GridArgs g{static_cast<const float*>(x), static_cast<const bf16*>(table),
              static_cast<const int*>(level_i32), static_cast<const float*>(level_f32),
-             D, L, interp, {f0, f1, f2, f3}};
+             D, L, interp, {f0, f1, f2, f3}, hash, stochastic};
   MlpArgs m{static_cast<const bf16*>(weights), in_w, width, n_hidden, out_w, act, out_act};
   LossArgs la{static_cast<const float*>(targets), static_cast<const float*>(pdf),
               static_cast<const float*>(noise), loss_code, dims, loss_scale,

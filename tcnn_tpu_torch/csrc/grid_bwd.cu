@@ -17,6 +17,12 @@
 //   added in f32 with atomicAdd (a fire-and-forget RED, no return value).
 //   Levels past max_level are not visited. The wrapper zeroes the gradient;
 //   the contention at the coarse levels is left for a later PR.
+// Stochastic option: replaces grid_kernel.py:_bwd_stoch_kernel (through
+//   _bwd_stoch_call), which scatters each (sample, level)'s whole cotangent
+//   row, rounded to bf16, into one corner chosen by a uniform draw. Here the
+//   same thread draws u in-kernel (grid_common.cuh:stoch_uniform), picks the
+//   corner (grid_stoch_row) and makes F atomics instead of 2^D * F; all of a
+//   sample's mass lands on one row, so the coarse levels stay as contended.
 #include "grid_common.cuh"
 
 namespace tcnn {
@@ -48,13 +54,13 @@ static int launch_grid_bwd(const GridArgs& g, const bf16* gy, int gy_width, floa
 extern "C" int tcnn_grid_bwd(const void* x, const void* gy, const void* level_i32,
                              const void* level_f32, void* gtable, int B, int D, int F, int L,
                              int n_active, int interp, unsigned f0, unsigned f1, unsigned f2,
-                             unsigned f3, int gy_width, int device, void* stream) {
+                             unsigned f3, int hash, int stochastic, int gy_width, int device, void* stream) {
   using namespace tcnn;
   if (n_active > L || gy_width < L * F) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   GridArgs g{static_cast<const float*>(x), nullptr, static_cast<const int*>(level_i32),
-             static_cast<const float*>(level_f32), D, L, interp, {f0, f1, f2, f3}};
+             static_cast<const float*>(level_f32), D, L, interp, {f0, f1, f2, f3}, hash, stochastic};
   const bf16* gyp = static_cast<const bf16*>(gy);
   float* gt = static_cast<float*>(gtable);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -112,7 +112,7 @@ extern "C" int tcnn_grid_bwd_bwd(const void* x, const void* gy, const void* z, c
                                  const void* ct_table, const void* level_i32,
                                  const void* level_f32, void* ct_gy, void* gtable2, void* ct_x,
                                  int B, int D, int F, int L, int interp, unsigned f0, unsigned f1,
-                                 unsigned f2, unsigned f3, int gy_width, int device,
+                                 unsigned f2, unsigned f3, int hash, int gy_width, int device,
                                  void* stream) {
   using namespace tcnn;
   if (L < 1 || L > 256 || gy_width < L * F || interp == INTERP_NEAREST || (!z && !ct_table))
@@ -121,7 +121,7 @@ extern "C" int tcnn_grid_bwd_bwd(const void* x, const void* gy, const void* z, c
   if (e != cudaSuccess) return (int)e;
   GridArgs g{static_cast<const float*>(x), static_cast<const bf16*>(table),
              static_cast<const int*>(level_i32), static_cast<const float*>(level_f32),
-             D, L, interp, {f0, f1, f2, f3}};
+             D, L, interp, {f0, f1, f2, f3}, hash, 0};
   const bf16* gyp = static_cast<const bf16*>(gy);
   const float* zp = static_cast<const float*>(z);
   const bf16* ctp = static_cast<const bf16*>(ct_table);

@@ -12,7 +12,27 @@
 // as uint32; strides, hashes and dense indices wrap in uint32
 // (grid.py:256-291), and the row within a level is an exact integer modulo.
 // The forward and the backwards visit the corners through one function,
-// grid_corners, so all agree on every corner at cell boundaries.
+// grid_corners, so all agree on every corner at cell boundaries; the
+// stochastic scatter picks its one corner through the same position and
+// row functions (grid_stoch_row).
+//
+// Two options of every grid kernel (K1, K3, K4, K6, K7, K8, K9):
+// - HashType.Rng (HASH_RNG): a hashed level indexes through rng_hash, the
+//   PCG32 advance of common_device.h:663-677, on native 64-bit integers.
+//   The TPU kernels read hashes precomputed outside them because Mosaic has
+//   no uint64 (tcnn_tpu/ops/pallas/grid_kernel.py:99-103); here each thread
+//   hashes its own corners. The advance walks the set bits of delta from
+//   the lowest, with the 64 per-bit (mult, plus) constants of the seeded
+//   generator in constant memory: all threads of a warp step through bit i
+//   together, so each step reads one constant address, which the constant
+//   cache broadcasts.
+// - Stochastic interpolation (K4, K6): the table gradient of a (sample,
+//   level) goes whole to one corner, bit d set where u < w_d. The draw u is
+//   computed here from b * L + l (stoch_uniform, the JAX package's
+//   jax.random.uniform(PRNGKey(1337), (B, L)) element), not read from a
+//   [B, L] tensor: 20 Threefry rounds cost less than the 16.8 MB a step
+//   would write and read back at config_hash's B = 2^18, and a kernel needs
+//   no extra input or launch.
 #pragma once
 
 #include "common.cuh"
@@ -20,6 +40,7 @@
 namespace tcnn {
 
 enum Interp { INTERP_NEAREST = 0, INTERP_LINEAR = 1, INTERP_SMOOTHSTEP = 2 };
+enum Hash { HASH_FACTORS = 0, HASH_RNG = 1 };
 
 struct GridArgs {
   const float* x;          // [B, D] f32
@@ -28,7 +49,81 @@ struct GridArgs {
   const float* level_f32;  // [L]: scale
   int D, L, interp;
   unsigned factors[4];     // hash factors (common_device.h:647-661)
+  int hash;                // HASH_FACTORS or HASH_RNG
+  int stochastic;          // K4, K6: the table gradient goes to one drawn corner
 };
+
+// The seeded PCG32 generator of the Rng hash and the per-bit (mult, plus)
+// constants of its advance (pcg32.h:53-59, 145-166; ops/pcg32.py:
+// advance_tables), for rng_hash's seed 1337.
+struct RngTables {
+  unsigned long long state, mult[64], plus[64];
+};
+
+__host__ __device__ constexpr RngTables rng_tables(unsigned long long seed) {
+  constexpr unsigned long long kMult = 0x5851F42D4C957F2DULL;
+  const unsigned long long inc = 3ULL;  // (initseq << 1) | 1 with initseq = 1
+  RngTables t{};
+  // seed(): state = 0, next() (state = inc), state += seed, next()
+  t.state = (inc + seed) * kMult + inc;
+  unsigned long long m = kMult, p = inc;
+  for (int i = 0; i < 64; ++i) {
+    t.mult[i] = m;
+    t.plus[i] = p;
+    p = (m + 1ULL) * p;
+    m = m * m;
+  }
+  return t;
+}
+
+static __constant__ RngTables kRng = rng_tables(1337ULL);
+
+// rng_hash (common_device.h:663-677) of the cell cc: delta = XOR_d
+// (u64(cc[d]) << (d * (64 / D))), bits past 63 dropped; the generator
+// advanced by delta; next_uint's output.
+__device__ __forceinline__ unsigned rng_hash(const unsigned* cc, int D) {
+  const int nbits = 64 / D;
+  unsigned long long delta = 0ULL;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    if (d < D) delta ^= (unsigned long long)cc[d] << (d * nbits);
+  }
+  unsigned long long am = 1ULL, ap = 0ULL;
+  for (int i = 0; delta != 0ULL; ++i, delta >>= 1) {
+    if (delta & 1ULL) {
+      am *= kRng.mult[i];
+      ap = ap * kRng.mult[i] + kRng.plus[i];
+    }
+  }
+  const unsigned long long s = am * kRng.state + ap;
+  const unsigned xorshifted = (unsigned)(((s >> 18) ^ s) >> 27);
+  const unsigned rot = (unsigned)(s >> 59);
+  return (xorshifted >> rot) | (xorshifted << ((32u - rot) & 31u));
+}
+
+__device__ __forceinline__ unsigned rotl32(unsigned v, int r) {
+  return (v << r) | (v >> (32 - r));
+}
+
+// The stochastic draw of flat index i = b * L + l: Threefry-2x32, 20 rounds,
+// of the counter (i >> 32, i) under the key (0, 1337), its two words XORed,
+// the top 23 bits as a float in [1, 2), minus 1 (ops/threefry.py).
+__device__ __forceinline__ float stoch_uniform(unsigned long long i) {
+  const unsigned ks[3] = {0u, 1337u, 0u ^ 1337u ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  unsigned x0 = (unsigned)(i >> 32) + ks[0], x1 = (unsigned)i + ks[1];
+#pragma unroll
+  for (int r = 0; r < 5; ++r) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[r % 2][j]) ^ x0;
+    }
+    x0 += ks[(r + 1) % 3];
+    x1 += ks[(r + 2) % 3] + (unsigned)(r + 1);
+  }
+  return __fsub_rn(__uint_as_float(((x0 ^ x1) >> 9) | 0x3F800000u), 1.0f);
+}
 
 // The per-corner derivative terms of the input-gradient kernels (K7, K8,
 // K9), in the twin's order (grid_kernel.py:_corners): term[d] is w_d (bit d
@@ -65,24 +160,14 @@ struct CornerDerivs {
   }
 };
 
-// Calls fn(row, w) for corner c = 0..C-1 of sample b at level l: `row` is the
-// absolute table row, `w` the corner weight (1 for Nearest). With DERIV
-// (Linear or Smoothstep only) it calls fn(row, w, k), k the corner's
-// CornerDerivs.
-template <bool DERIV = false, class Fn>
-__device__ __forceinline__ void grid_corners(const GridArgs& g, long b, int l, Fn&& fn) {
-  const int* li = g.level_i32 + l * 8;
-  const unsigned offset = (unsigned)li[0];
-  const unsigned size = (unsigned)li[1];
-  const bool use_hash = li[2] != 0;
+// pos_fract (common_device.h:826-867) of sample b at level l: cell[d] and
+// the weight w[d] (the fraction, or its smoothstep); with DERIV also k's
+// deriv[d] and deriv2[d].
+template <bool DERIV>
+__device__ __forceinline__ void grid_position(const GridArgs& g, long b, int l, unsigned* cell,
+                                              float* w, CornerDerivs& k) {
   const float scale = g.level_f32[l];
-  const bool nearest = g.interp == INTERP_NEAREST;
   const bool smooth = g.interp == INTERP_SMOOTHSTEP;
-
-  unsigned cell[4];
-  float w[4];
-  CornerDerivs k;
-  k.D = g.D;
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
     cell[d] = 0u;
@@ -105,36 +190,81 @@ __device__ __forceinline__ void grid_corners(const GridArgs& g, long b, int l, F
       }
     }
   }
+}
+
+// The absolute table row of the integer cell cc at the level whose constants
+// are li (grid_index, common_device.h:690-707).
+__device__ __forceinline__ unsigned level_row(const GridArgs& g, const int* li,
+                                              const unsigned* cc) {
+  const unsigned size = (unsigned)li[1];
+  unsigned dense = 0u, hash = 0u;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    if (d < g.D) {
+      dense += cc[d] * (unsigned)li[3 + d];
+      hash ^= cc[d] * g.factors[d];
+    }
+  }
+  unsigned raw = dense;
+  if (li[2] != 0) raw = g.hash == HASH_RNG ? rng_hash(cc, g.D) : hash;
+  const unsigned idx = (size & (size - 1u)) == 0u ? (raw & (size - 1u)) : raw % size;
+  return (unsigned)li[0] + idx;
+}
+
+// Calls fn(row, w) for corner c = 0..C-1 of sample b at level l: `row` is the
+// absolute table row, `w` the corner weight (1 for Nearest). With DERIV
+// (Linear or Smoothstep only) it calls fn(row, w, k), k the corner's
+// CornerDerivs.
+template <bool DERIV = false, class Fn>
+__device__ __forceinline__ void grid_corners(const GridArgs& g, long b, int l, Fn&& fn) {
+  const int* li = g.level_i32 + l * 8;
+  const bool nearest = g.interp == INTERP_NEAREST;
+  unsigned cell[4];
+  float w[4];
+  CornerDerivs k;
+  k.D = g.D;
+  grid_position<DERIV>(g, b, l, cell, w, k);
 
   const int n_corners = nearest ? 1 : (1 << g.D);
-  const bool pow2 = (size & (size - 1u)) == 0u;
 #pragma unroll
   for (int c = 0; c < 16; ++c) {
     if (c < n_corners) {
-      unsigned dense = 0u, hash = 0u;
+      unsigned cc[4];
       float cw = 1.f;
 #pragma unroll
       for (int d = 0; d < 4; ++d) {
+        const unsigned bit = (c >> d) & 1u;
+        cc[d] = cell[d] + bit;
         if (d < g.D) {
-          const unsigned bit = (c >> d) & 1u;
-          const unsigned cc = cell[d] + bit;
-          dense += cc * (unsigned)li[3 + d];
-          hash ^= cc * g.factors[d];
           const float term = bit ? w[d] : __fsub_rn(1.0f, w[d]);
           cw = d == 0 ? term : __fmul_rn(cw, term);
           k.term[d] = term;
         }
       }
-      const unsigned raw = use_hash ? hash : dense;
-      const unsigned idx = pow2 ? (raw & (size - 1u)) : raw % size;
+      const unsigned row = level_row(g, li, cc);
       if constexpr (DERIV) {
         k.c = c;
-        fn(offset + idx, cw, k);
+        fn(row, cw, k);
       } else {
-        fn(offset + idx, nearest ? 1.f : cw);
+        fn(row, nearest ? 1.f : cw);
       }
     }
   }
+}
+
+// The one corner that stochastic interpolation's table gradient of sample b
+// at level l goes to (grid.h:284-299): bit d set where u < w_d, u the draw
+// of b * L + l. Returns its absolute table row.
+__device__ __forceinline__ unsigned grid_stoch_row(const GridArgs& g, long b, int l) {
+  unsigned cell[4];
+  float w[4];
+  CornerDerivs k;
+  grid_position<false>(g, b, l, cell, w, k);
+  const float u = stoch_uniform((unsigned long long)b * (unsigned long long)g.L + l);
+  unsigned cc[4];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) cc[d] = cell[d] + (u < w[d] ? 1u : 0u);
+  return level_row(g, g.level_i32 + l * 8, cc);
 }
 
 // Forward: out[f] = sum over corners of w * table[row, f], in f32.
@@ -152,10 +282,19 @@ __device__ __forceinline__ void grid_level(const GridArgs& g, long b, int l, flo
 
 // Backward: gtable[row, f] += bf16(w * gy[f]) in f32 atomics, the
 // contribution rounded to bf16 as the TPU kernel rounds it
-// (grid_kernel.py:674-677).
+// (grid_kernel.py:674-677). Stochastic: gtable[row, f] += bf16(gy[f]) into
+// the one drawn corner's row (grid_kernel.py:_bwd_stoch_kernel).
 template <int F>
 __device__ __forceinline__ void grid_level_bwd(const GridArgs& g, long b, int l, const float* gy,
                                                float* __restrict__ gtable) {
+  if (g.stochastic) {
+    const unsigned row = grid_stoch_row(g, b, l);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      atomicAdd(gtable + (size_t)row * F + f, __bfloat162float(__float2bfloat16_rn(gy[f])));
+    }
+    return;
+  }
   grid_corners(g, b, l, [&](unsigned row, float cw) {
 #pragma unroll
     for (int f = 0; f < F; ++f) {

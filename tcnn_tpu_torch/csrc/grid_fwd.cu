@@ -52,13 +52,13 @@ static int launch_grid_fwd(const GridArgs& g, bf16* out, long B, int n_active, i
 extern "C" int tcnn_grid_fwd(const void* x, const void* table, const void* level_i32,
                              const void* level_f32, void* out, int B, int D, int F, int L,
                              int n_active, int interp, unsigned f0, unsigned f1, unsigned f2,
-                             unsigned f3, int out_width, int device, void* stream) {
+                             unsigned f3, int hash, int out_width, int device, void* stream) {
   using namespace tcnn;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   GridArgs g{static_cast<const float*>(x), static_cast<const bf16*>(table),
              static_cast<const int*>(level_i32), static_cast<const float*>(level_f32),
-             D, L, interp, {f0, f1, f2, f3}};
+             D, L, interp, {f0, f1, f2, f3}, hash, 0};
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {

@@ -19,6 +19,14 @@ the TPU layout; the public column order is the JAX package's (level-major,
 feature-minor). Every kernel and twin visits the corners through one walker
 (`_corners` here, ``grid_corners`` in ``csrc/grid_common.cuh``).
 
+Two options ride on the plan. Under `HashType.Rng` the hashed levels index
+through the PCG32-advance hash (`pcg32.rng_hash`; in the kernels the device
+function ``rng_hash``), where the TPU kernels read hashes precomputed outside
+them only because Mosaic has no 64-bit integers. Under stochastic
+interpolation the table gradient of each (sample, level) goes whole to one
+corner drawn from u[b, l] (`stochastic_rows`): K4's stochastic option
+replaces ``grid_kernel.py:_bwd_stoch_kernel`` (through ``_bwd_stoch_call``).
+
 Each wrapper takes the plain twin for a CPU tensor and the kernel for a
 CUDA tensor; there is no other route.
 """
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from ...common import GridType, HashType, InterpolationType, smoothstep
+from .. import pcg32
 from . import _build
 
 #: Launches of K1, K4, K7 and K8 since the last reset (counted where each
@@ -54,6 +63,11 @@ INTERP_CODES = {
     InterpolationType.Linear: 1,
     InterpolationType.Smoothstep: 2,
 }
+#: Hash codes the CUDA kernels take: the Prime family's factors, or Rng.
+HASH_FACTORS, HASH_RNG = 0, 1
+#: The seed of the Rng hash (common_device.h:663-677) and of the stochastic
+#: draws (grid.h:287), which the kernels hold as constants.
+SEED = 1337
 
 
 def hash_factors(hash_type: HashType, n_dims: int) -> tuple:
@@ -64,11 +78,25 @@ def hash_factors(hash_type: HashType, n_dims: int) -> tuple:
     elif hash_type == HashType.ReversedPrime:
         f = tuple(reversed(_PRIMES))
     else:
-        raise NotImplementedError(
-            "HashType.Rng (the PCG32-advance hash) is not ported to "
-            "tcnn_tpu_torch yet (ROADMAP Queue A item 8)"
-        )
+        raise ValueError("HashType.Rng has no hash factors (it hashes with pcg32.rng_hash)")
     return tuple(int(v) for v in f[:n_dims])
+
+
+def level_hash(hash_type: HashType, n_dims: int, seed: int = SEED):
+    """The grid hash of uint32 cells int64 [..., D] -> int64 [...]
+    (common_device.h:647-677): the XOR of the cells times the Prime family's
+    factors, or the Rng hash with `seed`."""
+    if hash_type == HashType.Rng:
+        return lambda cells: pcg32.rng_hash(cells, n_dims, seed)
+    factors = hash_factors(hash_type, n_dims)
+
+    def xor_of_products(cells):
+        hashed = torch.zeros_like(cells[..., 0])
+        for dim in range(n_dims):
+            hashed = hashed ^ mul_u32(cells[..., dim], factors[dim])
+        return hashed
+
+    return xor_of_products
 
 
 def level_strides(size: int, res: int, n_dims: int):
@@ -93,24 +121,23 @@ def mul_u32(a: torch.Tensor, b) -> torch.Tensor:
     return (lo + hi) & U32
 
 
-def index_within_level(cells, strides, use_hash, factors, sizes):
+def index_within_level(cells, strides, use_hash, hash_fn, sizes):
     """Per-level table row of integer grid cells (grid_index,
     common_device.h:690-707), in int64 holding uint32 values.
 
     cells: int64 [..., L, C, D] uint32 cells; strides: int64 [L, D];
-    use_hash: bool [L]; factors: D python ints (None when no level hashes);
-    sizes: int64 [L]. Returns int64 [..., L, C] in [0, size)."""
+    use_hash: bool [L]; hash_fn: `level_hash`'s function (None when no level
+    hashes), applied to the hashed levels' cells only; sizes: int64 [L].
+    Returns int64 [..., L, C] in [0, size)."""
     d = cells.shape[-1]
     strides = strides[:, None, :]  # [L, 1, D] broadcast over corners
     dense = torch.zeros(cells.shape[:-1], dtype=torch.int64, device=cells.device)
     for dim in range(d):
         dense = (dense + mul_u32(cells[..., dim], strides[..., dim])) & U32
     raw = dense
-    if factors is not None:
-        hashed = torch.zeros_like(dense)
-        for dim in range(d):
-            hashed = hashed ^ mul_u32(cells[..., dim], factors[dim])
-        raw = torch.where(use_hash[:, None], hashed, dense)
+    if hash_fn is not None:
+        hashed_levels = torch.nonzero(use_hash).flatten()
+        raw = dense.index_copy(-2, hashed_levels, hash_fn(cells.index_select(-3, hashed_levels)))
     return raw % sizes[:, None]
 
 
@@ -143,12 +170,16 @@ def positions(x, scales, interpolation: InterpolationType, derivs: bool = False)
 
 
 class GridPlan:
-    """Everything K1 and K3 need to know of a GridEncoding: per-level
-    offset, size, scale, hash flag and uint32 strides, the hash factors,
-    the interpolation. Built once per encoding and passed explicitly to every
-    call; the per-level constants go to each device once, as
-    `level_i32` [L, 8] (offset, size, use_hash, stride 0..3, 0) and
-    `level_f32` [L] (scale)."""
+    """Everything the grid kernels need to know of a GridEncoding: per-level
+    offset, size, scale, hash flag and uint32 strides, the hash type and
+    factors, the interpolation, and whether the table gradient is
+    stochastic (never under Nearest, as the JAX package's Pallas plan
+    decides, grid_kernel.py:140-142). Built once per encoding and passed
+    explicitly to every call; the per-level constants go to each device
+    once, as `level_i32` [L, 8] (offset, size, use_hash, stride 0..3, 0) and
+    `level_f32` [L] (scale). `hash_seed` and `draw_seed` are the seeds of
+    the Rng hash and of the stochastic draws: the kernels take only 1337;
+    the plain twins take any (a control hashes or draws with another)."""
 
     def __init__(self, enc):
         self.d = enc.n_dims_to_encode
@@ -166,9 +197,14 @@ class GridPlan:
             use_hash.append(enc.grid_type == GridType.Hash and size < final)
         self.strides = tuple(strides)
         self.use_hash = tuple(use_hash)
+        self.hash_type = enc.hash_type if any(use_hash) else None
         self.hash_factors = (
-            hash_factors(enc.hash_type, self.d) if any(use_hash) else None
+            hash_factors(enc.hash_type, self.d)
+            if any(use_hash) and enc.hash_type != HashType.Rng else None
         )
+        self.stochastic = (enc.stochastic_interpolation
+                           and enc.interpolation != InterpolationType.Nearest)
+        self.hash_seed = self.draw_seed = SEED
         self._device_consts = {}
 
     @property
@@ -177,12 +213,27 @@ class GridPlan:
             return 1
         return 1 << self.d
 
-    def c_factors(self) -> tuple:
-        """The four hash-factor arguments of the C entry points."""
-        return tuple(self.hash_factors or (0,) * self.d) + (0,) * (4 - self.d)
+    @property
+    def rng(self) -> bool:
+        """Whether the hashed levels hash with the Rng hash."""
+        return self.hash_type == HashType.Rng
+
+    def hash_fn(self):
+        """`level_hash` of the hashed levels, or None when no level hashes."""
+        if self.hash_type is None:
+            return None
+        return level_hash(self.hash_type, self.d, self.hash_seed)
+
+    def c_hash(self) -> tuple:
+        """The hash arguments of the C entry points: four factors and the
+        hash code."""
+        factors = tuple(self.hash_factors or (0,) * self.d) + (0,) * (4 - self.d)
+        return factors + (HASH_RNG if self.rng else HASH_FACTORS,)
 
     def device_consts(self, device):
         """(level_i32 [L, 8] int32, level_f32 [L] f32) on `device`."""
+        if self.hash_seed != SEED or self.draw_seed != SEED:
+            raise ValueError(f"the grid kernels hash and draw with seed {SEED} only")
         key = str(device)
         if key not in self._device_consts:
             li = np.zeros((self.n_levels, 8), np.int64)
@@ -210,6 +261,32 @@ class Corner(NamedTuple):
     d2w: list | None = None
 
 
+def _rows(plan: GridPlan, cells):
+    """Absolute table rows int64 [B, L] of the uint32 cells [B, L, D] (each
+    int64, taken mod 2^32)."""
+    dev = cells.device
+    idx = index_within_level(
+        (cells & U32)[:, :, None, :],
+        torch.tensor(plan.strides, dtype=torch.int64, device=dev).reshape(plan.n_levels, plan.d),
+        torch.tensor(plan.use_hash, dtype=torch.bool, device=dev), plan.hash_fn(),
+        torch.tensor(plan.sizes, dtype=torch.int64, device=dev),
+    )[..., 0]
+    return torch.tensor(plan.offsets, dtype=torch.int64, device=dev)[None, :] + idx
+
+
+def stochastic_rows(plan: GridPlan, x):
+    """Absolute table rows int64 [B, L]: per (sample, level), the one
+    corner that stochastic interpolation's table gradient goes to
+    (grid.h:284-299): bit d of the corner is u[b, l] < w_d, with u the draw
+    of `stochastic_uniforms` (seed `plan.draw_seed`) and w_d the f32 weight
+    of `positions`, the forward's own."""
+    from ..encodings.grid import stochastic_uniforms
+
+    cells, w = positions(x, torch.from_numpy(plan.scales).to(x.device), plan.interpolation)
+    u = stochastic_uniforms(x.shape[0], plan.n_levels, x.device, plan.draw_seed)
+    return _rows(plan, cells + (u[..., None] < w).to(torch.int64))
+
+
 def _prod(terms):
     """Left-to-right product of [B, L] factors; 1 when there are none."""
     out = None
@@ -228,23 +305,14 @@ def _corners(plan: GridPlan, x, derivs: bool = False):
     * dw_d' for d != d', (s_d * prod_{d' != d} term_d') * d2w_d on the
     diagonal, where s_d = +1 for a set bit and -1 otherwise
     (grid_kernel.py:896-921, 1048-1057, 1125-1151)."""
-    L, D = plan.n_levels, plan.d
+    D = plan.d
     dev = x.device
-    scales = torch.from_numpy(plan.scales).to(dev)
-    pos = positions(x, scales, plan.interpolation, derivs)  # each [B, L, D]
-    cells, w = pos[0], pos[1]
-    strides = torch.tensor(plan.strides, dtype=torch.int64, device=dev).reshape(L, D)
-    use_hash = torch.tensor(plan.use_hash, dtype=torch.bool, device=dev)
-    sizes = torch.tensor(plan.sizes, dtype=torch.int64, device=dev)
-    offsets = torch.tensor(plan.offsets, dtype=torch.int64, device=dev)
+    pos = positions(x, torch.from_numpy(plan.scales).to(dev), plan.interpolation, derivs)
+    cells, w = pos[0], pos[1]  # each [B, L, D]
     nearest = plan.interpolation == InterpolationType.Nearest
     for corner in range(plan.n_corners):
         bits = [(corner >> d) & 1 for d in range(D)]
-        cc = (cells + torch.tensor(bits, dtype=torch.int64, device=dev)) & U32
-        idx = index_within_level(
-            cc[:, :, None, :], strides, use_hash, plan.hash_factors, sizes
-        )[..., 0]
-        rows = offsets[None, :] + idx
+        rows = _rows(plan, cells + torch.tensor(bits, dtype=torch.int64, device=dev))
         if nearest:
             yield Corner(rows, torch.ones_like(w[..., 0]))
             continue
@@ -288,7 +356,10 @@ def _grid_backward_plain(plan: GridPlan, x, gy, n_active: int):
     f32 [total_rows, F] of the encoding's leading L*F columns of `gy`, each
     corner's contribution w_c * gy rounded to bf16 before it is summed in
     f32, as the TPU kernel rounds it (grid_kernel.py:674-677); levels
-    >= n_active contribute nothing."""
+    >= n_active contribute nothing. A stochastic plan takes
+    `_grid_backward_stoch_plain`."""
+    if plan.stochastic:
+        return _grid_backward_stoch_plain(plan, x, gy, n_active)
     B = x.shape[0]
     L, F = plan.n_levels, plan.f
     g = gy[:, : L * F].float().reshape(B, L, F)[:, :n_active]
@@ -297,6 +368,19 @@ def _grid_backward_plain(plan: GridPlan, x, gy, n_active: int):
         contrib = (k.w[:, :n_active, None] * g).to(torch.bfloat16).float()
         out.index_add_(0, k.rows[:, :n_active].reshape(-1), contrib.reshape(-1, F))
     return out
+
+
+def _grid_backward_stoch_plain(plan: GridPlan, x, gy, n_active: int):
+    """What K4's stochastic option computes, in plain PyTorch on any
+    device: each (sample, level)'s whole gy row, rounded to bf16 as the TPU
+    kernel rounds it (grid_kernel.py:764-767), added in f32 into the one
+    row `stochastic_rows` chose; levels >= n_active contribute nothing."""
+    B = x.shape[0]
+    L, F = plan.n_levels, plan.f
+    g = gy[:, : L * F].float().reshape(B, L, F)[:, :n_active].to(torch.bfloat16).float()
+    out = torch.zeros((plan.total_rows, F), dtype=torch.float32, device=x.device)
+    rows = stochastic_rows(plan, x)[:, :n_active]
+    return out.index_add_(0, rows.reshape(-1), g.reshape(-1, F))
 
 
 def _fsum(terms):
@@ -400,7 +484,7 @@ def grid_encode(plan: GridPlan, table, x, out_width: int, n_active: int):
             x.data_ptr(), table.data_ptr(), level_i32.data_ptr(),
             level_f32.data_ptr(), out.data_ptr(), B, plan.d, plan.f,
             plan.n_levels, int(n_active), INTERP_CODES[plan.interpolation],
-            *plan.c_factors(), out_width, x.device.index,
+            *plan.c_hash(), out_width, x.device.index,
             torch.cuda.current_stream(x.device).cuda_stream,
         ),
         "tcnn_grid_fwd",
@@ -409,10 +493,13 @@ def grid_encode(plan: GridPlan, table, x, out_width: int, n_active: int):
     return out
 
 
+#: ctypes of `GridPlan.c_hash()`: four hash factors and the hash code.
+HASH_ARGS = [ctypes.c_uint32] * 4 + [ctypes.c_int]
+
 _GRID_FWD_ARGS = (
     [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 6
-    + [ctypes.c_uint32] * 4
+    + HASH_ARGS
     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
 
@@ -437,7 +524,8 @@ def _check_gy(plan: GridPlan, x, gy) -> int:
 def grid_backward(plan: GridPlan, x, gy, n_active: int):
     """Table gradient f32 [total_rows, F] of the encoding at `x` [B, D] f32
     for the cotangent `gy` [B, >= L*F] (bf16 on a CUDA tensor; its leading
-    L*F columns, level-major, are read)."""
+    L*F columns, level-major, are read); a stochastic plan sends each
+    (sample, level)'s row to one drawn corner."""
     B = _check_gy(plan, x, gy)
     if x.device.type == "cpu":
         return _grid_backward_plain(plan, x, gy, n_active)
@@ -451,8 +539,8 @@ def grid_backward(plan: GridPlan, x, gy, n_active: int):
         fn(
             x.data_ptr(), gy.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
             out.data_ptr(), B, plan.d, plan.f, plan.n_levels, int(n_active),
-            INTERP_CODES[plan.interpolation], *plan.c_factors(), gy.shape[1],
-            x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+            INTERP_CODES[plan.interpolation], *plan.c_hash(), int(plan.stochastic),
+            gy.shape[1], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
         ),
         "tcnn_grid_bwd",
     )
@@ -466,6 +554,8 @@ def _check_ig(plan: GridPlan, table, x, gy) -> int:
     _check_gy(plan, x, gy)
     if plan.interpolation == InterpolationType.Nearest:
         raise ValueError("Nearest interpolation has no input gradient kernel")
+    if plan.stochastic:
+        raise ValueError("stochastic interpolation has no input gradient kernel")
     return B
 
 
@@ -488,7 +578,7 @@ def grid_backward_ig(plan: GridPlan, table, x, gy):
         fn(
             x.data_ptr(), gy.data_ptr(), table.data_ptr(), level_i32.data_ptr(),
             level_f32.data_ptr(), gtable.data_ptr(), gx.data_ptr(), B, plan.d, plan.f,
-            plan.n_levels, INTERP_CODES[plan.interpolation], *plan.c_factors(), gy.shape[1],
+            plan.n_levels, INTERP_CODES[plan.interpolation], *plan.c_hash(), gy.shape[1],
             dev.index, torch.cuda.current_stream(dev).cuda_stream,
         ),
         "tcnn_grid_bwd_ig",
@@ -500,7 +590,7 @@ def grid_backward_ig(plan: GridPlan, table, x, gy):
 _GRID_BWD_IG_ARGS = (
     [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 5
-    + [ctypes.c_uint32] * 4
+    + HASH_ARGS
     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
 
@@ -538,7 +628,7 @@ def grid_backward_bwd(plan: GridPlan, table, ct_table, x, gy, z):
             0 if ct_table is None else ct_table.data_ptr(), level_i32.data_ptr(),
             level_f32.data_ptr(), ct_gy.data_ptr(), gtable2.data_ptr(), ct_x.data_ptr(),
             B, plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation],
-            *plan.c_factors(), gy.shape[1], dev.index,
+            *plan.c_hash(), gy.shape[1], dev.index,
             torch.cuda.current_stream(dev).cuda_stream,
         ),
         "tcnn_grid_bwd_bwd",
@@ -550,12 +640,18 @@ def grid_backward_bwd(plan: GridPlan, table, ct_table, x, gy, z):
 _GRID_BWD_BWD_ARGS = (
     [ctypes.c_void_p] * 10
     + [ctypes.c_int] * 5
-    + [ctypes.c_uint32] * 4
+    + HASH_ARGS
     + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
 
 
-_GRID_BWD_ARGS = _GRID_FWD_ARGS
+_GRID_BWD_ARGS = (
+    [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 6
+    + HASH_ARGS
+    + [ctypes.c_int] * 3
+    + [ctypes.c_void_p]
+)
 
 
 class GridEncodeFn(torch.autograd.Function):
@@ -563,25 +659,21 @@ class GridEncodeFn(torch.autograd.Function):
     (counterpart of ``_grid_pallas`` and its custom vjp, grid_kernel.py:
     1363-1387). The params are cast to the bf16 table inside `forward`, so
     the table gradient comes back in f32. Inputs get no gradient here: the
-    input-gradient path is `GridIgFn`."""
+    input-gradient path is `GridIgFn`. A stochastic plan's backward is K4's
+    stochastic option."""
 
     @staticmethod
-    def forward(ctx, params, x, plan, out_width, n_active, stochastic):
+    def forward(ctx, params, x, plan, out_width, n_active):
         table = params.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
         ctx.save_for_backward(x)
-        ctx.plan, ctx.n_active, ctx.stochastic = plan, n_active, stochastic
+        ctx.plan, ctx.n_active = plan, n_active
         return grid_encode(plan, table, x, out_width, n_active)
 
     @staticmethod
     def backward(ctx, gy):
-        if ctx.stochastic:
-            raise NotImplementedError(
-                "the stochastic-interpolation table gradient is not ported to "
-                "tcnn_tpu_torch yet (ROADMAP Queue A item 8)"
-            )
         (x,) = ctx.saved_tensors
         g = grid_backward(ctx.plan, x, gy.to(torch.bfloat16).contiguous(), ctx.n_active)
-        return g.reshape(-1), None, None, None, None, None
+        return g.reshape(-1), None, None, None, None
 
 
 class GridIgFn(torch.autograd.Function):

@@ -17,7 +17,10 @@ K6 replaces ``_kernel_vt`` (reached through ``fused_train_grads`` from
 ``Trainer.loss_and_grad_fn``): per tile, K1's gather, the MLP forward
 keeping every layer's output, the loss value and gradient (or an external
 dL/doutput), the MLP backward and K4's scatter, with the encoding and the
-hidden activations kept in shared memory. `supported` is its gate.
+hidden activations kept in shared memory. `supported` is its gate. Its
+stochastic and Rng options replace ``_kernel`` (train_kernel.py:968), where
+the JAX package sends those plans (``_resolve_variant``), and K3's Rng
+option replaces ``_infer_kernel``'s Rng plans (:1331).
 
 K9 replaces ``_ig_kernel_vt`` / ``_ig_kernel`` (reached through
 ``fused_ig_grads`` from ``fused_apply_ig``'s backward): K6 with the raw
@@ -37,6 +40,7 @@ from ..activations import activation_bwd_out
 from ..losses import Loss, RelativeL2LuminanceLoss
 from . import _build
 from .grid_kernel import (
+    HASH_ARGS,
     INTERP_CODES,
     GridPlan,
     _check_inputs,
@@ -138,7 +142,7 @@ def fused_forward_prepared(prep: PreparedForward, x):
             x.data_ptr(), prep.table.data_ptr(), level_i32.data_ptr(),
             level_f32.data_ptr(), prep.weights.data_ptr(), out.data_ptr(),
             B, plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation],
-            *plan.c_factors(), *dims.c_args(), x.device.index,
+            *plan.c_hash(), *dims.c_args(), x.device.index,
             torch.cuda.current_stream(x.device).cuda_stream,
         ),
         "tcnn_fused_infer",
@@ -150,7 +154,7 @@ def fused_forward_prepared(prep: PreparedForward, x):
 _FUSED_INFER_ARGS = (
     [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 5
-    + [ctypes.c_uint32] * 4
+    + HASH_ARGS
     + [ctypes.c_int] * 7
     + [ctypes.c_void_p]
 )
@@ -168,19 +172,19 @@ def fused_forward(model, params, x):
 
 def supported(model, loss, perturbation_sigma: float = 0.0) -> bool:
     """Whether K6 takes this (model, loss): a grid + FullyFusedMLP model
-    without Sine (`fused_plan_for`), one of the nine losses, a
-    deterministic table gradient (stochastic interpolation's is not
-    ported), a scalar max_level (a per-sample one is masked on the composed
-    route), and a tile whose shared memory fits the block
-    (`mlp_kernel.bwd_tile`), decided before any launch, as the JAX gate
-    decides on its VMEM estimate (train_kernel.py:238-288). Perturbation
-    noise and an external dL/doutput arrive as inputs and do not gate."""
+    without Sine (`fused_plan_for`; any hash, stochastic interpolation or
+    not), one of the nine losses, a scalar max_level (a per-sample one is
+    masked on the composed route), and a tile whose shared memory fits the
+    block (`mlp_kernel.bwd_tile`), decided before any launch, as the JAX
+    gate decides on its VMEM estimate (train_kernel.py:238-288).
+    Perturbation noise and an external dL/doutput arrive as inputs and do
+    not gate."""
     from ..encodings.grid import per_sample
 
     if not isinstance(loss, Loss) or loss.kernel_code == 0:
         return False
     plan = fused_plan_for(model)
-    if plan is None or model.encoding.stochastic_interpolation:
+    if plan is None:
         return False
     if model.encoding.max_level is not None and per_sample(model.encoding.max_level):
         return False
@@ -194,7 +198,9 @@ def _fused_train_grads_plain(plan, dims, n_active, table, weights, loss, x, targ
     """What K6 computes, in plain PyTorch on any device: (loss sum, f32
     gradient [n_weights + n_table]). The MLP backward keeps the gradient in
     f32 through the chain (train_kernel.py:891-903); the table gradient
-    rounds each corner's contribution to bf16 like K4."""
+    rounds each corner's contribution to bf16 like K4, or under stochastic
+    interpolation sends each (sample, level)'s row to its drawn corner
+    (train_kernel.py:1221-1283)."""
     mats = _weights(dims, weights)
     hs = _forward_keep(dims, mats, _grid_encode_plain(plan, table, x, dims.in_w, n_active))
     if ext_dl:
@@ -279,7 +285,7 @@ def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noi
             0 if pdf is None else pdf.data_ptr(), 0 if noise is None else noise.data_ptr(),
             grads.data_ptr(), partials.data_ptr(), loss_sum.data_ptr(),
             grid, B, plan.d, plan.f, plan.n_levels, int(n_active),
-            INTERP_CODES[plan.interpolation], *plan.c_factors(),
+            INTERP_CODES[plan.interpolation], *plan.c_hash(), int(plan.stochastic),
             nt, *dims.c_args(),
             0 if ext_dl else loss.kernel_code, width, float(loss_scale),
             dev.index, torch.cuda.current_stream(dev).cuda_stream,
@@ -293,8 +299,8 @@ def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noi
 _FUSED_TRAIN_ARGS = (
     [ctypes.c_void_p] * 11
     + [ctypes.c_int] * 7
-    + [ctypes.c_uint32] * 4
-    + [ctypes.c_int] * 9
+    + HASH_ARGS
+    + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 
@@ -381,7 +387,7 @@ def fused_ig_grads(model, params, x, gy):
             x.data_ptr(), table.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
             weights.data_ptr(), gy.data_ptr(), grads.data_ptr(), gx.data_ptr(),
             partials.data_ptr(), grid, B, plan.d, plan.f, plan.n_levels,
-            INTERP_CODES[plan.interpolation], *plan.c_factors(), nt, *dims.c_args(),
+            INTERP_CODES[plan.interpolation], *plan.c_hash(), nt, *dims.c_args(),
             dev.index, torch.cuda.current_stream(dev).cuda_stream,
         ),
         "tcnn_fused_ig",
@@ -393,7 +399,7 @@ def fused_ig_grads(model, params, x, gy):
 _FUSED_IG_ARGS = (
     [ctypes.c_void_p] * 9
     + [ctypes.c_int] * 6
-    + [ctypes.c_uint32] * 4
+    + HASH_ARGS
     + [ctypes.c_int] * 8
     + [ctypes.c_void_p]
 )

@@ -55,7 +55,7 @@ class AdamOptimizer(Optimizer):
         self.optimize_matrix_params = bool(optimize_matrix_params)
         self.optimize_non_matrix_params = bool(optimize_non_matrix_params)
 
-    def init_state(self, device="cpu") -> dict:
+    def init_state(self, device="cuda") -> dict:
         n = self.n_weights
         return {
             "first_moments": torch.zeros(n, dtype=torch.float32, device=device),

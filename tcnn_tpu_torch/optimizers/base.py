@@ -5,7 +5,8 @@ reference's Optimizer<T>, optimizer.h:39-63).
     (rows, cols) of the *matrix* (network) params, which occupy the first
     sum(r*c) entries of the flat vector; everything after is non-matrix
     (encoding tables), which drives Adam's matrix-only L2 (adam.h:88-91).
-  - `init_state(device)` returns the state as a dict of tensors.
+  - `init_state(device)` returns the state as a dict of tensors, on the
+    card unless the caller passes `device="cpu"` (like every entry point).
   - `step(state, loss_scale, weights, grads)` updates `state` and the flat
     fp32 `weights` in place (the JAX package returns new arrays; updating in
     place keeps one copy of each on the card). `grads` are fp32 and still
@@ -41,7 +42,7 @@ class Optimizer(abc.ABC):
         return list(self._layer_sizes)
 
     @abc.abstractmethod
-    def init_state(self, device="cpu") -> dict:
+    def init_state(self, device="cuda") -> dict:
         ...
 
     @abc.abstractmethod

@@ -33,7 +33,7 @@ def test_adam_golden_trajectory():
     opt = AdamOptimizer(**_GOLDEN_KW)
     opt.allocate(160, [(12, 8)])  # 96 matrix weights, 64 non-matrix
     assert opt.n_matrix_weights == 96
-    state = opt.init_state()
+    state = opt.init_state(device="cpu")
     w = torch.from_numpy(G["adam_w0"][:, 0].copy())
     for s in range(40):
         opt.step(state, 128.0, w, torch.from_numpy(G["adam_grads"][s]) * 128.0)
@@ -50,7 +50,7 @@ def _compare_steps(kw, n_steps, seed, zero_share=0.0):
     jo, to = JaxAdam(**kw), AdamOptimizer(**kw)
     jo.allocate(n, sizes)
     to.allocate(n, sizes)
-    js, ts = jo.init_state(), to.init_state()
+    js, ts = jo.init_state(), to.init_state(device="cpu")
     w0 = rng.uniform(-1, 1, n).astype(np.float32)
     jw, tw = jnp.asarray(w0), torch.from_numpy(w0.copy())
     for _ in range(n_steps):
@@ -83,7 +83,7 @@ def test_adam_matches_tcnn_tpu(kw):
 def test_exact_zero_gradients_leave_non_matrix_params_alone():
     opt = AdamOptimizer(learning_rate=1e-2, l2_reg=1e-3)
     opt.allocate(20, [(2, 5)])  # 10 matrix, 10 non-matrix
-    state = opt.init_state()
+    state = opt.init_state(device="cpu")
     w = torch.linspace(-1, 1, 20)
     g = torch.ones(20)
     g[12:16] = 0.0  # untouched table rows

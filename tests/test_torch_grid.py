@@ -228,6 +228,15 @@ def test_offsets_match_jax():
 
 
 def test_rng_hash_is_not_ported():
+    """The Rng hash, once refused, now encodes: its hashed levels' rows are
+    tcnn_tpu's (tests/test_torch_rng.py holds the rest)."""
     enc = GridEncoding(2, n_levels=4, log2_hashmap_size=6, hash_type=HashType.Rng)
-    with pytest.raises(NotImplementedError, match="Rng"):
-        enc.apply(torch.zeros(enc.n_params), torch.rand(4, 2))
+    je = JaxGrid(2, n_levels=4, log2_hashmap_size=6, hash_type=tc.common.HashType.Rng)
+    x = torch.rand(40, 2)
+    p = torch.rand(enc.n_params) * 2 - 1
+    y = enc.apply(p, x)
+    assert tuple(y.shape) == (40, enc.padded_output_width) and bool(torch.isfinite(y.float()).all())
+    want = np.asarray(je._apply_xla(jnp.asarray(p.numpy()), jnp.asarray(x.numpy()),
+                                    compute_dtype=jnp.float32))
+    np.testing.assert_allclose(y[:, : enc.n_output_dims].float().numpy(), want,
+                               rtol=2.0**-8, atol=2.0**-8)

@@ -135,14 +135,22 @@ def test_padded_output_gradient_ignores_padding():
 
 
 def test_input_gradient_and_stochastic_backward_raise():
+    """An x that requires a gradient still raises; the stochastic backward,
+    once refused, now runs K4's stochastic option (its twin here): each
+    (sample, level) row goes whole to one corner
+    (tests/test_torch_stochastic.py holds it against tcnn_tpu)."""
     te = tt.create_encoding(2, _enc_cfg())
     params = torch.zeros(te.n_params, requires_grad=True)
     with pytest.raises(NotImplementedError, match="prepare_input_gradients=True"):
         te.apply(params, torch.rand(8, 2, requires_grad=True))
     st = tt.create_encoding(2, _enc_cfg(stochastic_interpolation=True))
-    y = st.apply(torch.zeros(st.n_params, requires_grad=True), torch.rand(8, 2))
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        y.float().sum().backward()
+    sp = torch.zeros(st.n_params, requires_grad=True)
+    x = torch.rand(8, 2)
+    st.apply(sp, x).float().sum().backward()
+    want = grid_kernel._grid_backward_stoch_plain(st.plan, x, torch.ones(8, st.n_output_dims),
+                                                  st.n_levels)
+    assert torch.equal(sp.grad, want.reshape(-1))
+    assert float(sp.grad.sum()) == 8 * st.n_output_dims  # weight 1 per (sample, level, feature)
 
 
 def test_backward_checks_shapes():

@@ -335,10 +335,10 @@ def test_route_gate():
     cut.trainer.use_fused_train_kernel = True
     with pytest.raises(ValueError, match="does not take"):
         cut.trainer.training_step(*map(_t, _batch(34)))
+    # stochastic interpolation, once refused, now takes K6 (its twin here)
     stoch = tt.create_from_config(2, 3, _cfg(stochastic_interpolation=True), device="cpu")
-    assert not stoch.trainer.use_fused()
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        stoch.trainer.training_step(*map(_t, _batch(35)))
+    assert stoch.trainer.use_fused() and stoch.network.encoding.plan.stochastic
+    assert bool(torch.isfinite(stoch.trainer.training_step(*map(_t, _batch(35)))))
     lum = tt.create_from_config(2, 1, _cfg("RelativeL2Luminance"), device="cpu")
     assert not train_kernel.supported(lum.network, lum.trainer.loss_fn)
     dims = tm.network.network.dims
