@@ -75,7 +75,23 @@ Phases, each printing JSON lines:
      and the holdout PSNR under limits set before the first run; a
      composed-route step (K1 K2 K5 K4, counters) against K6's gradient;
      `trainer.inference` (K3) against `model.apply`; ms per step of both
-     routes.
+     routes;
+ 14. the reference's default hash grid (config_hash with log2_hashmap_size
+     19 and per_level_scale 2.0: 5,592,320 rows, levels 12-15 unhashed by a
+     wrapped uint32 stride), where the JAX package runs its binned stages
+     (B12): K1, K3, K4 (plain and stochastic) and K6 against their twins at
+     B = 2^18, 2^18 - 37 and 1, K1 and K6 with Rng, each beside a control
+     that hashes the wrapped levels (or draws or hashes with 1338); the
+     image sample (tcnn_tpu_torch.samples.mlp_learning_an_image) trains
+     N_SAMPLE_STEPS steps at B = 2^18 through K6 alone (counters) and
+     renders the 1024^2 image through K3, loss fall and PSNR under
+     SAMPLE_LIMITS; a composed step against K6; a save/load of the trained
+     state and a step on each copy; times of K1, K3, K4, K6, both routes'
+     steps and `trainer.inference` beside config_hash's;
+ 15. the SDF sample at T=2^19 (3,471,664 rows): K7, K8 and K9 against
+     their twins with controls, SDF_STEPS eikonal steps (counters as phase
+     8) under SDF19_LIMITS, the fused eikonal gradient against the
+     composed one, and times.
 Then a line with every kernel and option (its launches on the main path,
 error against its twin, time, twin's time, bound, what bounds it and its
 yardstick's time), the `nvidia-smi` line, and as the last line
@@ -288,6 +304,33 @@ K6_OPT_REL = {"weights": K6_REL["weights"], "table": 6e-4}
 #: rehearsals of both packages at B = 2^16 (scripts/rehearse_train_options.py;
 #: PERF.md, section 6).
 OPTION_LIMITS = {"stochastic": (100.0, 20.0), "rng": (100.0, 20.0), "both": (100.0, 20.0)}
+
+#: Phases 14 and 15: the reference's default hash grid (README.md:28-41 of
+#: tiny-cuda-nn, grid.h:1148-1160), config_hash's encoding with these keys:
+#: 16 levels of up to 2^19 rows, 5,592,320 in all; levels 6-11 hash, and
+#: 12-15 do not because their uint32 stride res^2 wraps to 0 (at level 15
+#: the row is pos0 mod 2^19). The JAX package runs levels 6-15 through its
+#: binned stages (B12); the port through the kernels of config_hash. The
+#: SDF's 3-D grid at T=2^19 has 3,471,664 rows. The checks keep the base
+#: bounds (K1_REL, MLP_REL, GRID_BWD_REL, K6_REL, K7_REL, K8_REL, K9_REL,
+#: ROUTE_REL, RESUME_REL, SDF_ROUTE_REL): the table's size adds no rounding.
+#: Beside each stands a control that hashes the wrapped levels, as an index
+#: computed with an unwrapped stride would.
+REFERENCE_ENCODING = {"log2_hashmap_size": 19, "per_level_scale": 2.0}
+#: Phase 14 trains the reference default through the image sample's
+#: `train` for N_SAMPLE_STEPS steps at B = 2^18 on the synthetic 1024^2
+#: image; (least loss fall, first step over the mean of the last ten; least
+#: PSNR in dB of the sample's `render` over every pixel). Set before the
+#: first run on the card from a CPU rehearsal on the twins at B = 2^16
+#: (scripts/rehearse_reference_default.py image 200 16: 27.0 -> 0.00378,
+#: 7144x; 29.55 dB), with room for another batch size, seed and generator.
+N_SAMPLE_STEPS = 200
+SAMPLE_LIMITS = (1000.0, 26.0)
+#: Phase 15: SDF_STEPS eikonal steps of the SDF sample at T=2^19; (least
+#: loss fall, largest z = 0.5 slice error), set the same way
+#: (scripts/rehearse_reference_default.py sdf 200: 0.0384 -> 3.62e-4, 106x;
+#: slice error 0.00441, as at T=2^17), with phase 8's room.
+SDF19_LIMITS = (30.0, 0.015)
 
 
 def emit(obj) -> None:
@@ -1015,6 +1058,94 @@ def kernel_bound(n_bytes, f32=0.0, bf16=0.0):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def grid_bounds(net, prep, x, t, gy_enc):
+    """(bound ms, bound_by) of K1, K3, K4 and K6 on these inputs: bytes
+    (each input read once, each output written once: the table once) over
+    the memory rate against the corner math (one corner per (sample, level)
+    in a stochastic scatter) and the MLP's products over their peaks."""
+    plan, dims, B = prep.plan, prep.dims, x.shape[0]
+    enc_w = net.encoding.padded_output_width
+    fwd = grid_ops(B, plan, "fwd")
+    bwd = grid_ops(B, plan, "bwd") / (plan.n_corners if plan.stochastic else 1)
+    return {
+        "K1": kernel_bound(bytes_of(x, prep.table) + B * enc_w * 2, f32=fwd),
+        "K3": kernel_bound(bytes_of(x, prep.table, prep.weights) + B * dims.out_w * 2, f32=fwd,
+                           bf16=2 * B * dims.n_weights),
+        "K4": kernel_bound(bytes_of(x, gy_enc) + plan.total_rows * plan.f * 4, f32=bwd),
+        "K6": kernel_bound(bytes_of(x, t, prep.table, prep.weights) + net.n_params * 4,
+                           f32=fwd + bwd, bf16=6 * B * dims.n_weights),
+    }
+
+
+def time_grid_kernels(net, tr, x, t, gy_enc, kernels=("K1", "K3", "K4", "K6"), library=None,
+                      plain_iters=3):
+    """{kernel: (ms, twin ms, yardstick ms or None)} of `kernels` among K1,
+    K3, K4 and K6 on these inputs, 50 launches a turn; `library` maps a
+    kernel to its one-call PyTorch yardstick."""
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, train_kernel
+
+    prep = train_kernel.prepare_forward(net, tr.params)
+    plan, dims, L = prep.plan, prep.dims, prep.plan.n_levels
+    enc_w = net.encoding.padded_output_width
+    timed = {
+        "K1": (lambda: grid_kernel.grid_encode(plan, prep.table, x, enc_w, L),
+               lambda: grid_kernel._grid_encode_plain(plan, prep.table, x, enc_w, L)),
+        "K3": (lambda: train_kernel.fused_forward_prepared(prep, x),
+               lambda: train_kernel._fused_forward_plain(prep, x)),
+        "K4": (lambda: grid_kernel.grid_backward(plan, x, gy_enc, L),
+               lambda: grid_kernel._grid_backward_plain(plan, x, gy_enc, L)),
+        "K6": (lambda: train_kernel.fused_train_grads(net, tr.loss_fn, tr.params, x, t,
+                                                      tr.loss_scale),
+               lambda: train_kernel._fused_train_grads_plain(
+                   plan, dims, L, prep.table, prep.weights, tr.loss_fn, x, t, tr.loss_scale,
+                   None, None, False)),
+    }
+    library = library or {}
+    return {k: time_pair(*timed[k], library.get(k), iters=50, plain_iters=plain_iters)
+            for k in kernels}
+
+
+def time_steps(tr, x, t):
+    """ms per `training_step` on the fused route, the composed one and the
+    fused one again, 30 steps each."""
+    step_ms = {}
+    for route, flag in (("fused", None), ("composed", False), ("fused again", None)):
+        tr.use_fused_train_kernel = flag
+        step_ms[route] = cuda_ms(lambda: tr.training_step(x, t), 30)
+    return step_ms
+
+
+def time_ig_kernels(net, params, x, plain_iters=3):
+    """K7, K8 and K9 on the eikonal step's inputs at x: ({kernel: (ms, twin
+    ms, None)}, {kernel: (bound ms, bound_by)}), 20 launches a turn."""
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, train_kernel
+
+    plan, B = net.encoding.plan, x.shape[0]
+    prep = train_kernel.prepare_forward(net, params)
+    table, gy_out, gy_enc, z = eikonal_inputs(net, params, x)
+    timed = {
+        "K7": (lambda: grid_kernel.grid_backward_ig(plan, table, x, gy_enc),
+               lambda: grid_kernel._grid_backward_ig_plain(plan, table, x, gy_enc)),
+        "K8": (lambda: grid_kernel.grid_backward_bwd(plan, table, None, x, gy_enc, z),
+               lambda: grid_kernel._grid_backward_bwd_plain(plan, table, None, x, gy_enc, z)),
+        "K9": (lambda: train_kernel.fused_ig_grads(net, params, x, gy_out),
+               lambda: train_kernel._fused_ig_grads_plain(plan, prep.dims, prep.table,
+                                                          prep.weights, x, gy_out)),
+    }
+    ms = {k: time_pair(kern, plain, plain_iters=plain_iters) for k, (kern, plain) in timed.items()}
+    gtable = plan.total_rows * plan.f * 4
+    bounds = {
+        "K7": kernel_bound(bytes_of(x, gy_enc, table) + gtable + x.numel() * 4,
+                           f32=grid_ops(B, plan, "ig")),
+        "K8": kernel_bound(bytes_of(x, gy_enc, z, table) + gy_enc.numel() * 4 + gtable
+                           + x.numel() * 4, f32=grid_ops(B, plan, "bwdbwd")),
+        "K9": kernel_bound(bytes_of(x, gy_out, table, prep.weights) + net.n_params * 4
+                           + x.numel() * 4, f32=grid_ops(B, plan, "fwd") + grid_ops(B, plan, "ig"),
+                           bf16=6 * B * prep.dims.n_weights),
+    }
+    return ms, bounds
+
+
 # ---------------------------------------------------------------------------
 # Phases 12 and 13: the stochastic-interpolation and Rng options
 # ---------------------------------------------------------------------------
@@ -1033,7 +1164,7 @@ def control_plan(plan, option):
 
 
 def control_label(plan) -> str:
-    parts = []
+    parts = [plan.label] if getattr(plan, "label", None) else []
     if plan.draw_seed == CONTROL_SEED:
         parts.append(f"drawing with key {CONTROL_SEED}")
     if plan.hash_seed == CONTROL_SEED:
@@ -1219,28 +1350,10 @@ def check_option_kernels(cfg, gen, dev, smi, enc_w):
     control(f"K9 table Rng, {label}", cg, pg, {"table": K9_REL["table"]}, sprep.dims.n_weights)
     # their times at B = 2^18, as phase 9 times them without the hash
     x = torch.rand(B_MAIN, 3, generator=gen).to(dev)
-    table, gy_out, gy_enc, z = eikonal_inputs(snet, sparams, x)
-    hash_ops = hash_int_ops(splan, x)
-    for k, kern, plain in (
-            ("K7", lambda: grid_kernel.grid_backward_ig(splan, table, x, gy_enc),
-             lambda: grid_kernel._grid_backward_ig_plain(splan, table, x, gy_enc)),
-            ("K8", lambda: grid_kernel.grid_backward_bwd(splan, table, None, x, gy_enc, z),
-             lambda: grid_kernel._grid_backward_bwd_plain(splan, table, None, x, gy_enc, z)),
-            ("K9", lambda: train_kernel.fused_ig_grads(snet, sparams, x, gy_out),
-             lambda: train_kernel._fused_ig_grads_plain(splan, sprep.dims, sprep.table,
-                                                        sprep.weights, x, gy_out))):
-        ms[f"{k} rng"] = time_pair(kern, plain, iters=20, plain_iters=1)
-        extra[f"{k} rng"] = {"hash_mul64": hash_ops}
-    gtable_bytes = splan.total_rows * splan.f * 4
-    bounds["K7 rng"] = kernel_bound(bytes_of(x, gy_enc, table) + gtable_bytes + x.numel() * 4,
-                                    f32=grid_ops(B_MAIN, splan, "ig"))
-    bounds["K8 rng"] = kernel_bound(bytes_of(x, gy_enc, z, table) + gy_enc.numel() * 4
-                                    + gtable_bytes + x.numel() * 4,
-                                    f32=grid_ops(B_MAIN, splan, "bwdbwd"))
-    bounds["K9 rng"] = kernel_bound(bytes_of(x, gy_out, table, sprep.weights) + snet.n_params * 4
-                                    + x.numel() * 4,
-                                    f32=grid_ops(B_MAIN, splan, "fwd") + grid_ops(B_MAIN, splan, "ig"),
-                                    bf16=6 * B_MAIN * sprep.dims.n_weights)
+    ig_ms, ig_bounds = time_ig_kernels(snet, sparams, x, plain_iters=1)
+    for k in ("K7", "K8", "K9"):
+        ms[f"{k} rng"], bounds[f"{k} rng"] = ig_ms[k], ig_bounds[k]
+        extra[f"{k} rng"] = {"hash_mul64": hash_int_ops(splan, x)}
 
     # K1 and K4 with Rng at D = 4 (16-bit lanes of delta that overlap)
     scfg["encoding"]["interpolation"] = "Linear"
@@ -1266,48 +1379,23 @@ def check_option_kernels(cfg, gen, dev, smi, enc_w):
     for option, m in models.items():
         net, tr = m.network, m.trainer
         prep = train_kernel.prepare_forward(net, tr.params)
-        plan, dims, L = prep.plan, prep.dims, prep.plan.n_levels
+        plan, L = prep.plan, prep.plan.n_levels
         x = torch.rand(B_MAIN, 2, generator=gen).to(dev)
         t = torch.rand(B_MAIN, 3, generator=gen).to(dev)
         gy = torch.randn(B_MAIN, enc_w, generator=gen).to(torch.bfloat16).to(dev)
-        n_table = plan.total_rows * plan.f * 4
-        hash_ops = hash_int_ops(plan, x) if plan.rng else 0.0
-        fwd_ops = grid_ops(B_MAIN, plan, "fwd")
-        bwd_ops = grid_ops(B_MAIN, plan, "bwd") / (plan.n_corners if plan.stochastic else 1)
-        if plan.rng:
-            ms[f"K1 {option}"] = time_pair(
-                lambda: grid_kernel.grid_encode(plan, prep.table, x, enc_w, L),
-                lambda: grid_kernel._grid_encode_plain(plan, prep.table, x, enc_w, L),
-                iters=50, plain_iters=1)
-            bounds[f"K1 {option}"] = kernel_bound(bytes_of(x, prep.table) + B_MAIN * enc_w * 2,
-                                                  f32=fwd_ops)
-            ms[f"K3 {option}"] = time_pair(
-                lambda: train_kernel.fused_forward_prepared(prep, x),
-                lambda: train_kernel._fused_forward_plain(prep, x), iters=50, plain_iters=1)
-            bounds[f"K3 {option}"] = kernel_bound(
-                bytes_of(x, prep.table, prep.weights) + B_MAIN * dims.out_w * 2, f32=fwd_ops,
-                bf16=2 * B_MAIN * dims.n_weights)
-            extra[f"K1 {option}"] = extra[f"K3 {option}"] = {"hash_mul64": hash_ops}
         library = None
         if plan.stochastic:
             rows = grid_kernel.stochastic_rows(plan, x).reshape(-1)
             grow = gy[:, : L * plan.f].float().reshape(-1, plan.f)
             out = torch.zeros((plan.total_rows, plan.f), device=dev)
-            library = lambda: out.zero_().index_add_(0, rows, grow)  # noqa: E731
-        ms[f"K4 {option}"] = time_pair(
-            lambda: grid_kernel.grid_backward(plan, x, gy, L),
-            lambda: grid_kernel._grid_backward_plain(plan, x, gy, L), library, iters=50,
-            plain_iters=1)
-        bounds[f"K4 {option}"] = kernel_bound(bytes_of(x, gy) + n_table, f32=bwd_ops)
-        ms[f"K6 {option}"] = time_pair(
-            lambda: train_kernel.fused_train_grads(net, tr.loss_fn, tr.params, x, t, tr.loss_scale),
-            lambda: train_kernel._fused_train_grads_plain(plan, dims, L, prep.table, prep.weights,
-                                                          tr.loss_fn, x, t, tr.loss_scale, None,
-                                                          None, False), iters=50, plain_iters=1)
-        bounds[f"K6 {option}"] = kernel_bound(
-            bytes_of(x, t, prep.table, prep.weights) + net.n_params * 4, f32=fwd_ops + bwd_ops,
-            bf16=6 * B_MAIN * dims.n_weights)
-        extra[f"K4 {option}"] = extra[f"K6 {option}"] = {"hash_mul64": hash_ops}
+            library = {"K4": lambda: out.zero_().index_add_(0, rows, grow)}
+        kernels = ("K1", "K3", "K4", "K6") if plan.rng else ("K4", "K6")  # K1, K3: Rng only
+        timed = time_grid_kernels(net, tr, x, t, gy, kernels, library, plain_iters=1)
+        grid_bnd = grid_bounds(net, prep, x, t, gy)
+        hash_ops = hash_int_ops(plan, x) if plan.rng else 0.0
+        for k in kernels:
+            ms[f"{k} {option}"], bounds[f"{k} {option}"] = timed[k], grid_bnd[k]
+            extra[f"{k} {option}"] = {"hash_mul64": hash_ops}
     emit({"phase": "times options", "card": smi, "B": B_MAIN,
           "ms": {k: {"kernel": v[0], "plain": v[1], "library": v[2], "bound": bounds[k][0],
                      **extra.get(k, {})} for k, v in ms.items()}})
@@ -1393,14 +1481,321 @@ def options_slice(cfg, dev, smi, batch):
         check(infer_k3 == len(requests), f"{option} trainer.inference did not run K3")
         launches[option] = {"fused": fused, "composed": composed,
                             "inference": infer["K3"] + infer_k3}
-        step_ms[option] = {}
-        for route, flag in (("fused", None), ("composed", False), ("fused again", None)):
-            tr.use_fused_train_kernel = flag
-            step_ms[option][route] = cuda_ms(lambda: tr.training_step(x, t), 30)
+        step_ms[option] = time_steps(tr, x, t)
     emit({"phase": "times options slice", "card": smi, "B": B_MAIN, "training_step_ms": step_ms,
           "training_steps_per_s": {o: {r: 1e3 / v for r, v in d.items()}
                                    for o, d in step_ms.items()}})
     return launches, step_ms
+
+
+# ---------------------------------------------------------------------------
+# Phases 14 and 15: the reference-default T=2^19 hash grid (B12's functions)
+# ---------------------------------------------------------------------------
+
+
+def wrap_control_plan(enc):
+    """The encoding's plan with its wrap-degenerate levels (unhashed only
+    because the uint32 stride res^D wrapped) hashed, as an index computed
+    with an unwrapped stride would hash them: the control of phases 14 and
+    15. Twins take it; no kernel does."""
+    plan = enc.plan
+    wrapped = [not plan.use_hash[l] and int(enc._resolutions[l]) ** plan.d > plan.sizes[l]
+               for l in range(plan.n_levels)]
+    check(any(wrapped), "the control needs a wrap-degenerate level")
+    ctl = copy.copy(plan)
+    ctl.use_hash = tuple(u or w for u, w in zip(plan.use_hash, wrapped))
+    ctl.label = f"levels {[l for l, w in enumerate(wrapped) if w]} hashed"
+    return ctl
+
+
+def reference_model(cfg, seed, dev, gen, d=2, n_out=3, **enc):
+    """A model of `cfg` with the encoding keys `enc` set and its table
+    redrawn from U(-1, 1)."""
+    import tcnn_tpu_torch as tt
+
+    rcfg = json.loads(json.dumps(cfg))
+    rcfg["encoding"].update(enc)
+    m = tt.create_from_config(d, n_out, rcfg, seed=seed, device=dev)
+    m.trainer.set_params(random_params(m.trainer, gen))
+    return m
+
+
+def check_reference_kernels(cfg, gen, dev):
+    """Phase 14's kernel checks: K1, K3, K4 (plain and stochastic) and K6
+    against their twins at the reference default, B = 2^18, 2^18 - 37 and
+    1, each beside a control its bound must reject; K1 and K6 once with the
+    Rng hash. Returns {kernel: max abs err}."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, train_kernel
+
+    errs = dict.fromkeys(("K1", "K3", "K4", "K6"), 0.0)
+    m = reference_model(cfg, SEED + 30, dev, gen, **REFERENCE_ENCODING)
+    net, tr = m.network, m.trainer
+    prep = train_kernel.prepare_forward(net, tr.params)
+    plan, L = prep.plan, prep.plan.n_levels
+    check(plan.total_rows == 5_592_320 and tr.use_fused(), "the reference default's plan and route")
+    enc_w = net.encoding.padded_output_width
+    ctl = wrap_control_plan(net.encoding)
+    st = reference_model(cfg, SEED + 31, dev, gen, stochastic_interpolation=True,
+                         **REFERENCE_ENCODING).network.encoding.plan
+    st_ctl = control_plan(st, "stochastic")
+    for B in BATCHES:
+        x = torch.rand(B, 2, generator=gen).to(dev)
+        want = grid_kernel._grid_encode_plain(plan, prep.table, x, enc_w, L)
+        errs["K1"] = max(errs["K1"], compare(
+            f"K1 grid_fwd T=2^19 B={B}", grid_kernel.grid_encode(plan, prep.table, x, enc_w, L),
+            want, rel_ulp=K1_REL))
+        want3 = train_kernel._fused_forward_plain(prep, x)
+        errs["K3"] = max(errs["K3"], compare(
+            f"K3 fused_infer T=2^19 B={B}", train_kernel.fused_forward_prepared(prep, x), want3,
+            rel_max=MLP_REL))
+        gy = torch.randn(B, enc_w, generator=gen).to(torch.bfloat16).to(dev)
+        want4 = grid_kernel._grid_backward_plain(plan, x, gy, L)
+        errs["K4"] = max(errs["K4"], compare_norm(
+            f"K4 grid_bwd T=2^19 B={B}", grid_kernel.grid_backward(plan, x, gy, L), want4,
+            GRID_BWD_REL))
+        xs = with_ties(st, x) if B == B_MAIN else x
+        want4s = grid_kernel._grid_backward_plain(st, xs, gy, L)
+        errs["K4"] = max(errs["K4"], compare_norm(
+            f"K4 grid_bwd stochastic T=2^19 B={B}", grid_kernel.grid_backward(st, xs, gy, L),
+            want4s, GRID_BWD_REL))
+        t = torch.rand(B, 3, generator=gen).to(dev)
+        errs["K6"] = max(errs["K6"], check_train_step(
+            f"T=2^19 B={B}", net, tr.loss_fn, tr.params, x, t, tr.loss_scale, K6_REL,
+            control_too=B == B_MAIN, ctl_plan=ctl if B == B_MAIN else None))
+        if B == B_MAIN:
+            label = control_label(ctl)
+            control_ulp(f"K1 T=2^19, {label}",
+                        grid_kernel._grid_encode_plain(ctl, prep.table, x, enc_w, L), want, K1_REL)
+            control_max(f"K3 T=2^19, {label}", train_kernel._fused_forward_plain(
+                dataclasses.replace(prep, plan=ctl), x), want3, MLP_REL)
+            control(f"K4 T=2^19, {label}", grid_kernel._grid_backward_plain(ctl, x, gy, L), want4,
+                    GRID_BWD_REL)
+            control("K4 T=2^19, contributions unrounded", scatter_f32(plan, x, gy), want4,
+                    GRID_BWD_REL)
+            control(f"K4 stochastic T=2^19, {control_label(st_ctl)}",
+                    grid_kernel._grid_backward_plain(st_ctl, xs, gy, L), want4s, GRID_BWD_REL)
+    # K1 and K6 with the Rng hash (levels 6-11 hash; 12-15 wrap and do not)
+    rm = reference_model(cfg, SEED + 32, dev, gen, hash="Rng", **REFERENCE_ENCODING)
+    rprep = train_kernel.prepare_forward(rm.network, rm.trainer.params)
+    rctl = control_plan(rprep.plan, "rng")
+    x = torch.rand(B_MAIN - 37, 2, generator=gen).to(dev)
+    want = grid_kernel._grid_encode_plain(rprep.plan, rprep.table, x, enc_w, L)
+    errs["K1"] = max(errs["K1"], compare(
+        "K1 grid_fwd Rng T=2^19", grid_kernel.grid_encode(rprep.plan, rprep.table, x, enc_w, L),
+        want, rel_ulp=K1_REL))
+    control_ulp(f"K1 Rng T=2^19, {control_label(rctl)}",
+                grid_kernel._grid_encode_plain(rctl, rprep.table, x, enc_w, L), want, K1_REL)
+    t = torch.rand(x.shape[0], 3, generator=gen).to(dev)
+    errs["K6"] = max(errs["K6"], check_train_step(
+        "Rng T=2^19", rm.network, rm.trainer.loss_fn, rm.trainer.params, x, t,
+        rm.trainer.loss_scale, K6_OPT_REL, ctl_plan=rctl))
+    return errs
+
+
+def reference_slice(cfg, gen, dev):
+    """Phase 14's main path: the reference default trains N_SAMPLE_STEPS
+    steps at B = 2^18 through the image sample's `train` (K6 alone, by the
+    counters) and renders through its `render` (one K3 launch per 2^20
+    pixels, held against K3's twin); its loss fall and render PSNR under
+    SAMPLE_LIMITS; one composed step (K1 K2 K5 K4) against K6's gradient;
+    a save/load of the trained state and one more step on each copy; then
+    the times of K1, K3, K4 and K6 and their twins, of both routes'
+    `training_step` and of `trainer.inference`. Returns (launches {K1, K3,
+    K4, K6}, the render's max abs error, {kernel: (ms, twin ms, None)},
+    {kernel: (bound ms, bound_by)}, times)."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.ops.cuda import _build, train_kernel
+    from tcnn_tpu_torch.samples import mlp_learning_an_image as image_sample
+    from tcnn_tpu_torch.utils.image import pixel_center_coords, psnr, sample_image, synthetic_image
+
+    rcfg = json.loads(json.dumps(cfg))
+    rcfg["encoding"].update(REFERENCE_ENCODING)
+    image = synthetic_image(1024, 1024, device=dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    model, losses = image_sample.train(rcfg, image, N_SAMPLE_STEPS, device=dev, log=None)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    trained = counters()
+    tr, net = model.trainer, model.network
+    check(bool(torch.isfinite(losses).all()), "reference default loss not finite")
+    fall = float(losses[0] / losses[-10:].mean())
+    reset_counters()
+    pred = image_sample.render(tr, 1024, 1024)
+    torch.cuda.synchronize()
+    rendered = counters()
+    render_psnr = psnr(pred, image)
+    # the render's K3 launch against its twin on the same pixel centers, the
+    # trained table and the chunk's shape (check_reference_kernels shows
+    # that MLP_REL rejects the twin with the wrapped levels hashed)
+    coords = pixel_center_coords(1024, 1024, device=dev)
+    want = train_kernel._fused_forward_plain(train_kernel.prepare_forward(net, tr.inference_params),
+                                             coords)[:, :3].float()
+    render_err = compare("K3 fused_infer T=2^19, the sample's render vs its twin",
+                         pred.reshape(-1, 3), want, rel_max=MLP_REL)
+    del coords, want
+    fall_min, psnr_min = SAMPLE_LIMITS
+    chunks = -(-1024 * 1024 // image_sample.RENDER_CHUNK)
+    emit({"phase": "reference slice", "steps": N_SAMPLE_STEPS, "B": image_sample.BATCH,
+          "table_rows": net.encoding.plan.total_rows, "params": net.n_params,
+          "launches": trained, "render_launches": rendered, "loss_first": float(losses[0]),
+          "loss_last10_mean": float(losses[-10:].mean()),
+          "loss_at": {str(i): float(losses[i]) for i in sorted(
+              {0, N_SAMPLE_STEPS // 10, N_SAMPLE_STEPS // 4, N_SAMPLE_STEPS // 2,
+               N_SAMPLE_STEPS - 1})},
+          "loss_fall": fall, "loss_fall_min": fall_min, "render_psnr_db": render_psnr,
+          "psnr_min_db": psnr_min, "loop_seconds": loop_s,
+          "sample_steps_per_s": N_SAMPLE_STEPS / loop_s})
+    check(trained["K6"] == N_SAMPLE_STEPS and all(v == 0 for k, v in trained.items() if k != "K6"),
+          f"the sample's steps did not run K6 alone: {trained}")
+    check(rendered["K3"] == chunks and all(v == 0 for k, v in rendered.items() if k != "K3"),
+          f"the sample's render did not run K3 once per chunk: {rendered}")
+    check(fall >= fall_min, f"reference default loss fell only {fall}x")
+    check(render_psnr >= psnr_min, f"reference default render PSNR {render_psnr} dB")
+
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def batch(B=B_MAIN):
+        x = torch.rand(B, 2, generator=dgen, device=dev)
+        return x, sample_image(image, x)
+
+    # the composed route on a second model, same params, same batch
+    other = tt.create_from_config(2, 3, rcfg, seed=SEED + 33, device=dev)
+    other.trainer.set_params(tr.params)
+    other.trainer.use_fused_train_kernel = False
+    x, t = batch()
+    fl, fg = tr.loss_and_grad_fn(tr.params, x, t)
+    cl, cg = other.trainer.loss_and_grad_fn(other.trainer.params, x, t)
+    compare_norm("T=2^19 composed route (K1 K2 K5 K4) vs K6 gradient", cg, fg, ROUTE_REL,
+                 net.network.n_params)
+    check(abs(float(cl) - float(fl)) <= TRAIN_LOSS_RTOL * abs(float(fl)), "T=2^19 composed loss")
+    reset_counters()
+    other.trainer.training_step(x, t)
+    torch.cuda.synchronize()
+    composed = counters()
+    emit({"phase": "reference composed step", "launches": composed})
+    check(all(composed[k] == 1 for k in ("K1", "K2", "K4", "K5"))
+          and composed["K3"] == composed["K6"] == 0,
+          "the T=2^19 composed step did not run K1, K2, K5 and K4 once each")
+
+    # save/load with the optimizer state, then one more step on each copy
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "reference.json")
+        t0 = time.perf_counter()
+        tr.save(path)
+        copied = tt.create_from_config(2, 3, rcfg, seed=SEED + 34, device=dev)
+        copied.trainer.load(path)
+        snap = {"bytes": os.path.getsize(path), "seconds": time.perf_counter() - t0}
+    for k, v in tr.state["opt"].items():
+        check(torch.equal(copied.trainer.state["opt"][k], v), f"T=2^19 optimizer state {k}")
+    before = tr.params.clone()
+    x, t = batch()
+    tr.training_step(x, t)
+    copied.trainer.training_step(x, t)
+    compare_norm("T=2^19 resumed step vs original step", copied.trainer.params - before,
+                 tr.params - before, RESUME_REL)
+    emit({"phase": "reference snapshot", **snap})
+
+    # times at B = 2^18
+    gy = torch.randn(B_MAIN, net.encoding.padded_output_width,
+                     generator=gen).to(torch.bfloat16).to(dev)
+    ms = time_grid_kernels(net, tr, x, t, gy)
+    bounds = grid_bounds(net, train_kernel.prepare_forward(net, tr.params), x, t, gy)
+    times = {"trainer_inference_ms": cuda_ms(lambda: tr.inference(x), 50)}
+    step_ms = time_steps(tr, x, t)
+    times.update(training_step_ms=step_ms,
+                 training_steps_per_s={k: 1e3 / v for k, v in step_ms.items()})
+    launches = {"K1": composed["K1"], "K3": rendered["K3"], "K4": composed["K4"],
+                "K6": trained["K6"]}
+    return launches, render_err, ms, bounds, times
+
+
+def reference_sdf_slice(gen, dev, smi):
+    """Phase 15: the SDF sample's HashGrid at T=2^19. K7, K8 and K9 against
+    their twins on the eikonal step's inputs (B = 2^16, 2^16 - 37, 1 and
+    the eikonal term's N_EIKONAL), with
+    phase 7's controls at 2^16 (no level of this 3-D grid wraps its
+    stride, so there is no wrap control); SDF_STEPS steps through the
+    sample's `train_step` (counters), the loss fall and slice error under
+    SDF19_LIMITS; the fused eikonal gradient against the composed one; the
+    times of K7-K9 at 2^16 and 2^18 and of one step. Returns (errs,
+    launches {K7, K8, K9}, {kernel: (ms, twin ms, None)} at 2^18, {kernel:
+    (bound ms, bound_by)})."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.ops.cuda import train_kernel
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    scfg = sdf.config("HashGrid")
+    scfg["encoding"]["log2_hashmap_size"] = 19
+    sm = reference_model(scfg, SEED + 35, dev, gen, d=3, n_out=1)
+    snet, sparams = sm.network, sm.trainer.params
+    check(snet.encoding.plan.total_rows == 3_471_664 and train_kernel.supported_ig(snet),
+          "the T=2^19 SDF config's plan and fused ig route")
+    errs = {}
+    for B in SDF_BATCHES + (sdf.N_EIKONAL,):  # the eikonal term's points
+        x = torch.rand(B, 3, generator=gen).to(dev)
+        for k, v in check_ig_kernels(f"T=2^19 B={B}", snet, sparams, x, gen,
+                                     control_too=B == B_SDF).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    model = tt.create_from_config(3, 1, scfg, seed=SEED + 36, device=dev)
+    str_, mnet = model.trainer, model.network
+    sgen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = [torch.rand(B_SDF, 3, generator=sgen, device=dev) for _ in range(SDF_STEPS)]
+    before = sdf.slice_error(mnet, str_.params)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = [sdf.train_step(str_, xs) for xs in batches]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launched = counters()
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), "T=2^19 SDF loss not finite")
+    fall = float(losses[0] / losses[-10:].mean())
+    after = sdf.slice_error(mnet, str_.params)
+    per_step = {"K1": 2, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K6": 0, "K7": 1, "K8": 1, "K9": 1}
+    fall_min, slice_max = SDF19_LIMITS
+    emit({"phase": "reference sdf slice", "steps": SDF_STEPS, "B": B_SDF,
+          "table_rows": mnet.encoding.plan.total_rows, "launches": launched,
+          "launches_per_step_expected": per_step, "loss_first": float(losses[0]),
+          "loss_last10_mean": float(losses[-10:].mean()),
+          "loss_at": {str(i): float(losses[i]) for i in sorted(
+              {0, SDF_STEPS // 10, SDF_STEPS // 4, SDF_STEPS // 2, SDF_STEPS - 1})},
+          "loss_fall": fall, "loss_fall_min": fall_min, "slice_error_before": before,
+          "slice_error": after, "slice_error_max": slice_max, "loop_seconds": loop_s})
+    check(all(launched[k] == n * SDF_STEPS for k, n in per_step.items()),
+          f"the T=2^19 SDF steps did not run K3, K9, K1, K7, K8 and K1, K2, K5, K4 on every step: "
+          f"{launched}")
+    check(fall >= fall_min, f"T=2^19 SDF loss fell only {fall}x")
+    check(after <= slice_max, f"T=2^19 SDF slice error {after}")
+    xe = batches[-1][: sdf.N_EIKONAL]
+    eik = []
+    for fused in (True, False):
+        p = str_.params.detach().requires_grad_(True)
+        g = sdf.eikonal_grad(mnet, p, xe, fused_ig=fused)
+        e = torch.mean((torch.linalg.vector_norm(g, dim=-1) - 1.0) ** 2)
+        eik.append(torch.autograd.grad(e, p)[0])
+    compare_norm("T=2^19 SDF eikonal gradient, fused route (K3 K9) vs composed (K1 K7)", eik[0],
+                 eik[1], SDF_ROUTE_REL)
+
+    ms, bounds = {}, {}
+    for B in (B_SDF, B_MAIN):
+        ms[B], bounds[B] = time_ig_kernels(snet, sparams, torch.rand(B, 3, generator=gen).to(dev),
+                                           plain_iters=1)
+    xs = torch.rand(B_SDF, 3, generator=gen).to(dev)
+    step_ms = cuda_ms(lambda: sdf.train_step(str_, xs), 20)
+    emit({"phase": "times reference sdf", "card": smi,
+          "ms": {f"{k} B={b}": {"kernel": v[0], "plain": v[1], "bound": bounds[b][k][0]}
+                 for b in ms for k, v in ms[b].items()},
+          "sdf_train_step_ms": step_ms, "sdf_steps_per_s": 1e3 / step_ms,
+          "sdf_sample_steps_per_s": SDF_STEPS / loop_s})
+    launches = {k: launched[k] for k in ("K7", "K8", "K9")}
+    return errs, launches, ms[B_MAIN], bounds[B_MAIN]
 
 
 def main() -> int:
@@ -1648,30 +2043,15 @@ def main() -> int:
     prep = train_kernel.prepare_forward(net, tr.params)
     gy_enc = torch.randn(B_MAIN, enc_w, generator=gen).to(torch.bfloat16).to(dev)
     gy_out = torch.randn(B_MAIN, dims.out_w, generator=gen).to(torch.bfloat16).to(dev)
-    step_args = (plan, dims, L, prep.table, prep.weights, tr.loss_fn)
-    timed = {
-        "K1": (lambda: grid_kernel.grid_encode(plan, prep.table, x, enc_w, L),
-               lambda: grid_kernel._grid_encode_plain(plan, prep.table, x, enc_w, L)),
-        "K2": (lambda: mlp_kernel.mlp_forward(dims, prep.weights, enc),
-               lambda: mlp_kernel._mlp_forward_plain(dims, prep.weights, enc)),
-        "K3": (lambda: train_kernel.fused_forward_prepared(prep, x),
-               lambda: train_kernel._fused_forward_plain(prep, x)),
-        "K4": (lambda: grid_kernel.grid_backward(plan, x, gy_enc, L),
-               lambda: grid_kernel._grid_backward_plain(plan, x, gy_enc, L)),
-        "K5": (lambda: mlp_kernel.mlp_backward(dims, prep.weights, enc, gy_out),
-               lambda: mlp_kernel._mlp_backward_plain(dims, prep.weights, enc, gy_out)),
-        "K6": (lambda: train_kernel.fused_train_grads(net, tr.loss_fn, tr.params, x, t,
-                                                      tr.loss_scale),
-               lambda: train_kernel._fused_train_grads_plain(*step_args, x, t, tr.loss_scale,
-                                                             None, None, False)),
-    }
-    ms = {name: time_pair(kern, plain, iters=50, plain_iters=5)
-          for name, (kern, plain) in timed.items()}
+    ms = time_grid_kernels(net, tr, x, t, gy_enc, plain_iters=5)
+    ms["K2"] = time_pair(lambda: mlp_kernel.mlp_forward(dims, prep.weights, enc),
+                         lambda: mlp_kernel._mlp_forward_plain(dims, prep.weights, enc),
+                         iters=50, plain_iters=5)
+    ms["K5"] = time_pair(lambda: mlp_kernel.mlp_backward(dims, prep.weights, enc, gy_out),
+                         lambda: mlp_kernel._mlp_backward_plain(dims, prep.weights, enc, gy_out),
+                         iters=50, plain_iters=5)
     infer_ms = cuda_ms(lambda: tr.inference(x), 50)
-    step_ms = {}
-    for route, flag in (("fused", None), ("composed", False), ("fused again", None)):
-        tr.use_fused_train_kernel = flag
-        step_ms[route] = cuda_ms(lambda: tr.training_step(x, t), 30)
+    step_ms = time_steps(tr, x, t)
     emit({"phase": "times", "B": B_MAIN, "card": smi,
           "ms": {k: {"kernel": v[0], "plain": v[1]} for k, v in ms.items()},
           "trainer_inference_ms": infer_ms,
@@ -1684,21 +2064,12 @@ def main() -> int:
     # once, each output written once) over 3.35 TB/s, against operations
     # over the peak of their type (989 TFLOP/s bf16 on the tensor cores,
     # 67 TFLOP/s f32)
-    out_bytes = B_MAIN * dims.out_w * 2
     bounds = {
-        "K1": kernel_bound(bytes_of(x, prep.table) + B_MAIN * enc_w * 2,
-                           f32=grid_ops(B_MAIN, plan, "fwd")),
-        "K2": kernel_bound(bytes_of(enc, prep.weights) + out_bytes,
+        **grid_bounds(net, prep, x, t, gy_enc),
+        "K2": kernel_bound(bytes_of(enc, prep.weights) + B_MAIN * dims.out_w * 2,
                            bf16=2 * B_MAIN * dims.n_weights),
-        "K3": kernel_bound(bytes_of(x, prep.table, prep.weights) + out_bytes,
-                           f32=grid_ops(B_MAIN, plan, "fwd"), bf16=2 * B_MAIN * dims.n_weights),
-        "K4": kernel_bound(bytes_of(x, gy_enc) + plan.total_rows * plan.f * 4,
-                           f32=grid_ops(B_MAIN, plan, "bwd")),
         "K5": kernel_bound(bytes_of(enc, gy_out, prep.weights) + dims.n_weights * 4
                            + B_MAIN * dims.in_w * 2, bf16=6 * B_MAIN * dims.n_weights),
-        "K6": kernel_bound(bytes_of(x, t, prep.table, prep.weights) + net.n_params * 4,
-                           f32=grid_ops(B_MAIN, plan, "fwd") + grid_ops(B_MAIN, plan, "bwd"),
-                           bf16=6 * B_MAIN * dims.n_weights),
     }
 
     # 7. the input-gradient kernels against their twins at the SDF config
@@ -1774,44 +2145,18 @@ def main() -> int:
     sm = tt.create_from_config(3, 1, sdf.CONFIG, seed=SEED + 10, device="cuda")
     sm.trainer.set_params(random_params(sm.trainer, gen))
     snet, sparams = sm.network, sm.trainer.params
-    splan = snet.encoding.plan
-    sprep = train_kernel.prepare_forward(snet, sparams)
-    ig_ms, ig_inputs = {}, {}
+    ig_ms, ig_bounds = {}, {}
     for B in (B_SDF, B_MAIN):
-        xi = torch.rand(B, 3, generator=gen).to(dev)
-        tbl, go, ge, zz = eikonal_inputs(snet, sparams, xi)
-        ig_inputs[B] = (xi, tbl, go, ge, zz)
-        timed_ig = {
-            "K7": (lambda: grid_kernel.grid_backward_ig(splan, tbl, xi, ge),
-                   lambda: grid_kernel._grid_backward_ig_plain(splan, tbl, xi, ge)),
-            "K8": (lambda: grid_kernel.grid_backward_bwd(splan, tbl, None, xi, ge, zz),
-                   lambda: grid_kernel._grid_backward_bwd_plain(splan, tbl, None, xi, ge, zz)),
-            "K9": (lambda: train_kernel.fused_ig_grads(snet, sparams, xi, go),
-                   lambda: train_kernel._fused_ig_grads_plain(splan, sprep.dims, sprep.table,
-                                                              sprep.weights, xi, go)),
-        }
-        for name, (kern, plain) in timed_ig.items():
-            ig_ms[(name, B)] = time_pair(kern, plain)
+        ig_ms[B], ig_bounds[B] = time_ig_kernels(snet, sparams,
+                                                 torch.rand(B, 3, generator=gen).to(dev))
     xs = torch.rand(B_SDF, 3, generator=gen).to(dev)
     sdf_step_ms = cuda_ms(lambda: sdf.train_step(sm.trainer, xs), 20)
     emit({"phase": "times ig", "card": smi,
-          "ms": {f"{k} B={b}": {"kernel": v[0], "plain": v[1]} for (k, b), v in ig_ms.items()},
+          "ms": {f"{k} B={b}": {"kernel": v[0], "plain": v[1]}
+                 for b in ig_ms for k, v in ig_ms[b].items()},
           "sdf_train_step_ms": sdf_step_ms, "sdf_steps_per_s": 1e3 / sdf_step_ms})
-    for k in ("K7", "K8", "K9"):
-        ms[k] = ig_ms[(k, B_MAIN)]
-
-    x18, table18, gy18, gye18, z18 = ig_inputs[B_MAIN]
-    bounds.update({
-        "K7": kernel_bound(bytes_of(x18, gye18, table18) + splan.total_rows * splan.f * 4
-                           + x18.numel() * 4, f32=grid_ops(B_MAIN, splan, "ig")),
-        "K8": kernel_bound(bytes_of(x18, gye18, z18, table18) + gye18.numel() * 4
-                           + splan.total_rows * splan.f * 4 + x18.numel() * 4,
-                           f32=grid_ops(B_MAIN, splan, "bwdbwd")),
-        "K9": kernel_bound(bytes_of(x18, gy18, table18, sprep.weights) + snet.n_params * 4
-                           + x18.numel() * 4,
-                           f32=grid_ops(B_MAIN, splan, "fwd") + grid_ops(B_MAIN, splan, "ig"),
-                           bf16=6 * B_MAIN * sprep.dims.n_weights),
-    })
+    ms.update(ig_ms[B_MAIN])
+    bounds.update(ig_bounds[B_MAIN])
 
     # 10. the PPNG kernels against their twins at the factory defaults
     ppng_ms, ppng_bounds = check_ppng_kernels(gen, dev, smi, errs)
@@ -1827,6 +2172,24 @@ def main() -> int:
 
     # 13. the options' training slice
     opt_launches, _ = options_slice(cfg, dev, smi, batch)
+
+    # 14. the reference-default T=2^19 grid: kernels, the image sample, times
+    ref_errs = check_reference_kernels(cfg, gen, dev)
+    ref_launches, render_err, ref_ms, ref_bounds, ref_times = reference_slice(cfg, gen, dev)
+    ref_errs["K3"] = max(ref_errs["K3"], render_err)
+    emit({"phase": "times reference", "card": smi, "B": B_MAIN,
+          "ms": {f"{k} T=2^19": {"kernel": v[0], "plain": v[1], "bound": ref_bounds[k][0]}
+                 for k, v in ref_ms.items()},
+          "ms_config_hash": {k: {"kernel": ms[k][0], "plain": ms[k][1], "bound": bounds[k][0]}
+                             for k in ref_ms},
+          **ref_times, "config_hash_training_step_ms": step_ms})
+
+    # 15. the SDF sample at T=2^19
+    sdf19_errs, sdf19_launches, sdf19_ms, sdf19_bounds = reference_sdf_slice(gen, dev, smi)
+    ref_errs.update(sdf19_errs)
+    ref_launches.update(sdf19_launches)
+    ref_ms.update(sdf19_ms)
+    ref_bounds.update(sdf19_bounds)
 
     sources = {
         "K1": ("grid_fwd", "tcnn_tpu_torch/csrc/grid_fwd.cu",
@@ -1891,6 +2254,20 @@ def main() -> int:
                  else run["composed"][k])
             entries.append((key, f"{name} ({option})", sources[k][1], replaces, n, opt_errs[key],
                             opt_ms[key], opt_bounds[key]))
+    # B12, the binned grid mode, by function: each kernel at T=2^19 (2-D
+    # reference default for K1, K3, K4, K6; the SDF's 3-D grid for K7-K9).
+    # Launches from phase 14's sample run (K6), render (K3) and composed
+    # step (K1, K4) and from phase 15's SDF steps (K7-K9).
+    binned = {"K1": "tcnn_tpu/ops/pallas/binned_kernel.py:770",
+              "K3": "tcnn_tpu/ops/pallas/binned_kernel.py:770",
+              "K4": "tcnn_tpu/ops/pallas/binned_kernel.py:1099",
+              "K6": "tcnn_tpu/ops/pallas/binned_kernel.py:1099",
+              "K7": "tcnn_tpu/ops/pallas/binned_kernel.py:1257",
+              "K8": "tcnn_tpu/ops/pallas/binned_kernel.py:1348",
+              "K9": "tcnn_tpu/ops/pallas/binned_kernel.py:1257"}
+    for k, replaces in binned.items():
+        entries.append((f"{k} T=2^19", f"{sources[k][0]} (T=2^19)", sources[k][1], replaces,
+                        ref_launches[k], ref_errs[k], ref_ms[k], ref_bounds[k]))
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": n, "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": bound[0],

@@ -14,7 +14,9 @@ of each step after a warm-up:
     for the data term, the matmul chain for the eikonal term, then Adam;
   - with no argument or with "config_hash", `Trainer.training_step` on
     data/config_hash.json at B = 2^18, on the fused route (K6) and the
-    composed route (K1 K2 K5 K4).
+    composed route (K1 K2 K5 K4); with "reference", the same at the
+    reference's default hash grid (log2_hashmap_size 19, per_level_scale
+    2.0: 5,592,320 rows), the image sample's step.
 For each it prints one JSON line: wall ms per step (host clock around
 synchronised steps, without the profiler), device ms per step (the sum of
 the CUDA kernels' times under the profiler), the device's busy share of the
@@ -92,23 +94,24 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
+    image_grids = {"config_hash": {}, "reference": {"log2_hashmap_size": 19, "per_level_scale": 2.0}}
     names = argv[1:] or ["HashGrid", "config_hash"]
-    for otype in (n for n in names if n != "config_hash"):
+    for otype in (n for n in names if n not in image_grids):
         m = tt.create_from_config(3, 1, sdf.config(otype), device=dev)
         xs = torch.rand(sdf.BATCH, 3, generator=gen, device=dev)
         profile(f"sdf train_step {otype} B=2^16", lambda: sdf.train_step(m.trainer, xs), smi)
-    if "config_hash" not in names:
-        return 0
 
-    cfg = tt.load_config(str(ROOT / "data" / "config_hash.json"))
     image = synthetic_image(1024, 1024, device=dev)
     x = torch.rand(1 << 18, 2, generator=gen, device=dev)
     t = sample_image(image, x)
-    m = tt.create_from_config(2, 3, cfg, device=dev)
-    for route, flag in (("fused", None), ("composed", False)):
-        m.trainer.use_fused_train_kernel = flag
-        profile(f"config_hash training_step {route} B=2^18",
-                lambda: m.trainer.training_step(x, t), smi)
+    for name in (n for n in names if n in image_grids):
+        cfg = tt.load_config(str(ROOT / "data" / "config_hash.json"))
+        cfg["encoding"].update(image_grids[name])
+        m = tt.create_from_config(2, 3, cfg, device=dev)
+        for route, flag in (("fused", None), ("composed", False)):
+            m.trainer.use_fused_train_kernel = flag
+            profile(f"{name} training_step {route} B=2^18",
+                    lambda: m.trainer.training_step(x, t), smi)
     return 0
 
 

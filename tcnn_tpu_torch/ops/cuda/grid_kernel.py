@@ -27,6 +27,17 @@ interpolation the table gradient of each (sample, level) goes whole to one
 corner drawn from u[b, l] (`stochastic_rows`): K4's stochastic option
 replaces ``grid_kernel.py:_bwd_stoch_kernel`` (through ``_bwd_stoch_call``).
 
+The same four kernels serve tables of any size (up to 2^31 elements).
+Where the TPU table outgrows the one-hot kernels' cap (the reference-default
+T=2^19), the JAX package runs the trailing levels through the binned
+stages of ``tcnn_tpu/ops/pallas/binned_kernel.py``: K1 computes the
+function of its ``_bin_kernel`` + ``_gather_kernel`` + ``_combine_kernel``
+forward, K4 that of ``_place_kernel`` + ``_scatter_kernel`` (stochastic
+corners included), K7 that of ``_combine_ig_kernel`` and K8 that of
+``_combine_bwdbwd_kernel``. The binned scatter rounds each slot's f32 sum of
+bf16 contributions to bf16 again (binned_kernel.py:1127-1142) and drops a
+pick on slot overflow; K4 rounds each contribution once and drops nothing.
+
 Each wrapper takes the plain twin for a CPU tensor and the kernel for a
 CUDA tensor; there is no other route.
 """

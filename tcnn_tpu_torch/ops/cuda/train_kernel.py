@@ -26,6 +26,12 @@ K9 replaces ``_ig_kernel_vt`` / ``_ig_kernel`` (reached through
 ``fused_ig_grads`` from ``fused_apply_ig``'s backward): K6 with the raw
 output cotangent in place of the loss, plus dL/dx from the encoding's
 gradient and the corner features it re-reads. `supported_ig` is its gate.
+
+Neither gate has a table-size term: a table past the JAX package's
+one-hot cap (its `_fused_plan_for` refuses the reference-default T=2^19,
+whose trailing levels take the binned stages of ``binned_kernel.py`` on the
+composed route there) runs K3, K6 and K9 all the same, their gathers and
+scatters reading the table directly as K1 and K4 do.
 """
 
 from __future__ import annotations

@@ -16,6 +16,17 @@ each (sample, level) sends its whole gradient row to one corner, drawn from
 as in the JAX package's Pallas plan). `HashType.Rng` hashes through the
 PCG32 advance (``ops/pcg32.py``; in every grid kernel). Input gradients of a
 stochastic grid stay refused (ROADMAP Queue A item 7b).
+
+Large tables take the same kernels. The JAX package sends the trailing
+levels of a table past its dense kernels' cap (the reference-default
+T=2^19 among them) to a binned counting sort (``tcnn_tpu/ops/pallas/
+binned_kernel.py``: bin, gather, combine, place, scatter, combine_ig,
+combine_bwdbwd), which exists because the TPU cannot gather per lane from a
+large table. Here K1 (and K3, K6's gather) computes its combine's function,
+K4 (and K6's scatter) its place + scatter's, K7 (and K9) its combine_ig's
+and K8 its combine_bwdbwd's, reading and scattering any table size
+directly. The binned route drops a pick on slot overflow; these kernels
+drop none.
 """
 
 from __future__ import annotations
@@ -182,6 +193,15 @@ class GridEncoding(Encoding):
             grid_kernel.level_hash(self.hash_type, d) if any(use_hash) else None,
             torch.tensor(self._sizes.astype(np.int64), device=dev),
         )
+
+    def count_binned_drops(self, x) -> int:
+        """Picks of `x` the encoding drops: always 0. The JAX package's
+        binned route (grid.py:208-221) drops a (sample, corner, level) pick
+        when more distinct rows than a slab slot's cap land in one
+        superblock; the port's kernels gather and scatter every row
+        directly and drop nothing, so the JAX config key that warns on
+        drops ("warn_binned_drops") has nothing to warn of and is ignored."""
+        return 0
 
     def active_levels(self, max_level=None) -> int:
         """Levels kept by a scalar max_level clamp: level l survives when

@@ -1,17 +1,49 @@
-"""Image sampling for the image-fitting drive (counterpart of
-``tcnn_tpu/utils/image.py:32-73``), in plain torch on any device.
+"""Image IO and sampling for the image-fitting sample (counterpart of
+``tcnn_tpu/utils/image.py``), in plain torch on any device.
 
 `sample_image` is the reference's texture fetch (linear filtering,
 normalized coordinates, edge clamping; samples/mlp_learning_an_image.cu):
-bilinear at pixel centers. The JAX package's u32 quad packing is a TPU
-gather workaround and has no counterpart here.
+bilinear at pixel centers. `load_image` and `save_image` import PIL inside
+the call, so the package imports without it. The JAX package's u32 quad
+packing is a TPU gather workaround and has no counterpart here.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+
+def load_image(path: str) -> torch.Tensor:
+    """An image file -> f32 [H, W, 3] in [0, 1] (sRGB values), on the CPU."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    return torch.from_numpy(np.asarray(img, dtype=np.float32) / 255.0)
+
+
+def save_image(path: str, img) -> None:
+    """Write [H, W, 3] values in [0, 1] (a tensor on any device, or an
+    array) as an 8-bit image, clipped and truncated as the JAX package
+    writes it."""
+    from PIL import Image
+
+    arr = img.detach().cpu().numpy() if isinstance(img, torch.Tensor) else np.asarray(img)
+    Image.fromarray(np.clip(arr * 255.0, 0, 255).astype(np.uint8)).save(path)
+
+
+def pixel_center_coords(height: int, width: int, device="cuda") -> torch.Tensor:
+    """f32 [H*W, 2] normalized (x, y) at pixel centers, row-major: the
+    reference demo's evaluation lattice (mlp_learning_an_image.cu:176-189),
+    ((i + 0.5) / size in f32, as the JAX package computes it)."""
+    y, x = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(width, dtype=torch.float32, device=device),
+        indexing="ij",
+    )
+    return torch.stack([((x + 0.5) / width).reshape(-1), ((y + 0.5) / height).reshape(-1)], -1)
 
 
 def synthetic_image(height: int = 512, width: int = 512, device="cuda") -> torch.Tensor:
