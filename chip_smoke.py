@@ -17,7 +17,8 @@ Phases, each printing JSON lines:
      gradient bound beside a control of lower precision that it must
      reject; then, at B = 2^16 - 37, K6 on all nine losses and K4, K5 and K6
      on every activation but Sine, Smoothstep and Nearest interpolation and
-     max_level;
+     max_level; and K4 and K6 at 8 features per level (B = 2^18, 2^18 - 37),
+     each beside its control;
   4. the inference slice: `create_from_config` on data/config_hash.json at
      full width, requests through `trainer.inference` (K3) checked against
      the composed `model.apply` (K1 + K2) and the plain twins on the CPU, the
@@ -28,8 +29,10 @@ Phases, each printing JSON lines:
      composed route (K1, K2, K5, K4) on a second model against K6's
      gradient; a save/load with the optimizer state and one more step on
      each copy;
-  6. times on the card (CUDA events) of each kernel and its twin at B = 2^18,
-     of `trainer.inference` per call and of `training_step` on both routes;
+  6. times on the card (CUDA events) of each kernel and its twin at B = 2^18
+     (K4 also beside one `index_add_` of its precomputed rows and
+     bf16-rounded contributions), of `trainer.inference` per call and of
+     `training_step` on both routes;
   7. the input-gradient kernels against their twins at the SDF config
      (samples/learn_a_sdf.py's HashGrid, 3-D, 12 levels, T = 2^17; 64 x 2
      ReLU MLP), B = 2^16, 2^16 - 37 and 1, on the inputs the eikonal step
@@ -64,7 +67,8 @@ Phases, each printing JSON lines:
      against their twins on the card: at config_hash with "stochastic",
      "rng" and "both" (B = 2^18, 2^18 - 37 and 1), K1 and K3 with Rng, K4
      and K6 with each option (K4's stochastic inputs hold rows where a
-     draw equals its weight); K7, K8 and K9 with Rng at the SDF config
+     draw equals its weight; K6 also beside the control with g in bf16);
+     K7, K8 and K9 with Rng at the SDF config
      (B = 2^16, 2^16 - 37, 1); K1 and K4 with Rng at D = 4. Each bound
      beside a control that must break it: the twin drawing with key 1338 or
      hashing with seed 1338. Then each option and its twin timed at B = 2^18
@@ -133,8 +137,10 @@ MLP_REL = 2.0**-5
 #: control in the same run, the twin at that lower precision, must break
 #: it.
 #:
-#: K4 adds the same bf16-rounded contributions as its twin, with f32
-#: atomics in a run-dependent order: readings up to 7.0e-8.
+#: K4 adds the same bf16-rounded contributions as its twin, in another
+#: order (its private levels by shared atomics, then a fixed-order sum over
+#: blocks; the other levels by f32 vector atomics, run-dependent): readings
+#: up to 7.0e-8 (6.7e-8 since the scatter's redesign, F = 8 included).
 GRID_BWD_REL = 1e-6
 #: K5 sums on the tensor cores in its own order, which can flip the bf16
 #: rounding of a hidden unit or of g at a layer boundary, as its twin rounds
@@ -152,7 +158,9 @@ K5_REL = {"config_hash": {"gW": 1e-4, "gx": 1e-3}, "128x5": {"gW": 1e-4, "gx": 6
 #: bf16 at the loss and at every layer, reads 9e-6 to 1.6e-5 on the weights
 #: (sums over 2^18 rows average its roundings away) and 4.3e-4 to 5.1e-4 on
 #: the table, which is the part that tells the two apart; a K6 built that
-#: way read 4.3e-4 there and failed.
+#: way read 4.3e-4 there and failed. The redesigned scatter (private levels,
+#: vector atomics) reads the same: table 1.6e-5 to 6.9e-5 at config_hash,
+#: up to 9.6e-5 at F = 8, whose control reads 7.0e-4.
 TRAIN_LOSS_RTOL = 1e-5
 K6_REL = {"weights": 2e-5, "table": 2e-4}
 #: The composed route (K1 K2 K5 K4) against K6 on the same step of the
@@ -287,18 +295,20 @@ CONTROL_SEED = 1338
 #: chosen otherwise than the twin's moves a whole contribution and reads
 #: 1e-4 and more.
 #: K6's options read more than K6 on their own models (H100 80GB HBM3,
-#: 700 W; table part at config_hash, B = 2^18 and 2^18 - 37, over two
-#: runs): stochastic 5.0e-5 to 2.06e-4, rng 3.5e-5 to 1.68e-4, both 5.0e-5
-#: to 1.14e-4. A stochastic row is one bf16 value per feature, so where K6's
-#: g (16 significant bits) and the twin's (f32) round to neighbouring bf16
-#: values a table row moves by a whole ulp of one or two contributions; and
+#: 700 W; table part at config_hash, B = 2^18 and 2^18 - 37): before the
+#: scatter's redesign, over two runs, stochastic 5.0e-5 to 2.06e-4, rng
+#: 3.5e-5 to 1.68e-4, both 5.0e-5 to 1.14e-4; after it, in one run,
+#: stochastic 5.0e-5, rng 1.39e-4 to 1.49e-4, both 5.1e-5 to 5.2e-5. Where
+#: K6's g (16 significant bits) and the twin's (f32) round a contribution
+#: to neighbouring bf16 values, a table row moves by a whole ulp of it, and
 #: a few samples whose loss gradient is large (RelativeL2 near a zero
-#: prediction) carry most of the norm. The options' faults (another corner
-#: or row) read 0.37 and more, as their controls do; the precision of K6's
-#: backward, which the options share, is held by the base check (K6_REL and
-#: its control with g in bf16, 4.3e-4 to 5.0e-4). So the options' table
-#: bound is 6e-4, about 3x the largest reading.
-K6_OPT_REL = {"weights": K6_REL["weights"], "table": 6e-4}
+#: prediction) carry most of the norm. The control with g in bf16 (the
+#: composed route's precision) reads 1.04e-3 to 1.39e-3 on these models,
+#: and the options' faults (another corner or row) 0.37 and more. So the
+#: options' table bound is 4e-4: about twice the largest reading, under
+#: half the control's smallest (the bound of 6e-4 before it passed the
+#: base model's control, 4.3e-4).
+K6_OPT_REL = {"weights": K6_REL["weights"], "table": 4e-4}
 #: Phase 13: (least loss fall, least holdout PSNR in dB) of each option over
 #: N_TRAIN steps at B = 2^18, set before the first run on the card from CPU
 #: rehearsals of both packages at B = 2^16 (scripts/rehearse_train_options.py;
@@ -624,6 +634,39 @@ def scatter_f32(plan, x, g, z=None):
         w = k.w if z is None else sum(z[:, None, d] * k.dw[d] for d in range(plan.d))
         out.index_add_(0, k.rows.reshape(-1), (w[..., None] * gl).reshape(-1, F))
     return out
+
+
+def check_f8(cfg, gen, dev):
+    """Phase 3c: config_hash with 8 features per level (a 128-wide MLP
+    input; K6 at a 64-row tile; levels 0-2 private in K4 and K6): K4 and
+    K6 against their twins at B = 2^18 and 2^18 - 37, each bound beside a
+    control that must break it (K4's contributions unrounded; K6 with g in
+    bf16). Returns {kernel: max abs err}."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, train_kernel
+
+    m = reference_model(cfg, SEED + 40, dev, gen, n_features_per_level=8)
+    net, tr = m.network, m.trainer
+    plan = net.encoding.plan
+    check(plan.f == 8 and tr.use_fused(), "F = 8 must take K6")
+    L, w = plan.n_levels, net.encoding.padded_output_width
+    errs = {"K4": 0.0, "K6": 0.0}
+    for B in BATCHES[:2]:
+        x = torch.rand(B, 2, generator=gen).to(dev)
+        gy = torch.randn(B, w, generator=gen).to(torch.bfloat16).to(dev)
+        want = grid_kernel._grid_backward_plain(plan, x, gy, L)
+        errs["K4"] = max(errs["K4"], compare_norm(
+            f"K4 grid_bwd F=8 B={B}", grid_kernel.grid_backward(plan, x, gy, L), want, GRID_BWD_REL))
+        t = torch.rand(B, 3, generator=gen).to(dev)
+        errs["K6"] = max(errs["K6"], check_train_step(
+            f"F=8 B={B}", net, tr.loss_fn, tr.params, x, t, tr.loss_scale, K6_REL,
+            control_too=B == B_MAIN))
+        if B == B_MAIN:
+            control("K4 F=8, contributions unrounded", scatter_f32(plan, x, gy), want, GRID_BWD_REL)
+    emit({"phase": "F=8", "private_levels": {
+        "K4": grid_kernel.private_levels(plan, L, grid_kernel.K4_PRIVATE_BYTES)[0],
+        "K6": train_kernel.train_layout(net)[1]}, "tile": train_kernel.train_layout(net)[0]})
+    return errs
 
 
 def eikonal_inputs(net, params, x):
@@ -1105,6 +1148,25 @@ def time_grid_kernels(net, tr, x, t, gy_enc, kernels=("K1", "K3", "K4", "K6"), l
             for k in kernels}
 
 
+def k4_yardstick(plan, x, gy, n_active):
+    """K4's one-call PyTorch yardstick: `index_add_` of every corner's
+    bf16-rounded contribution w_c * gy into its row, the rows and the
+    contributions computed beforehand (as phase 12 hands the stochastic
+    option's rows to its yardstick)."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel
+
+    L, F = plan.n_levels, plan.f
+    g = gy[:, : L * F].float().reshape(-1, L, F)[:, :n_active]
+    rows, contrib = [], []
+    for k in grid_kernel._corners(plan, x):
+        rows.append(k.rows[:, :n_active].reshape(-1))
+        contrib.append((k.w[:, :n_active, None] * g).to(torch.bfloat16).float().reshape(-1, F))
+    rows, contrib = torch.cat(rows), torch.cat(contrib)
+    out = torch.zeros((plan.total_rows, F), dtype=torch.float32, device=x.device)
+    return lambda: out.zero_().index_add_(0, rows, contrib)
+
+
 def time_steps(tr, x, t):
     """ms per `training_step` on the fused route, the composed one and the
     fused one again, 30 steps each."""
@@ -1316,7 +1378,7 @@ def check_option_kernels(cfg, gen, dev, smi, enc_w):
             t = torch.rand(B, 3, generator=gen).to(dev)
             note(f"K6 {option}", check_train_step(
                 f"{option} B={B}", net, tr.loss_fn, tr.params, x, t, tr.loss_scale,
-                K6_OPT_REL,
+                K6_OPT_REL, control_too=B == B_MAIN,
                 ctl_plan=ctl if B == B_MAIN else None))
 
     # K7, K8, K9 with Rng at the SDF config (3-D: 21-bit lanes of delta)
@@ -1702,7 +1764,9 @@ def reference_slice(cfg, gen, dev):
     # times at B = 2^18
     gy = torch.randn(B_MAIN, net.encoding.padded_output_width,
                      generator=gen).to(torch.bfloat16).to(dev)
-    ms = time_grid_kernels(net, tr, x, t, gy)
+    plan = net.encoding.plan
+    ms = time_grid_kernels(net, tr, x, t, gy,
+                           library={"K4": k4_yardstick(plan, x, gy, plan.n_levels)})
     bounds = grid_bounds(net, train_kernel.prepare_forward(net, tr.params), x, t, gy)
     times = {"trainer_inference_ms": cuda_ms(lambda: tr.inference(x), 50)}
     step_ms = time_steps(tr, x, t)
@@ -1924,6 +1988,11 @@ def main() -> int:
                 f"K4 grid_bwd {label}", grid_kernel.grid_backward(vprep.plan, x, gy, n_active),
                 grid_kernel._grid_backward_plain(vprep.plan, x, gy, n_active), GRID_BWD_REL))
 
+    # 3c. F = 8 through K4 and K6 (two float4 atomics a corner; the private
+    #     levels' budget at 32 bytes a row)
+    for k, v in check_f8(cfg, gen, dev).items():
+        errs[k] = max(errs[k], v)
+
     # 4. the inference slice, through the entry points a user calls
     reset_counters()
     model = tt.create_from_config(2, 3, cfg, seed=SEED + 1, device="cuda")
@@ -2043,7 +2112,8 @@ def main() -> int:
     prep = train_kernel.prepare_forward(net, tr.params)
     gy_enc = torch.randn(B_MAIN, enc_w, generator=gen).to(torch.bfloat16).to(dev)
     gy_out = torch.randn(B_MAIN, dims.out_w, generator=gen).to(torch.bfloat16).to(dev)
-    ms = time_grid_kernels(net, tr, x, t, gy_enc, plain_iters=5)
+    ms = time_grid_kernels(net, tr, x, t, gy_enc, plain_iters=5,
+                           library={"K4": k4_yardstick(plan, x, gy_enc, L)})
     ms["K2"] = time_pair(lambda: mlp_kernel.mlp_forward(dims, prep.weights, enc),
                          lambda: mlp_kernel._mlp_forward_plain(dims, prep.weights, enc),
                          iters=50, plain_iters=5)

@@ -1,5 +1,5 @@
 // Shared helpers of the port's CUDA kernels: bf16 row loads/stores of F
-// features and the error string of the C interface.
+// features and the fixed-order sum of per-block partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +31,57 @@ __device__ __forceinline__ void store_bf16(bf16* p, const float* v) {
 #pragma unroll
   for (int f = 0; f < F; ++f) u.h[f] = __bfloat16_as_ushort(__float2bfloat16_rn(v[f]));
   *reinterpret_cast<typename BfVec<F>::T*>(p) = u.raw;
+}
+
+// out[j] = sum over blocks b = 0..n_blocks-1, in that order, of
+// partials[b * stride + j], for j < n: the deterministic second pass of the
+// persistent kernels (K4, K5, K6, K9), whose blocks each leave a partial.
+// Eight loads are in flight a thread; the adds keep their order. A static
+// template: only the sources that launch it instantiate it, each its own.
+template <class T>
+static __global__ void reduce_partials(const T* __restrict__ partials, int n_blocks, size_t stride,
+                                size_t n, T* __restrict__ out) {
+  for (size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x; j < n;
+       j += (size_t)gridDim.x * blockDim.x) {
+    T s = 0;
+    int b = 0;
+    for (; b + 8 <= n_blocks; b += 8) {
+      T v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = partials[(size_t)(b + k) * stride + j];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s += v[k];
+    }
+    for (; b < n_blocks; ++b) s += partials[(size_t)b * stride + j];
+    out[j] = s;
+  }
+}
+
+// The persistent grid of `kernel` at `threads` threads and `smem` bytes of
+// dynamic shared memory a block (opted in here) over n_tiles tiles: the
+// blocks resident at once, by occupancy, never more than the tiles. Returns
+// -cudaError on failure and 0 when no block fits.
+template <class Kernel>
+static int resident_grid(Kernel kernel, int threads, size_t smem, int device, long n_tiles) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int per_sm = 0, n_sm = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return -(int)e;
+  const long g = (long)per_sm * n_sm;
+  return (int)(g < n_tiles ? g : n_tiles);
+}
+
+template <class T>
+static int launch_reduce(const T* partials, int n_blocks, size_t stride, size_t n, T* out,
+                         cudaStream_t stream) {
+  const int threads = 256;
+  const size_t blocks = (n + threads - 1) / threads;
+  reduce_partials<T><<<(unsigned)(blocks < 1024 ? blocks : 1024), threads, 0, stream>>>(
+      partials, n_blocks, stride, n, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tcnn

@@ -62,10 +62,10 @@ extern "C" int tcnn_fused_ig(const void* x, const void* table, const void* level
   float* part = static_cast<float*>(partials);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 1: return launch_fused_train<1, true>(g, m, lay, la, gr, part, nullptr, gxp, B, L, grid, device, s);
-    case 2: return launch_fused_train<2, true>(g, m, lay, la, gr, part, nullptr, gxp, B, L, grid, device, s);
-    case 4: return launch_fused_train<4, true>(g, m, lay, la, gr, part, nullptr, gxp, B, L, grid, device, s);
-    case 8: return launch_fused_train<8, true>(g, m, lay, la, gr, part, nullptr, gxp, B, L, grid, device, s);
+    case 1: return launch_fused_train<1, true>(g, m, lay, la, gr, part, nullptr, gxp, B, L, 0, grid, device, s);
+    case 2: return launch_fused_train<2, true>(g, m, lay, la, gr, part, nullptr, gxp, B, L, 0, grid, device, s);
+    case 4: return launch_fused_train<4, true>(g, m, lay, la, gr, part, nullptr, gxp, B, L, 0, grid, device, s);
+    case 8: return launch_fused_train<8, true>(g, m, lay, la, gr, part, nullptr, gxp, B, L, 0, grid, device, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -12,13 +12,16 @@
 //   shared memory a block at config_hash's 128-row tile), and stochastic
 //   interpolation's one-corner scatter of the active levels
 //   (train_kernel.py:1221-1283).
-// What bounds it on this card: shared memory and the scatter. A block keeps
+// What bounds it on this card: the scatter and shared memory. A block keeps
 //   the weights, every layer's output of its tile and two gradient tiles
-//   (mlp_bwd_common.cuh): at config_hash and 128 rows that is 146 KB, so one
+//   (mlp_bwd_common.cuh): at config_hash and 128 rows 149,504 bytes, so one
 //   block (8 warps) per SM, which leaves few random L2 reads in flight in
-//   the gather and the scatter. The scatter makes the same 33.5 M f32
-//   atomics as K4 at B=2^18, contended at the coarse dense levels. Device
-//   memory traffic is small: x, the targets and the gradients.
+//   the gather and the scatter, and 82,944 bytes of the 232,448 opt-in
+//   unused. The scatter adds 2^18 * 16 * 4 corner contributions of F floats
+//   at B=2^18; as scalar f32 atomics (33.5 M), contended at the coarse
+//   dense levels (level 0: 256 rows, ~4096 adds a float), K6 took 1.256 ms
+//   (H100 80GB HBM3, 700 W), about K1 + K2 + K5 + K4 apart. Device memory
+//   traffic is small: x, the targets and the gradients.
 // What the design does about it: the encoding, the hidden activations and
 //   the output gradient never touch device memory, which is what the TPU
 //   kernel saves too. Per tile, K1's per-(sample, level) device function
@@ -28,20 +31,27 @@
 //   and rescales, equal up to f32 rounding); the backward keeps the gradient
 //   at about f32 precision, as _kernel_vt does, by running each product on
 //   the tensor cores for the bf16 high and low halves of g; K4's device
-//   function scatters from the f32 encoding gradient. Blocks are persistent
-//   and keep their weight-gradient partials in L2-resident scratch, summed
-//   in a fixed order by a second pass; the loss is summed per block and
-//   added with one atomic. Rows past B are masked in the loss and in both
-//   scatters, never padded.
+//   function scatters from the f32 encoding gradient, a warp taking 32 rows
+//   of one level. The leading dense levels that fit the spare shared memory
+//   (train_kernel.train_layout: levels 0-3 at config_hash, 0-2 at the
+//   reference default T=2^19) are summed there with shared atomics; every
+//   other level adds one float2 / float4 vector atomic per corner. Blocks
+//   are persistent and keep their weight-gradient partials in L2-resident
+//   scratch, followed by the private levels' sums (written once, at the
+//   end); since the gradient is [network | table] and level 0 starts at
+//   table row 0, one fixed-order second pass writes the weights' gradient
+//   and those levels' rows together, with no global atomic on them. The
+//   loss is summed per block and added with one atomic. Rows past B are
+//   masked in the loss and in both scatters, never padded.
 #include "fused_train.cuh"
 
 // The persistent grid of tcnn_fused_train over B rows in tiles of nt, for F
-// features per level (persistent_grid: > 0 blocks, 0 when no block fits,
-// -cudaError).
-extern "C" int tcnn_fused_train_grid(int B, int F, int nt, int in_w, int width, int n_hidden,
-                                     int out_w, int device) {
+// features per level and `priv` private table-gradient floats a block
+// (persistent_grid: > 0 blocks, 0 when no block fits, -cudaError).
+extern "C" int tcnn_fused_train_grid(int B, int F, int priv, int nt, int in_w, int width,
+                                     int n_hidden, int out_w, int device) {
   using namespace tcnn;
-  const BwdLayout L{nt, in_w, width, n_hidden, out_w, 1};
+  const BwdLayout L{nt, in_w, width, n_hidden, out_w, 1, 0, priv};
   if (!valid_layout(L)) return -(int)cudaErrorInvalidValue;
   switch (F) {
     case 1: return persistent_grid(fused_train_kernel<1, false>, L, device, B);
@@ -52,19 +62,22 @@ extern "C" int tcnn_fused_train_grid(int B, int F, int nt, int in_w, int width, 
   }
 }
 
-// `grid` blocks, as tcnn_fused_train_grid gave them; `partials` holds
-// grid x n_weights f32.
+// `grid` blocks, as tcnn_fused_train_grid gave them; levels 0..n_private-1
+// (table rows 0..priv/F-1) kept private; `partials` holds grid x
+// (n_weights + priv rounded up to 8) f32.
 extern "C" int tcnn_fused_train(const void* x, const void* table, const void* level_i32,
                                 const void* level_f32, const void* weights, const void* targets,
                                 const void* pdf, const void* noise, void* grads, void* partials,
                                 void* loss_sum, int grid, int B, int D, int F, int L, int n_active,
                                 int interp, unsigned f0, unsigned f1, unsigned f2, unsigned f3, int hash, int stochastic,
+                                int n_private, int priv,
                                 int nt, int in_w, int width, int n_hidden, int out_w, int act,
                                 int out_act, int loss_code, int dims, float loss_scale, int device,
                                 void* stream) {
   using namespace tcnn;
-  const BwdLayout lay{nt, in_w, width, n_hidden, out_w, 1};
-  if (!valid_layout(lay) || grid < 1 || in_w < L * F || n_active > L)
+  const BwdLayout lay{nt, in_w, width, n_hidden, out_w, 1, 0, priv};
+  if (!valid_layout(lay) || grid < 1 || in_w < L * F || n_active > L || n_private > n_active ||
+      n_private < 0 || priv % F != 0)
     return (int)cudaErrorInvalidValue;
   GridArgs g{static_cast<const float*>(x), static_cast<const bf16*>(table),
              static_cast<const int*>(level_i32), static_cast<const float*>(level_f32),
@@ -78,10 +91,10 @@ extern "C" int tcnn_fused_train(const void* x, const void* table, const void* le
   float* ls = static_cast<float*>(loss_sum);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 1: return launch_fused_train<1, false>(g, m, lay, la, gr, part, ls, nullptr, B, n_active, grid, device, s);
-    case 2: return launch_fused_train<2, false>(g, m, lay, la, gr, part, ls, nullptr, B, n_active, grid, device, s);
-    case 4: return launch_fused_train<4, false>(g, m, lay, la, gr, part, ls, nullptr, B, n_active, grid, device, s);
-    case 8: return launch_fused_train<8, false>(g, m, lay, la, gr, part, ls, nullptr, B, n_active, grid, device, s);
+    case 1: return launch_fused_train<1, false>(g, m, lay, la, gr, part, ls, nullptr, B, n_active, n_private, grid, device, s);
+    case 2: return launch_fused_train<2, false>(g, m, lay, la, gr, part, ls, nullptr, B, n_active, n_private, grid, device, s);
+    case 4: return launch_fused_train<4, false>(g, m, lay, la, gr, part, ls, nullptr, B, n_active, n_private, grid, device, s);
+    case 8: return launch_fused_train<8, false>(g, m, lay, la, gr, part, ls, nullptr, B, n_active, n_private, grid, device, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

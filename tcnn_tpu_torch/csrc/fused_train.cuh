@@ -61,11 +61,14 @@ __device__ __forceinline__ float2 loss_eval(int code, float p, float t, float pd
 
 // IG (K9): the raw output cotangent in place of the loss (la.code == 0), no
 // loss sum, and dL/dx into gx [B, D] from the encoding's f32 gradient.
+// K6 keeps the table gradient of levels 0..n_private-1 (L.priv floats) in
+// shared memory and leaves it in its partial after the weights'; K9 keeps
+// none (n_private = 0, L.priv = 0).
 template <int F, bool IG>
 __global__ void fused_train_kernel(GridArgs g, MlpArgs m, BwdLayout L, LossArgs la,
                                    float* __restrict__ gtable, float* __restrict__ partials,
                                    float* __restrict__ loss_sum, float* __restrict__ gx, long B,
-                                   int n_active, long n_tiles) {
+                                   int n_active, int n_private, long n_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int nt = L.nt;
   const size_t n_weights = L.n_weights();
@@ -73,7 +76,11 @@ __global__ void fused_train_kernel(GridArgs g, MlpArgs m, BwdLayout L, LossArgs 
   load_weights(m.weights, sw, n_weights);
   float* scratch = reinterpret_cast<float*>(smem + L.g_offset(2));
   float* sc = scratch + (threadIdx.x / 32) * 256;
-  float* partial = partials + (size_t)blockIdx.x * n_weights;
+  float* partial = partials + (size_t)blockIdx.x * L.n_partial();
+  float* priv = reinterpret_cast<float*>(smem + L.priv_offset());
+  // zeroed once; the first tile's barrier after its gather orders this
+  // before any scatter
+  for (int i = threadIdx.x; i < L.priv; i += blockDim.x) priv[i] = 0.f;
   bf16* h0 = h_tile(smem, L, 0);
   bf16* hout = h_tile(smem, L, m.n_hidden + 1);
   const int ld0 = L.ld_h(0), ldo = L.ld_h(m.n_hidden + 1), ldg = L.ld_g();
@@ -153,16 +160,22 @@ __global__ void fused_train_kernel(GridArgs g, MlpArgs m, BwdLayout L, LossArgs 
       __syncthreads();
       sum_level_parts(gxs, nt, D, g.L, row0, B, gx);
     } else {
+      // a warp takes 32 rows of one level, so a level's private/global
+      // branch is the whole warp's
       for (int p = threadIdx.x; p < nt * n_active; p += blockDim.x) {
-        const int r = p / n_active, l = p % n_active;
+        const int l = p / nt, r = p % nt;
         const long row = row0 + r;
-        if (row < B) grid_level_bwd<F>(g, row, l, fin + r * ldg + l * F, gtable);
+        if (row < B) grid_level_bwd<F>(g, row, l, fin + r * ldg + l * F, gtable, priv, l < n_private);
       }
     }
     first = false;
   }
   if (IG) return;
 
+  // the private levels' gradient into the partial, after the weights', for
+  // the fixed-order reduce
+  __syncthreads();
+  for (int i = threadIdx.x; i < L.priv; i += blockDim.x) partial[n_weights + i] = priv[i];
   // the block's loss: warp sums, then one atomic
   for (int o = 16; o > 0; o /= 2) loss_acc += __shfl_down_sync(0xffffffffu, loss_acc, o);
   __syncthreads();
@@ -178,16 +191,19 @@ __global__ void fused_train_kernel(GridArgs g, MlpArgs m, BwdLayout L, LossArgs 
 template <int F, bool IG>
 static int launch_fused_train(const GridArgs& g, const MlpArgs& m, const BwdLayout& L,
                               const LossArgs& la, float* grads, float* partials, float* loss_sum,
-                              float* gx, long B, int n_active, int grid, int device,
-                              cudaStream_t stream) {
+                              float* gx, long B, int n_active, int n_private, int grid,
+                              int device, cudaStream_t stream) {
   const cudaError_t e = opt_in_smem(fused_train_kernel<F, IG>, L, device);
   if (e != cudaSuccess) return (int)e;
   const long n_tiles = (B + L.nt - 1) / L.nt;
   fused_train_kernel<F, IG><<<grid, L.nt * 2, L.bytes(), stream>>>(
-      g, m, L, la, grads + L.n_weights(), partials, loss_sum, gx, B, n_active, n_tiles);
+      g, m, L, la, grads + L.n_weights(), partials, loss_sum, gx, B, n_active, n_private,
+      n_tiles);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  return launch_reduce(partials, grid, L.n_weights(), grads, stream);
+  // the weights' gradient and, right after it in [network | table], the
+  // private levels' rows 0..priv/F-1
+  return launch_reduce(partials, grid, L.n_partial(), L.n_weights() + L.priv, grads, stream);
 }
 
 }  // namespace tcnn

@@ -280,31 +280,63 @@ __device__ __forceinline__ void grid_level(const GridArgs& g, long b, int l, flo
   });
 }
 
-// Backward: gtable[row, f] += bf16(w * gy[f]) in f32 atomics, the
-// contribution rounded to bf16 as the TPU kernel rounds it
-// (grid_kernel.py:674-677). Stochastic: gtable[row, f] += bf16(gy[f]) into
-// the one drawn corner's row (grid_kernel.py:_bwd_stoch_kernel).
+// dst[0..F) += v[0..F) in global memory, one vector atomic per 2 or 4
+// features: sm_90's float2 / float4 atomicAdd (F = 2, 4; F = 8 as two
+// float4), a scalar one for F = 1. dst is F-float aligned.
+template <int F>
+__device__ __forceinline__ void atomic_add_row(float* dst, const float* v) {
+  if constexpr (F == 1) {
+    atomicAdd(dst, v[0]);
+  } else if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < F; k += 4) {
+      atomicAdd(reinterpret_cast<float4*>(dst + k), make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
+    }
+  }
+}
+
+// Backward (K4, K6): row += bf16(w * gy[f]) per corner, the contribution
+// rounded to bf16 as the TPU kernel rounds it (grid_kernel.py:674-677), then
+// added in f32. Stochastic: row += bf16(gy[f]) into the one drawn corner's
+// row (grid_kernel.py:_bwd_stoch_kernel). A level the caller keeps private
+// (`to_priv`: one of the leading dense levels, whose absolute rows all lie
+// below the private slice's end because level 0 starts at table row 0) adds
+// into the block's f32 slice `priv` in shared memory, one shared atomic per
+// feature; any other level into the global gradient `gtable`, one vector
+// atomic per corner (atomic_add_row). The two pointers stay apart so that
+// each branch's atomics keep their address space; callers keep `to_priv`
+// uniform across a warp.
 template <int F>
 __device__ __forceinline__ void grid_level_bwd(const GridArgs& g, long b, int l, const float* gy,
-                                               float* __restrict__ gtable) {
-  if (g.stochastic) {
-    const unsigned row = grid_stoch_row(g, b, l);
+                                               float* __restrict__ gtable, float* priv,
+                                               bool to_priv) {
+  auto add = [&](unsigned row, const float* v) {
+    if (to_priv) {
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      atomicAdd(gtable + (size_t)row * F + f, __bfloat162float(__float2bfloat16_rn(gy[f])));
+      for (int f = 0; f < F; ++f) atomicAdd(priv + (size_t)row * F + f, v[f]);
+    } else {
+      atomic_add_row<F>(gtable + (size_t)row * F, v);
     }
+  };
+  float v[F];
+  if (g.stochastic) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) v[f] = __bfloat162float(__float2bfloat16_rn(gy[f]));
+    add(grid_stoch_row(g, b, l), v);
     return;
   }
   grid_corners(g, b, l, [&](unsigned row, float cw) {
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const float v = __bfloat162float(__float2bfloat16_rn(__fmul_rn(cw, gy[f])));
-      atomicAdd(gtable + (size_t)row * F + f, v);
-    }
+    for (int f = 0; f < F; ++f) v[f] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(cw, gy[f])));
+    add(row, v);
   });
 }
 
-// Backward with input gradients (K7, K9): K4's scatter, plus each corner's
+// Backward with input gradients (K7, K9): the same bf16-rounded
+// contributions, one scalar f32 atomic per feature into the global gradient
+// (every level), plus each corner's
 // feature row read again for dot = sum_f table[row, f] * gy[f], and
 // part[d] += dot * dW_c/dx_d, summed over corners c = 0..C-1 in order
 // (grid_kernel.py:884-921).

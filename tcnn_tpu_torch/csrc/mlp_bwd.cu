@@ -17,7 +17,7 @@
 //   weight gradients cannot be carried from tile to tile as the TPU grid
 //   carries them: a persistent grid (the resident blocks, each looping over
 //   tiles) keeps one f32 partial per block in L2-resident scratch, and a
-//   second pass (reduce_partials) sums them in a fixed order into the flat
+//   second pass (reduce_partials, common.cuh) sums them in a fixed order into the flat
 //   [fan_out, fan_in] layout. The batch tail is masked, never padded.
 #include "mlp_bwd_common.cuh"
 
@@ -101,5 +101,5 @@ extern "C" int tcnn_mlp_bwd(const void* x, const void* gy, const void* weights, 
                                                  static_cast<bf16*>(gx), part, B, n_tiles);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  return launch_reduce(part, grid, L.n_weights(), static_cast<float*>(gw), s);
+  return launch_reduce(part, grid, L.n_weights(), L.n_weights(), static_cast<float*>(gw), s);
 }

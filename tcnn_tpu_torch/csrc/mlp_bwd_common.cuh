@@ -10,6 +10,8 @@
 //       lo: nt x ldg bf16, ldg = max(in_w, width, out_w) + 8
 //   [scratch: nt/16 x 16x16 f32]
 //   [K9 only: nt x L*D f32, the dL/dx partials of each (row, level)]
+//   [K6 only: the f32 table gradient of the leading dense levels the block
+//       keeps private (`priv` floats), added to with shared atomics]
 // Row pitches are multiples of 8 elements, so every 16-row fragment starts
 // 32-byte aligned.
 //
@@ -28,8 +30,9 @@
 // again. Blocks are persistent (about one per SM slot, each walking many
 // tiles), and each keeps its weight-gradient partial in its own slice of a
 // global f32 scratch (L2-resident), loaded into the wmma accumulators and
-// stored back once per tile; reduce_partials sums the slices afterwards, in
-// a fixed order.
+// stored back once per tile; reduce_partials (common.cuh) sums the slices
+// afterwards, in a fixed order. K6's slice also carries its private levels'
+// table gradient after the weights' (n_partial floats a block).
 #pragma once
 
 #include "mlp_common.cuh"
@@ -38,7 +41,8 @@ namespace tcnn {
 
 struct BwdLayout {
   int nt, in_w, width, n_hidden, out_w, split;
-  int ig;  // K9: f32 dL/dx partials per row (L * D), after the scratch; 0 otherwise
+  int ig;    // K9: f32 dL/dx partials per row (L * D), after the scratch; 0 otherwise
+  int priv;  // K6: f32 private table-gradient floats, after the rest; 0 otherwise
 
   __host__ __device__ int ld_h(int i) const {
     return (i == 0 ? in_w : i == n_hidden + 1 ? out_w : width) + 8;
@@ -63,7 +67,12 @@ struct BwdLayout {
   __host__ __device__ size_t g_bytes() const { return (size_t)(split ? 2 : 1) * nt * ld_g() * 2; }
   __host__ __device__ size_t g_offset(int k) const { return h_offset(n_hidden + 2) + k * g_bytes(); }
   __host__ __device__ size_t ig_offset() const { return g_offset(2) + (size_t)(nt / 16) * 256 * 4; }
-  __host__ __device__ size_t bytes() const { return ig_offset() + (size_t)nt * ig * 4; }
+  __host__ __device__ size_t priv_offset() const { return ig_offset() + (size_t)nt * ig * 4; }
+  __host__ __device__ size_t bytes() const { return priv_offset() + (size_t)priv * 4; }
+  // floats of a block's partial: the weights' gradient, then the private
+  // levels', padded to 8 floats so that every slice stays 32-byte aligned
+  // for wmma
+  __host__ __device__ size_t n_partial() const { return n_weights() + ((size_t)priv + 7) / 8 * 8; }
 };
 
 struct GTile {
@@ -203,19 +212,6 @@ __device__ float* mlp_backward_chain(const MlpArgs& m, const BwdLayout& L, unsig
   return fin;
 }
 
-// out[j] = sum over the used blocks' partials of partial[b][j], in block
-// order (deterministic). Static: each kernel source that includes this
-// header gets its own copy.
-static __global__ void reduce_partials(const float* __restrict__ partials, int n_blocks, size_t n,
-                                float* __restrict__ out) {
-  for (size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < n_blocks; ++b) s += partials[(size_t)b * n + j];
-    out[j] = s;
-  }
-}
-
 // Opt the kernel in to the layout's shared memory on `device`.
 template <class Kernel>
 static cudaError_t opt_in_smem(Kernel kernel, const BwdLayout& L, int device) {
@@ -231,29 +227,11 @@ static cudaError_t opt_in_smem(Kernel kernel, const BwdLayout& L, int device) {
 // fits.
 template <class Kernel>
 static int persistent_grid(Kernel kernel, const BwdLayout& L, int device, long B) {
-  cudaError_t e = opt_in_smem(kernel, L, device);
-  if (e != cudaSuccess) return -(int)e;
-  int per_sm = 0, n_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, L.nt * 2, L.bytes());
-  if (e != cudaSuccess) return -(int)e;
-  e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return -(int)e;
-  const long n_tiles = (B + L.nt - 1) / L.nt;
-  const long g = (long)per_sm * n_sm;
-  return (int)(g < n_tiles ? g : n_tiles);
+  return resident_grid(kernel, L.nt * 2, L.bytes(), device, (B + L.nt - 1) / L.nt);
 }
 
 static bool valid_layout(const BwdLayout& L) {
-  return L.nt >= 16 && L.nt <= 128 && L.nt % 16 == 0 && L.n_hidden >= 1;
-}
-
-static int launch_reduce(const float* partials, int n_blocks, size_t n, float* out,
-                         cudaStream_t stream) {
-  const int threads = 256;
-  const size_t blocks = (n + threads - 1) / threads;
-  reduce_partials<<<(unsigned)(blocks < 1024 ? blocks : 1024), threads, 0, stream>>>(
-      partials, n_blocks, n, out);
-  return (int)cudaGetLastError();
+  return L.nt >= 16 && L.nt <= 128 && L.nt % 16 == 0 && L.n_hidden >= 1 && L.priv >= 0;
 }
 
 }  // namespace tcnn

@@ -14,7 +14,9 @@ The TPU kernels gather and scatter through one-hot matmuls against a
 128-lane packed table because the TPU has no per-lane random access; on
 Hopper each thread owns one (sample, level), reads its 2^D corner rows
 directly from a bf16 [total_rows, F] table that stays in L2, and scatters
-table gradients with f32 atomics. Only the bf16 rounding carries over from
+table gradients with f32 atomics: K4 (and K6, ``train_kernel``) sum the
+leading dense levels in shared memory (`private_levels`) and add the rest
+with one vector atomic per corner. Only the bf16 rounding carries over from
 the TPU layout; the public column order is the JAX package's (level-major,
 feature-minor). Every kernel and twin visits the corners through one walker
 (`_corners` here, ``grid_corners`` in ``csrc/grid_common.cuh``).
@@ -53,6 +55,7 @@ import torch
 from ...common import GridType, HashType, InterpolationType, smoothstep
 from .. import pcg32
 from . import _build
+from .mlp_kernel import persistent_grid
 
 #: Launches of K1, K4, K7 and K8 since the last reset (counted where each
 #: kernel launches).
@@ -532,6 +535,33 @@ def _check_gy(plan: GridPlan, x, gy) -> int:
     return B
 
 
+#: Shared memory a K4 block keeps its private levels' gradient in: half of
+#: an SM's 233,472 bytes less the 1 KB each block reserves, so that two
+#: blocks of 512 threads share an SM (config_hash: levels 0-4, 93,824
+#: bytes; the reference default T=2^19: levels 0-2, 43,008 bytes). Chosen
+#: by scripts/time_k4_budgets.py (H100 80GB HBM3, 700 W, B = 2^18): at
+#: config_hash 0.206 ms, against 0.233 with one block an SM (levels 0-5)
+#: and 0.396 with no private level; the reference default would prefer
+#: one block an SM (0.296 ms against 0.326).
+K4_PRIVATE_BYTES = 115_712
+
+
+def private_levels(plan: GridPlan, n_active: int, spare_bytes: int) -> tuple:
+    """(P, rows): the leading levels 0..P-1 whose table gradient K4 and K6
+    sum in a block's shared memory, and the table rows they span (level 0
+    starts at row 0, so they are rows 0..rows-1). The prefix stops at the
+    first level that hashes (its ~32 adds a row gain nothing from it), that
+    is past `n_active` (such levels get no gradient), or whose rows would
+    take the f32 gradient (rows x F x 4 bytes) past `spare_bytes`."""
+    rows = 0
+    for level in range(min(n_active, plan.n_levels)):
+        end = rows + plan.sizes[level]
+        if plan.use_hash[level] or plan.offsets[level] != rows or end * plan.f * 4 > spare_bytes:
+            return level, rows
+        rows = end
+    return min(n_active, plan.n_levels), rows
+
+
 def grid_backward(plan: GridPlan, x, gy, n_active: int):
     """Table gradient f32 [total_rows, F] of the encoding at `x` [B, D] f32
     for the cotangent `gy` [B, >= L*F] (bf16 on a CUDA tensor; its leading
@@ -541,17 +571,23 @@ def grid_backward(plan: GridPlan, x, gy, n_active: int):
     if x.device.type == "cpu":
         return _grid_backward_plain(plan, x, gy, n_active)
     global BWD_LAUNCHES
-    out = torch.zeros((plan.total_rows, plan.f), dtype=torch.float32, device=x.device)
+    dev = x.device
+    out = torch.zeros((plan.total_rows, plan.f), dtype=torch.float32, device=dev)
     if B == 0 or n_active == 0:
         return out
-    level_i32, level_f32 = plan.device_consts(x.device)
+    n_private, rows = private_levels(plan, n_active, K4_PRIVATE_BYTES)
+    priv = rows * plan.f
+    grid = persistent_grid("tcnn_grid_bwd_grid", (B, plan.f, priv), dev)
+    partials = torch.empty(grid * priv, dtype=torch.float32, device=dev)
+    level_i32, level_f32 = plan.device_consts(dev)
     fn = _build.function("tcnn_grid_bwd", _GRID_BWD_ARGS)
     _build.check(
         fn(
             x.data_ptr(), gy.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
-            out.data_ptr(), B, plan.d, plan.f, plan.n_levels, int(n_active),
-            INTERP_CODES[plan.interpolation], *plan.c_hash(), int(plan.stochastic),
-            gy.shape[1], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+            out.data_ptr(), partials.data_ptr(), B, plan.d, plan.f, plan.n_levels,
+            int(n_active), INTERP_CODES[plan.interpolation], *plan.c_hash(),
+            int(plan.stochastic), n_private, priv, grid, gy.shape[1], dev.index,
+            torch.cuda.current_stream(dev).cuda_stream,
         ),
         "tcnn_grid_bwd",
     )
@@ -657,10 +693,10 @@ _GRID_BWD_BWD_ARGS = (
 
 
 _GRID_BWD_ARGS = (
-    [ctypes.c_void_p] * 5
+    [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 6
     + HASH_ARGS
-    + [ctypes.c_int] * 3
+    + [ctypes.c_int] * 6
     + [ctypes.c_void_p]
 )
 

@@ -165,15 +165,18 @@ def mlp_forward(dims: MlpDims, weights, x):
 _MLP_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def bwd_smem_bytes(dims: MlpDims, nt: int, split: bool, ig_floats: int = 0) -> int:
+def bwd_smem_bytes(dims: MlpDims, nt: int, split: bool, ig_floats: int = 0,
+                   priv_floats: int = 0) -> int:
     """Shared memory of a K5 (split=False), K6 or K9 (split=True) block of
     nt rows, for the gate that picks the tile before any device is asked
     (the launch takes its bytes from csrc/mlp_bwd_common.cuh's BwdLayout,
     the same count, and opts in to them there): the weights, every layer's
     kept bf16 output (row pitch = width + 8), two gradient tiles (bf16, and
     a second bf16 for the low half of the split f32 gradient in K6/K9) of
-    pitch max(in_w, width, out_w) + 8, a 16x16 f32 scratch per warp, and
-    K9's `ig_floats` f32 per row (its dL/dx partials, L * D)."""
+    pitch max(in_w, width, out_w) + 8, a 16x16 f32 scratch per warp, K9's
+    `ig_floats` f32 per row (its dL/dx partials, L * D) and K6's
+    `priv_floats` f32 of private table gradient
+    (`train_kernel.train_layout`)."""
     ld_g = max(dims.in_w, dims.width, dims.out_w) + 8
     kept = (dims.in_w + 8) + dims.n_hidden * (dims.width + 8) + (dims.out_w + 8)
     return (
@@ -182,6 +185,7 @@ def bwd_smem_bytes(dims: MlpDims, nt: int, split: bool, ig_floats: int = 0) -> i
         + 2 * (2 if split else 1) * 2 * nt * ld_g
         + (nt // 16) * 256 * 4
         + 4 * nt * ig_floats
+        + 4 * priv_floats
     )
 
 
@@ -195,11 +199,12 @@ def bwd_tile(dims: MlpDims, split: bool, ig_floats: int = 0) -> int:
 
 
 def persistent_grid(entry: str, args, device) -> int:
-    """The persistent grid of K5 (`tcnn_mlp_bwd_grid`) or K6
-    (`tcnn_fused_train_grid`), as the C side chooses it from the kernel's
+    """The persistent grid of K4 (`tcnn_grid_bwd_grid`), K5
+    (`tcnn_mlp_bwd_grid`), K6 (`tcnn_fused_train_grid`) or K9
+    (`tcnn_fused_ig_grid`), as the C side chooses it from the kernel's
     occupancy: the blocks resident at once, never more than the tiles. The
-    wrapper sizes the per-block weight-gradient scratch by it and passes it
-    to the launch."""
+    wrapper sizes the per-block partials by it and passes it to the
+    launch."""
     fn = _build.function(entry, [ctypes.c_int] * (len(args) + 1))
     grid = fn(*args, device.index)
     if grid < 0:

@@ -17,7 +17,9 @@ K6 replaces ``_kernel_vt`` (reached through ``fused_train_grads`` from
 ``Trainer.loss_and_grad_fn``): per tile, K1's gather, the MLP forward
 keeping every layer's output, the loss value and gradient (or an external
 dL/doutput), the MLP backward and K4's scatter, with the encoding and the
-hidden activations kept in shared memory. `supported` is its gate. Its
+hidden activations kept in shared memory; the scatter sums the leading
+dense levels in the block's spare shared memory (`train_layout`) and adds
+the rest with one vector atomic per corner. `supported` is its gate. Its
 stochastic and Rng options replace ``_kernel`` (train_kernel.py:968), where
 the JAX package sends those plans (``_resolve_variant``), and K3's Rng
 option replaces ``_infer_kernel``'s Rng plans (:1331).
@@ -54,12 +56,15 @@ from .grid_kernel import (
     _grid_encode_plain,
     _grid_input_grad_plain,
     no_third_order,
+    private_levels,
 )
 from .mlp_kernel import (
+    SMEM_OPTIN,
     MlpDims,
     _forward_keep,
     _mlp_forward_plain,
     _weights,
+    bwd_smem_bytes,
     bwd_tile,
     check_mlp_inputs,
     persistent_grid,
@@ -199,6 +204,22 @@ def supported(model, loss, perturbation_sigma: float = 0.0) -> bool:
     return bwd_tile(model.network.dims, split=True) > 0
 
 
+def train_layout(model) -> tuple:
+    """(nt, P, priv) of K6 for a model that `supported` takes: the rows of
+    a block's tile (`mlp_kernel.bwd_tile`), then the leading dense levels
+    0..P-1 whose table gradient the block sums in the shared memory that
+    tile leaves spare (`grid_kernel.private_levels`), and their f32 count
+    priv = rows x F, which the launch adds to its layout's bytes; (0, 0, 0)
+    when no tile fits."""
+    plan, dims = fused_plan_for(model), model.network.dims
+    nt = bwd_tile(dims, split=True)
+    if nt == 0:
+        return 0, 0, 0
+    n_private, rows = private_levels(plan, model.encoding.active_levels(),
+                                     SMEM_OPTIN - bwd_smem_bytes(dims, nt, split=True))
+    return nt, n_private, rows * plan.f
+
+
 def _fused_train_grads_plain(plan, dims, n_active, table, weights, loss, x, targets,
                              loss_scale, pdf, noise, ext_dl):
     """What K6 computes, in plain PyTorch on any device: (loss sum, f32
@@ -271,7 +292,7 @@ def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noi
     for t in (targets, pdf, noise):
         if t is not None and not t.is_contiguous():
             raise ValueError("targets, pdf and noise must be contiguous")
-    nt = bwd_tile(dims, split=True)
+    nt, n_private, priv = train_layout(model)
     if nt == 0:
         raise ValueError(f"{model!r} does not fit the fused train kernel's shared memory")
     global TRAIN_LAUNCHES
@@ -280,8 +301,12 @@ def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noi
     grads = torch.zeros(model.n_params, dtype=torch.float32, device=dev)
     if B == 0:
         return loss_sum, grads
-    grid = persistent_grid("tcnn_fused_train_grid", (B, plan.f, nt, *dims.c_args()[:4]), dev)
-    partials = torch.empty(grid * dims.n_weights, dtype=torch.float32, device=dev)
+    grid = persistent_grid("tcnn_fused_train_grid", (B, plan.f, priv, nt, *dims.c_args()[:4]),
+                           dev)
+    # a block's partial: the weights' gradient, then the private levels',
+    # padded to 8 floats (csrc/mlp_bwd_common.cuh: BwdLayout::n_partial)
+    partials = torch.empty(grid * (dims.n_weights + -(-priv // 8) * 8), dtype=torch.float32,
+                           device=dev)
     level_i32, level_f32 = plan.device_consts(dev)
     fn = _build.function("tcnn_fused_train", _FUSED_TRAIN_ARGS)
     _build.check(
@@ -292,7 +317,7 @@ def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noi
             grads.data_ptr(), partials.data_ptr(), loss_sum.data_ptr(),
             grid, B, plan.d, plan.f, plan.n_levels, int(n_active),
             INTERP_CODES[plan.interpolation], *plan.c_hash(), int(plan.stochastic),
-            nt, *dims.c_args(),
+            n_private, priv, nt, *dims.c_args(),
             0 if ext_dl else loss.kernel_code, width, float(loss_scale),
             dev.index, torch.cuda.current_stream(dev).cuda_stream,
         ),
@@ -306,7 +331,7 @@ _FUSED_TRAIN_ARGS = (
     [ctypes.c_void_p] * 11
     + [ctypes.c_int] * 7
     + HASH_ARGS
-    + [ctypes.c_int] * 10
+    + [ctypes.c_int] * 12
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 

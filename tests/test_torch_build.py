@@ -44,8 +44,9 @@ def test_argtypes_match_the_c_entry_points():
     assert sigs["tcnn_ext_lookup"] == ext_kernel._EXT_LOOKUP_ARGS
     assert sigs["tcnn_ext_lookup_bwd"] == ext_kernel._EXT_LOOKUP_BWD_ARGS
     # the persistent grids, called as mlp_kernel.persistent_grid calls them
+    assert sigs["tcnn_grid_bwd_grid"] == [ctypes.c_int] * 4
     assert sigs["tcnn_mlp_bwd_grid"] == [ctypes.c_int] * 7
-    assert sigs["tcnn_fused_train_grid"] == [ctypes.c_int] * 8
+    assert sigs["tcnn_fused_train_grid"] == [ctypes.c_int] * 9
     assert sigs["tcnn_fused_ig_grid"] == [ctypes.c_int] * 9
 
 

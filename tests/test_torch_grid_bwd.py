@@ -73,10 +73,12 @@ def _jax_bwd(je, x, gy):
     return np.asarray(g)
 
 
-# every grid type with every interpolation; D in {2, 3} and F in {1, 2, 4}
-# each run (a covering set keeps the interpret-mode kernels quick)
+# every grid type with every interpolation; D in {2, 3} and F in {1, 2, 4,
+# 8} each run (a covering set keeps the interpret-mode kernels quick; F = 8
+# is K4's two-float4 row and its private levels' 32-byte rows)
 _CASES = [
     ("Hash", "Linear", 2, 2),
+    ("Hash", "Linear", 2, 8),
     ("Hash", "Smoothstep", 3, 1),
     ("Hash", "Nearest", 2, 4),
     ("Dense", "Linear", 3, 4),
