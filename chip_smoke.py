@@ -12,10 +12,11 @@ Phases, each printing JSON lines:
   3. each kernel against its plain PyTorch twin on the card at config_hash
      shapes, B = 2^18, 2^18 - 37 and 1: K1 grid forward, K2 fused MLP
      forward (also at width 128 with 5 hidden layers), K3 fused inference,
-     K4 grid backward, K5 fused MLP backward (also 128x5), K6 fused train
-     step (also with a pdf, output noise and an external dL/doutput), each
-     gradient bound beside a control of lower precision that it must
-     reject; then, at B = 2^16 - 37, K6 on all nine losses and K4, K5 and K6
+     K4 grid backward, K5 fused MLP backward (also 128x5; its gW and gx
+     bit-equal between two launches on the same inputs, wherever it is
+     checked), K6 fused train step (also with a pdf, output noise and an
+     external dL/doutput), each gradient bound beside a control of lower
+     precision that it must reject; then, at B = 2^16 - 37, K6 on all nine losses and K4, K5 and K6
      on every activation but Sine, Smoothstep and Nearest interpolation and
      max_level; and K4 and K6 at 8 features per level (B = 2^18, 2^18 - 37),
      each beside its control;
@@ -45,8 +46,12 @@ Phases, each printing JSON lines:
      K3, K9, K1, K7, K8 and K1, K2, K5, K4 on every step), the loss falling
      and the z = 0.5 slice error under limits set before the first run; the
      fused route's eikonal gradient against the composed route's;
-  9. times of K7, K8, K9 and their twins at B = 2^16 and 2^18, and of one
-     SDF training step;
+  9. times of K7, K8, K9 and their twins at the eikonal term's 1024
+     points (the shape the SDF step launches), B = 2^16 and 2^18, and of one
+     SDF training step; K3 and K5 timed, with their bounds, at their paths'
+     other shapes: K3 at B = 2^20 (the render's chunk) and at the SDF's
+     1024 eikonal points, K5 at the SDF's data term (B = 2^16) and at 128 x
+     5 (B = 2^18);
  10. the PPNG kernels against their twins at the factory defaults of
      PPNG1/2/3 (Q 64, 6 frequencies, 4 features, rank 4), B = 2^17, and at
      the sample's configs (samples/learn_a_sdf.py:38-44), B = 2^16, whose
@@ -56,7 +61,8 @@ Phases, each printing JSON lines:
      ext_scatter, K12 ext_lookup and K13 ext_lookup_bwd (PPNG3; table and
      dots halves), each beside a control its bound must reject; K2 and K5
      at the sample models' MLP input widths (48 and 16); times of each
-     kernel, its twin and its one-call PyTorch yardstick at the defaults;
+     kernel, its twin and its one-call PyTorch yardstick at the defaults
+     and at the sample's configs;
  11. the PPNG SDF slice: samples/learn_a_sdf.py's PPNG1, PPNG2 and PPNG3
      configs train SDF_STEPS eikonal steps each (counters: K10 K11 for
      PPNG1/2, K12 K13 for PPNG3, K2 K5 for the data term, no grid kernel),
@@ -98,7 +104,8 @@ Phases, each printing JSON lines:
      composed one, and times.
 Then a line with every kernel and option (its launches on the main path,
 error against its twin, time, twin's time, bound, what bounds it and its
-yardstick's time), the `nvidia-smi` line, and as the last line
+yardstick's time; K3's and K5's entries, redesigned for Hopper, say so),
+the `nvidia-smi` line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; it also exits non-zero when no GPU is present.
 """
@@ -598,13 +605,19 @@ def check_train_step(name, net, loss, params, x, targets, loss_scale, bounds, co
 
 
 def check_mlp_bwd(name, dims, weights, enc, gout, bounds, control_too=False):
-    """K5 against its twin: gW and gx within `bounds` ({"gW": .., "gx": ..});
-    with `control_too`, the twin's gW rounded to bf16 must break the gW
-    bound. Returns the max abs error."""
+    """K5 against its twin: gW and gx within `bounds` ({"gW": .., "gx": ..}),
+    and bit-equal between two launches (K5 sums its weight gradient in a
+    fixed order); with `control_too`, the twin's gW rounded to bf16 must
+    break the gW bound. Returns the max abs error."""
     import torch
     from tcnn_tpu_torch.ops.cuda import mlp_kernel
 
     gw, gx = mlp_kernel.mlp_backward(dims, weights, enc, gout)
+    gw2, gx2 = mlp_kernel.mlp_backward(dims, weights, enc, gout)
+    torch.cuda.synchronize()
+    same = torch.equal(gw, gw2) and torch.equal(gx, gx2)
+    emit({"phase": "compare", "name": name + ", two launches bit-equal", "ok": same})
+    check(same, f"{name}: two launches on the same inputs differ")
     pw, px = mlp_kernel._mlp_backward_plain(dims, weights, enc, gout)
     err = max(compare_norm(name + " gW", gw, pw, bounds["gW"]),
               compare_norm(name + " gx", gx.float(), px.float(), bounds["gx"]))
@@ -915,16 +928,16 @@ def check_ppng_variant(tag, net, params, x, errs, timed=False):
 
 def check_ppng_kernels(gen, dev, smi, errs):
     """Phase 10: for each PPNG variant, K10-K13 against their twins with
-    their controls at the factory defaults (B_PPNG, timed), then at the
-    sample's config (B_SDF), whose kernel instantiations phase 11 launches,
-    with K2 and K5 at its MLP input width. Adds to `errs`; returns
+    their controls at the factory defaults (B_PPNG), then at the sample's
+    config (B_SDF), whose kernel instantiations phase 11 launches, with K2
+    and K5 at its MLP input width; each timed. Adds to `errs`; returns
     ({(kernel, variant): (ms, twin ms, yardstick ms)}, {(kernel, variant):
     (bound ms, bound_by)})."""
     import torch
     from tcnn_tpu_torch.ops.cuda import mlp_kernel
     from tcnn_tpu_torch.samples import learn_a_sdf as sdf
 
-    ppng_ms, ppng_bounds = {}, {}
+    ppng_ms, ppng_bounds, sample_ms = {}, {}, {}
     for k in ("K10", "K11", "K12", "K13"):
         errs[k] = 0.0
     for variant in PPNG_VARIANTS:
@@ -938,7 +951,9 @@ def check_ppng_kernels(gen, dev, smi, errs):
         pm = ppng_model(variant, SEED + 12, gen, dev, encoding=dict(sdf.ENCODINGS[variant]))
         pnet, pparams = pm.network, pm.trainer.params
         x = torch.rand(B_SDF, 3, generator=gen).to(dev)
-        check_ppng_variant(f"{variant} sample B={B_SDF}", pnet, pparams, x, errs)
+        ms, bounds = check_ppng_variant(f"{variant} sample B={B_SDF}", pnet, pparams, x, errs,
+                                        timed=True)
+        sample_ms.update({(k, variant): (v, bounds[k]) for k, v in ms.items()})
         # K2 and K5 at the MLP input width the sample config gives them
         pdims = pnet.network.dims
         net_p, enc_p = pnet.split_params(pparams)
@@ -956,6 +971,9 @@ def check_ppng_kernels(gen, dev, smi, errs):
           "ms": {f"{k} {v}": {"kernel": t[0], "plain": t[1], "library": t[2],
                              "bound": ppng_bounds[(k, v)][0]}
                  for (k, v), t in ppng_ms.items()}})
+    emit({"phase": "times ppng sample", "card": smi, "B": B_SDF,
+          "ms": {f"{k} {v}": {"kernel": t[0], "plain": t[1], "library": t[2], "bound": b[0]}
+                 for (k, v), (t, b) in sample_ms.items()}})
     return ppng_ms, ppng_bounds
 
 
@@ -1205,6 +1223,52 @@ def time_ig_kernels(net, params, x, plain_iters=3):
                            + x.numel() * 4, f32=grid_ops(B, plan, "fwd") + grid_ops(B, plan, "ig"),
                            bf16=6 * B * prep.dims.n_weights),
     }
+    return ms, bounds
+
+
+def k5_bound(dims, weights, enc, gy):
+    """K5's (bound ms, bound_by): x, gy and the weights read once, gW (f32)
+    and gx written once; the recomputed forward, dgrad and wgrad products."""
+    B = enc.shape[0]
+    return kernel_bound(bytes_of(enc, gy, weights) + dims.n_weights * 4 + B * dims.in_w * 2,
+                        bf16=6 * B * dims.n_weights)
+
+
+def time_path_shapes(net, params, snet, sparams, gen, w128):
+    """K3 and K5 at their paths' other shapes, each (ms, twin ms, None)
+    beside its (bound ms, bound_by): K3 at B = 2^20 on `net` (the image
+    sample's render chunk) and at the eikonal term's 1024 points on the SDF
+    model `snet`; K5 at the SDF's data term (B = 2^16) and at 128 x 5 (the
+    weights `w128`, B = 2^18)."""
+    import torch
+    from tcnn_tpu_torch.common import Activation
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    dev = params.device
+    ms, bounds = {}, {}
+    for key, model, p, B, d in (("K3 B=2^20", net, params, 1 << 20, 2),
+                                (f"K3 SDF B={sdf.N_EIKONAL}", snet, sparams, sdf.N_EIKONAL, 3)):
+        prep = train_kernel.prepare_forward(model, p)
+        x = torch.rand(B, d, generator=gen).to(dev)
+        ms[key] = time_pair(lambda: train_kernel.fused_forward_prepared(prep, x),
+                            lambda: train_kernel._fused_forward_plain(prep, x), iters=20)
+        bounds[key] = kernel_bound(bytes_of(x, prep.table, prep.weights) + B * prep.dims.out_w * 2,
+                                   f32=grid_ops(B, prep.plan, "fwd"),
+                                   bf16=2 * B * prep.dims.n_weights)
+    dims128 = mlp_kernel.MlpDims(net.encoding.padded_output_width, 128, 5, 16, Activation.ReLU,
+                                 Activation.NONE)
+    sprep = train_kernel.prepare_forward(snet, sparams)
+    for key, model, prep, dims, weights, B, d in (
+            ("K5 SDF B=2^16", snet, sprep, sprep.dims, sprep.weights, B_SDF, 3),
+            ("K5 128x5", net, train_kernel.prepare_forward(net, params), dims128, w128, B_MAIN, 2)):
+        x = torch.rand(B, d, generator=gen).to(dev)
+        enc = grid_kernel.grid_encode(prep.plan, prep.table, x, dims.in_w, prep.plan.n_levels)
+        gy = torch.randn(B, dims.out_w, generator=gen).to(torch.bfloat16).to(dev)
+        ms[key] = time_pair(lambda: mlp_kernel.mlp_backward(dims, weights, enc, gy),
+                            lambda: mlp_kernel._mlp_backward_plain(dims, weights, enc, gy),
+                            iters=20)
+        bounds[key] = k5_bound(dims, weights, enc, gy)
     return ms, bounds
 
 
@@ -2138,8 +2202,7 @@ def main() -> int:
         **grid_bounds(net, prep, x, t, gy_enc),
         "K2": kernel_bound(bytes_of(enc, prep.weights) + B_MAIN * dims.out_w * 2,
                            bf16=2 * B_MAIN * dims.n_weights),
-        "K5": kernel_bound(bytes_of(enc, gy_out, prep.weights) + dims.n_weights * 4
-                           + B_MAIN * dims.in_w * 2, bf16=6 * B_MAIN * dims.n_weights),
+        "K5": k5_bound(dims, prep.weights, enc, gy_out),
     }
 
     # 7. the input-gradient kernels against their twins at the SDF config
@@ -2216,15 +2279,22 @@ def main() -> int:
     sm.trainer.set_params(random_params(sm.trainer, gen))
     snet, sparams = sm.network, sm.trainer.params
     ig_ms, ig_bounds = {}, {}
-    for B in (B_SDF, B_MAIN):
-        ig_ms[B], ig_bounds[B] = time_ig_kernels(snet, sparams,
-                                                 torch.rand(B, 3, generator=gen).to(dev))
+    # the timings of the paths' other shapes draw from their own generator,
+    # so that every later check sees the inputs it saw before they existed
+    shape_gen = torch.Generator().manual_seed(SEED + 13)
+    for B in (sdf.N_EIKONAL, B_SDF, B_MAIN):
+        x = torch.rand(B, 3, generator=shape_gen if B == sdf.N_EIKONAL else gen).to(dev)
+        ig_ms[B], ig_bounds[B] = time_ig_kernels(snet, sparams, x)
     xs = torch.rand(B_SDF, 3, generator=gen).to(dev)
     sdf_step_ms = cuda_ms(lambda: sdf.train_step(sm.trainer, xs), 20)
     emit({"phase": "times ig", "card": smi,
-          "ms": {f"{k} B={b}": {"kernel": v[0], "plain": v[1]}
+          "ms": {f"{k} B={b}": {"kernel": v[0], "plain": v[1], "bound": ig_bounds[b][k][0]}
                  for b in ig_ms for k, v in ig_ms[b].items()},
           "sdf_train_step_ms": sdf_step_ms, "sdf_steps_per_s": 1e3 / sdf_step_ms})
+    shape_ms, shape_bounds = time_path_shapes(net, tr.params, snet, sparams, shape_gen, w128)
+    emit({"phase": "times path shapes", "card": smi,
+          "ms": {k: {"kernel": v[0], "plain": v[1], "bound": shape_bounds[k][0],
+                     "bound_by": shape_bounds[k][1]} for k, v in shape_ms.items()}})
     ms.update(ig_ms[B_MAIN])
     bounds.update(ig_bounds[B_MAIN])
 
@@ -2338,6 +2408,13 @@ def main() -> int:
     for k, replaces in binned.items():
         entries.append((f"{k} T=2^19", f"{sources[k][0]} (T=2^19)", sources[k][1], replaces,
                         ref_launches[k], ref_errs[k], ref_ms[k], ref_bounds[k]))
+    # K3 and K5, redesigned for Hopper (mma.sync layers in registers,
+    # persistent blocks, K5's weight gradient in registers across tiles)
+    redesigned = {"K3": "redesigned for Hopper", "K5": "redesigned for Hopper"}
+    entries = [(key, (name[:-1] + "; " + redesigned[key.split()[0]] + ")" if name.endswith(")")
+                      else f"{name} ({redesigned[key.split()[0]]})")
+                if key.split()[0] in redesigned else name, *rest)
+               for key, name, *rest in entries]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": n, "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": bound[0],

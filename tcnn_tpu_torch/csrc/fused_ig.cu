@@ -27,7 +27,7 @@
 extern "C" int tcnn_fused_ig_grid(int B, int F, int ig, int nt, int in_w, int width, int n_hidden,
                                   int out_w, int device) {
   using namespace tcnn;
-  const BwdLayout L{nt, in_w, width, n_hidden, out_w, 1, ig};
+  const BwdLayout L{nt, in_w, width, n_hidden, out_w, ig};
   if (!valid_layout(L) || ig < 1) return -(int)cudaErrorInvalidValue;
   switch (F) {
     case 1: return persistent_grid(fused_train_kernel<1, true>, L, device, B);
@@ -49,7 +49,7 @@ extern "C" int tcnn_fused_ig(const void* x, const void* table, const void* level
                              unsigned f3, int hash, int nt, int in_w, int width, int n_hidden, int out_w,
                              int act, int out_act, int device, void* stream) {
   using namespace tcnn;
-  const BwdLayout lay{nt, in_w, width, n_hidden, out_w, 1, L * D};
+  const BwdLayout lay{nt, in_w, width, n_hidden, out_w, L * D};
   if (!valid_layout(lay) || grid < 1 || in_w < L * F || interp == INTERP_NEAREST)
     return (int)cudaErrorInvalidValue;
   GridArgs g{static_cast<const float*>(x), static_cast<const bf16*>(table),

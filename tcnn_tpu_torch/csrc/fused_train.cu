@@ -51,7 +51,7 @@
 extern "C" int tcnn_fused_train_grid(int B, int F, int priv, int nt, int in_w, int width,
                                      int n_hidden, int out_w, int device) {
   using namespace tcnn;
-  const BwdLayout L{nt, in_w, width, n_hidden, out_w, 1, 0, priv};
+  const BwdLayout L{nt, in_w, width, n_hidden, out_w, 0, priv};
   if (!valid_layout(L)) return -(int)cudaErrorInvalidValue;
   switch (F) {
     case 1: return persistent_grid(fused_train_kernel<1, false>, L, device, B);
@@ -75,7 +75,7 @@ extern "C" int tcnn_fused_train(const void* x, const void* table, const void* le
                                 int out_act, int loss_code, int dims, float loss_scale, int device,
                                 void* stream) {
   using namespace tcnn;
-  const BwdLayout lay{nt, in_w, width, n_hidden, out_w, 1, 0, priv};
+  const BwdLayout lay{nt, in_w, width, n_hidden, out_w, 0, priv};
   if (!valid_layout(lay) || grid < 1 || in_w < L * F || n_active > L || n_private > n_active ||
       n_private < 0 || priv % F != 0)
     return (int)cudaErrorInvalidValue;

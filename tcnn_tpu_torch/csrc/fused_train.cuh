@@ -134,13 +134,13 @@ __global__ void fused_train_kernel(GridArgs g, MlpArgs m, BwdLayout L, LossArgs 
           gv = vg.y * la.loss_scale;
         }
       }
-      store_g<true>(g0, r * ldg + c,
+      store_g(g0, r * ldg + c,
                     act_bwd_out(gv, __bfloat162float(hout[r * ldo + c]), m.out_act));
     }
     __syncthreads();
     // 4. backward: weight gradients into the partial, the encoding gradient
     //    (f32) into `fin`
-    const float* fin = mlp_backward_chain<true>(
+    const float* fin = mlp_backward_chain(
         m, L, smem, sw, partial, first, sc,
         [&](float* f, int r, int c, float v) { f[r * ldg + c] = v; });
     // 5. scatter from the encoding gradient (the next tile's first barrier

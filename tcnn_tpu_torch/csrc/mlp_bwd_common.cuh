@@ -1,13 +1,13 @@
-// The fully fused MLP backward, shared by K5 (mlp_bwd.cu, SPLIT = false), K6
-// and K9 (fused_train.cu, SPLIT = true).
+// The fully fused MLP backward of K6 and K9 (fused_train.cuh); K5 runs its
+// own on mma.sync (mlp_bwd.cu, mlp_frag.cuh).
 //
 // Shared-memory layout of a block of nt rows (nt/16 warps, 16 rows each),
 // the same bytes as ops/cuda/mlp_kernel.py:bwd_smem_bytes:
 //   [weights: all layers, flat bf16, row-major [fan_out, fan_in] per matrix]
 //   [h_0: nt x (in_w+8)][h_1..h_H: nt x (width+8)][h_out: nt x (out_w+8)]
 //       every layer's bf16 output of the recomputed forward (h_0 the input)
-//   [G_0][G_1]: two gradient tiles, each hi: nt x ldg bf16 and, when SPLIT,
-//       lo: nt x ldg bf16, ldg = max(in_w, width, out_w) + 8
+//   [G_0][G_1]: two gradient tiles, each hi: nt x ldg bf16 and lo: nt x ldg
+//       bf16, ldg = max(in_w, width, out_w) + 8
 //   [scratch: nt/16 x 16x16 f32]
 //   [K9 only: nt x L*D f32, the dL/dx partials of each (row, level)]
 //   [K6 only: the f32 table gradient of the leading dense levels the block
@@ -15,13 +15,11 @@
 // Row pitches are multiples of 8 elements, so every 16-row fragment starts
 // 32-byte aligned.
 //
-// The gradient g entering a layer is held as bf16 "hi" and, when SPLIT, the
-// bf16 "lo" = bf16(g - hi): hi + lo carries 16 significant bits, and each
-// product runs twice on the tensor cores (hi, then lo) into f32 accumulators.
-// That keeps g at about f32 precision through the chain, as the TPU's fused
-// kernel does (train_kernel.py:891-903), at bf16 tensor-core rates. Without
-// SPLIT g is rounded to bf16, as the composed TPU backward does
-// (mlp_kernel.py:91).
+// The gradient g entering a layer is held as bf16 "hi" and the bf16
+// "lo" = bf16(g - hi): hi + lo carries 16 significant bits, and each product
+// runs twice on the tensor cores (hi, then lo) into f32 accumulators. That
+// keeps g at about f32 precision through the chain, as the TPU's fused
+// kernel does (train_kernel.py:891-903), at bf16 tensor-core rates.
 //
 // Per layer i, from the last down: the weight gradient gW_i += G^T h_i (all
 // rows of the tile; its 16x16 output tiles are shared out over the warps),
@@ -40,7 +38,7 @@
 namespace tcnn {
 
 struct BwdLayout {
-  int nt, in_w, width, n_hidden, out_w, split;
+  int nt, in_w, width, n_hidden, out_w;
   int ig;    // K9: f32 dL/dx partials per row (L * D), after the scratch; 0 otherwise
   int priv;  // K6: f32 private table-gradient floats, after the rest; 0 otherwise
 
@@ -64,7 +62,7 @@ struct BwdLayout {
     for (int j = 0; j < i; ++j) off += (size_t)nt * ld_h(j) * 2;
     return off;
   }
-  __host__ __device__ size_t g_bytes() const { return (size_t)(split ? 2 : 1) * nt * ld_g() * 2; }
+  __host__ __device__ size_t g_bytes() const { return (size_t)2 * nt * ld_g() * 2; }
   __host__ __device__ size_t g_offset(int k) const { return h_offset(n_hidden + 2) + k * g_bytes(); }
   __host__ __device__ size_t ig_offset() const { return g_offset(2) + (size_t)(nt / 16) * 256 * 4; }
   __host__ __device__ size_t priv_offset() const { return ig_offset() + (size_t)nt * ig * 4; }
@@ -77,7 +75,7 @@ struct BwdLayout {
 
 struct GTile {
   bf16* hi;
-  bf16* lo;  // hi + nt * ldg when SPLIT, unused otherwise
+  bf16* lo;  // hi + nt * ldg
 };
 
 __device__ __forceinline__ GTile g_tile(unsigned char* smem, const BwdLayout& L, int k) {
@@ -89,11 +87,10 @@ __device__ __forceinline__ bf16* h_tile(unsigned char* smem, const BwdLayout& L,
   return reinterpret_cast<bf16*>(smem + L.h_offset(i));
 }
 
-template <bool SPLIT>
 __device__ __forceinline__ void store_g(const GTile& g, int idx, float v) {
   const bf16 hi = __float2bfloat16_rn(v);
   g.hi[idx] = hi;
-  if (SPLIT) g.lo[idx] = __float2bfloat16_rn(v - __bfloat162float(hi));  // v - hi is exact
+  g.lo[idx] = __float2bfloat16_rn(v - __bfloat162float(hi));  // v - hi is exact
 }
 
 // The forward chain for the warp's own rows, keeping every layer's output.
@@ -114,8 +111,7 @@ __device__ __forceinline__ void mlp_forward_keep(const MlpArgs& m, const BwdLayo
 
 // gW [fan_out, fan_in] += G^T h over the tile's nt rows, into the block's
 // f32 partial (global); `first` starts the partial from zero.
-template <bool SPLIT>
-__device__ void wgrad_layer(const GTile& g, int ldg, const bf16* h, int ld_h, int fan_out,
+static __device__ void wgrad_layer(const GTile& g, int ldg, const bf16* h, int ld_h, int fan_out,
                             int fan_in, int nt, float* partial, bool first) {
   using namespace nvcuda;
   const int warp = threadIdx.x / 32, n_warps = blockDim.x / 32;
@@ -135,17 +131,15 @@ __device__ void wgrad_layer(const GTile& g, int ldg, const bf16* h, int ld_h, in
       wmma::load_matrix_sync(b, h + r0 * ld_h + k0, ld_h);
       wmma::load_matrix_sync(a, g.hi + r0 * ldg + o0, ldg);
       wmma::mma_sync(acc, a, b, acc);
-      if (SPLIT) {
-        wmma::load_matrix_sync(a, g.lo + r0 * ldg + o0, ldg);
-        wmma::mma_sync(acc, a, b, acc);
-      }
+      wmma::load_matrix_sync(a, g.lo + r0 * ldg + o0, ldg);
+      wmma::mma_sync(acc, a, b, acc);
     }
     wmma::store_matrix_sync(dst, acc, fan_in, wmma::mem_row_major);
   }
 }
 
 // G' = G W [rows, fan_in] for the warp's own rows; epi(row, col, f32 value).
-template <bool SPLIT, class Epi>
+template <class Epi>
 __device__ void dgrad_layer(const GTile& g, int ldg, const bf16* w, int fan_out, int fan_in,
                             float* sc, Epi&& epi) {
   using namespace nvcuda;
@@ -160,10 +154,8 @@ __device__ void dgrad_layer(const GTile& g, int ldg, const bf16* w, int fan_out,
       wmma::load_matrix_sync(b, w + o0 * fan_in + k0, fan_in);
       wmma::load_matrix_sync(a, g.hi + r0 * ldg + o0, ldg);
       wmma::mma_sync(acc, a, b, acc);
-      if (SPLIT) {
-        wmma::load_matrix_sync(a, g.lo + r0 * ldg + o0, ldg);
-        wmma::mma_sync(acc, a, b, acc);
-      }
+      wmma::load_matrix_sync(a, g.lo + r0 * ldg + o0, ldg);
+      wmma::mma_sync(acc, a, b, acc);
     }
     wmma::store_matrix_sync(sc, acc, 16, wmma::mem_row_major);
     __syncwarp();
@@ -178,7 +170,7 @@ __device__ void dgrad_layer(const GTile& g, int ldg, const bf16* w, int fan_out,
 // block's slice, [n_weights] f32); the input gradient of the first layer goes
 // to last(fin, row, col, f32 value), where `fin` is a free f32 [nt, ldg]
 // view of a gradient tile. Returns `fin`; ends synchronised.
-template <bool SPLIT, class Last>
+template <class Last>
 __device__ float* mlp_backward_chain(const MlpArgs& m, const BwdLayout& L, unsigned char* smem,
                                      const bf16* w, float* partial, bool first, float* sc,
                                      Last&& last) {
@@ -189,19 +181,19 @@ __device__ float* mlp_backward_chain(const MlpArgs& m, const BwdLayout& L, unsig
     const int fan_in = i == 0 ? m.in_w : m.width;
     const int fan_out = i == m.n_hidden ? m.out_w : m.width;
     const bf16* wi = w + L.w_offset(i);
-    wgrad_layer<SPLIT>(cur, ldg, h_tile(smem, L, i), L.ld_h(i), fan_out, fan_in, L.nt,
+    wgrad_layer(cur, ldg, h_tile(smem, L, i), L.ld_h(i), fan_out, fan_in, L.nt,
                        partial + L.w_offset(i), first);
     if (i > 0) {
       const bf16* hp = h_tile(smem, L, i);  // output of layer i-1
       const int ldp = L.ld_h(i);
       const GTile out = nxt;
-      dgrad_layer<SPLIT>(cur, ldg, wi, fan_out, fan_in, sc, [&](int r, int c, float v) {
-        store_g<SPLIT>(out, r * ldg + c, act_bwd_out(v, __bfloat162float(hp[r * ldp + c]), m.act));
+      dgrad_layer(cur, ldg, wi, fan_out, fan_in, sc, [&](int r, int c, float v) {
+        store_g(out, r * ldg + c, act_bwd_out(v, __bfloat162float(hp[r * ldp + c]), m.act));
       });
     } else {
       fin = reinterpret_cast<float*>(nxt.hi);
       float* f = fin;
-      dgrad_layer<SPLIT>(cur, ldg, wi, fan_out, fan_in, sc,
+      dgrad_layer(cur, ldg, wi, fan_out, fan_in, sc,
                          [&](int r, int c, float v) { last(f, r, c, v); });
     }
     __syncthreads();

@@ -16,7 +16,11 @@ K5 recomputes the forward chain keeping every layer's bf16 output, then
 runs the dgrad chain as ``mlp_kernel.py:86-106`` does: g = act'(g) from
 the kept output, rounded to bf16, gW += h^T g in f32, g = g W; the input
 gradient leaves as bf16. Weight gradients come out in the params slice's
-own flat row-major [fan_out, fan_in] layout, with no transpose.
+own flat row-major [fan_out, fan_in] layout, with no transpose. K5 runs
+its layers on ``mma.sync`` with the activations in registers
+(``csrc/mlp_frag.cuh``) and keeps the weight gradient in registers across
+tiles; `mlp_bwd_smem_bytes` and `mlp_bwd_tile` mirror its layout and tile
+on the CPU.
 
 `mlp_forward` and `mlp_backward` take the plain twin for a CPU tensor and
 the kernel for a CUDA tensor; there is no other route.
@@ -89,10 +93,10 @@ class MlpDims:
 
 
 def tile_rows(dims: MlpDims, device: torch.device) -> int:
-    """Rows per block the CUDA kernels K2 and K3 run for `dims` on the
-    CUDA `device`: the largest of 128, 64, 32, 16 whose weights, two
-    activation buffers and accumulator scratch fit the block's shared
-    memory, or 0 when none does."""
+    """Rows per block K2 runs for `dims` on the CUDA `device`: the largest
+    of 128, 64, 32, 16 whose weights, two activation buffers and
+    accumulator scratch fit the block's shared memory, or 0 when none does
+    (the gate every fused MLP kernel's wrapper checks)."""
     dims.check_fused()
     fn = _build.library().tcnn_mlp_tile
     fn.argtypes = [ctypes.c_int] * 5
@@ -165,16 +169,14 @@ def mlp_forward(dims: MlpDims, weights, x):
 _MLP_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def bwd_smem_bytes(dims: MlpDims, nt: int, split: bool, ig_floats: int = 0,
-                   priv_floats: int = 0) -> int:
-    """Shared memory of a K5 (split=False), K6 or K9 (split=True) block of
-    nt rows, for the gate that picks the tile before any device is asked
-    (the launch takes its bytes from csrc/mlp_bwd_common.cuh's BwdLayout,
-    the same count, and opts in to them there): the weights, every layer's
-    kept bf16 output (row pitch = width + 8), two gradient tiles (bf16, and
-    a second bf16 for the low half of the split f32 gradient in K6/K9) of
-    pitch max(in_w, width, out_w) + 8, a 16x16 f32 scratch per warp, K9's
-    `ig_floats` f32 per row (its dL/dx partials, L * D) and K6's
+def bwd_smem_bytes(dims: MlpDims, nt: int, ig_floats: int = 0, priv_floats: int = 0) -> int:
+    """Shared memory of a K6 or K9 block of nt rows, for the gate that
+    picks the tile before any device is asked (the launch takes its bytes
+    from csrc/mlp_bwd_common.cuh's BwdLayout, the same count, and opts in to
+    them there): the weights, every layer's kept bf16 output (row pitch =
+    width + 8), two gradient tiles (bf16 hi and lo halves of the split f32
+    gradient) of pitch max(in_w, width, out_w) + 8, a 16x16 f32 scratch per
+    warp, K9's `ig_floats` f32 per row (its dL/dx partials, L * D) and K6's
     `priv_floats` f32 of private table gradient
     (`train_kernel.train_layout`)."""
     ld_g = max(dims.in_w, dims.width, dims.out_w) + 8
@@ -182,18 +184,44 @@ def bwd_smem_bytes(dims: MlpDims, nt: int, split: bool, ig_floats: int = 0,
     return (
         2 * dims.n_weights
         + 2 * nt * kept
-        + 2 * (2 if split else 1) * 2 * nt * ld_g
+        + 2 * 2 * 2 * nt * ld_g
         + (nt // 16) * 256 * 4
         + 4 * nt * ig_floats
         + 4 * priv_floats
     )
 
 
-def bwd_tile(dims: MlpDims, split: bool, ig_floats: int = 0) -> int:
-    """Rows per block of K5/K6/K9: the largest of 128, 64, 32, 16 whose
+def bwd_tile(dims: MlpDims, ig_floats: int = 0) -> int:
+    """Rows per block of K6/K9: the largest of 128, 64, 32, 16 whose
     shared memory fits SMEM_OPTIN, else 0."""
     for nt in (128, 64, 32, 16):
-        if bwd_smem_bytes(dims, nt, split, ig_floats) <= SMEM_OPTIN:
+        if bwd_smem_bytes(dims, nt, ig_floats) <= SMEM_OPTIN:
+            return nt
+    return 0
+
+
+def frag_weight_elems(dims: MlpDims) -> int:
+    """Elements of the weights in K3's and K5's shared memory
+    (csrc/mlp_frag.cuh): each layer's [fan_out, fan_in] at a row pitch of
+    fan_in + 8, so that ldmatrix's eight rows fall in distinct banks."""
+    return sum(r * (c + 8) for r, c in dims.layer_sizes())
+
+
+def mlp_bwd_smem_bytes(dims: MlpDims, nt: int) -> int:
+    """Shared memory of a K5 block of nt rows (csrc/mlp_bwd.cu:K5Layout,
+    the same count): the padded weights, the kept bf16 outputs h_0 (the
+    input, pitch in_w + 8) and h_1..h_H (pitch width + 8), and two bf16
+    gradient buffers of pitch max(width, out_w) + 8."""
+    ld_g = max(dims.width, dims.out_w) + 8
+    kept = (dims.in_w + 8) + dims.n_hidden * (dims.width + 8)
+    return 2 * (frag_weight_elems(dims) + nt * kept + 2 * nt * ld_g)
+
+
+def mlp_bwd_tile(dims: MlpDims) -> int:
+    """Rows per K5 block: the largest of 128, 64, 32, 16 whose shared
+    memory fits SMEM_OPTIN, else 0."""
+    for nt in (128, 64, 32, 16):
+        if mlp_bwd_smem_bytes(dims, nt) <= SMEM_OPTIN:
             return nt
     return 0
 
@@ -226,7 +254,7 @@ def mlp_backward(dims: MlpDims, weights, x, gy):
         return _mlp_backward_plain(dims, weights, x, gy)
     if not gy.is_contiguous():
         raise ValueError("gy must be contiguous")
-    nt = bwd_tile(dims, split=False)
+    nt = mlp_bwd_tile(dims)
     if nt == 0:
         raise ValueError(f"fused MLP {dims} does not fit the backward kernel's shared memory")
     global BWD_LAUNCHES
@@ -234,7 +262,7 @@ def mlp_backward(dims: MlpDims, weights, x, gy):
     gx = torch.empty((B, dims.in_w), dtype=torch.bfloat16, device=x.device)
     if B == 0:
         return gw, gx
-    grid = persistent_grid("tcnn_mlp_bwd_grid", (B, nt, *dims.c_args()[:4]), x.device)
+    grid = persistent_grid("tcnn_mlp_bwd_grid", (B, nt, *dims.c_args()), x.device)
     partials = torch.empty(grid * dims.n_weights, dtype=torch.float32, device=x.device)
     fn = _build.function("tcnn_mlp_bwd", _MLP_BWD_ARGS)
     _build.check(

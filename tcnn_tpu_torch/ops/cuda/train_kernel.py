@@ -7,9 +7,11 @@ input-gradient route.
 
 K3 replaces ``tcnn_tpu/ops/pallas/train_kernel.py:_infer_kernel_vt``
 (reached through ``fused_forward_prepared`` from ``Trainer.inference``).
-Per tile of samples, K1's gather fills an encoded tile [nt, enc_pad] bf16 in
-shared memory and K2's layer chain runs from there, so the encoding never
-touches device memory. Its layout is carried explicitly: `prepare_forward`
+Its persistent blocks load the weights once; each warp walks 16-row tiles
+on its own: K1's gather fills the warp's encoded rows [16, enc_pad] bf16 in
+shared memory and the layer chain runs from there on ``mma.sync`` with the
+activations in registers (``csrc/mlp_frag.cuh``), so the encoding never
+touches device memory (`infer_smem_bytes`, `infer_warps`). Its layout is carried explicitly: `prepare_forward`
 returns a `PreparedForward` that holds the grid plan, the MLP shape and the
 bf16 operands, and `fused_forward_prepared` reads nothing else.
 
@@ -67,6 +69,7 @@ from .mlp_kernel import (
     bwd_smem_bytes,
     bwd_tile,
     check_mlp_inputs,
+    frag_weight_elems,
     persistent_grid,
 )
 
@@ -124,6 +127,23 @@ def prepare_forward(model, params) -> PreparedForward:
     )
 
 
+def infer_smem_bytes(dims: MlpDims, warps: int) -> int:
+    """Shared memory of a K3 block of `warps` warps (csrc/fused_infer.cu
+    counts the same): the padded weights (`frag_weight_elems`), then each
+    warp's 16 encoded rows at a pitch of in_w + 8, all bf16."""
+    return 2 * (frag_weight_elems(dims) + warps * 16 * (dims.in_w + 8))
+
+
+def infer_warps(dims: MlpDims) -> int:
+    """Warps of a K3 block: the most of 8, 4, 2, 1 whose shared memory fits
+    SMEM_OPTIN, else 0. The C side makes the same choice against the
+    card's own opt-in limit."""
+    for warps in (8, 4, 2, 1):
+        if infer_smem_bytes(dims, warps) <= SMEM_OPTIN:
+            return warps
+    return 0
+
+
 def _fused_forward_plain(prep: PreparedForward, x):
     """What K3 computes, in plain PyTorch on any device: the grid forward
     into the padded bf16 encoding, then the MLP chain."""
@@ -141,6 +161,8 @@ def fused_forward_prepared(prep: PreparedForward, x):
         raise ValueError("MLP input narrower than the encoding")
     if x.device.type == "cpu":
         return _fused_forward_plain(prep, x)
+    if infer_warps(prep.dims) == 0:
+        raise ValueError(f"fused MLP {prep.dims} does not fit K3's shared memory")
     global LAUNCHES
     plan, dims = prep.plan, prep.dims
     out = torch.empty((B, dims.out_w), dtype=torch.bfloat16, device=x.device)
@@ -201,7 +223,7 @@ def supported(model, loss, perturbation_sigma: float = 0.0) -> bool:
         return False
     if isinstance(loss, RelativeL2LuminanceLoss) and model.n_output_dims < 3:
         return False
-    return bwd_tile(model.network.dims, split=True) > 0
+    return bwd_tile(model.network.dims) > 0
 
 
 def train_layout(model) -> tuple:
@@ -212,11 +234,11 @@ def train_layout(model) -> tuple:
     priv = rows x F, which the launch adds to its layout's bytes; (0, 0, 0)
     when no tile fits."""
     plan, dims = fused_plan_for(model), model.network.dims
-    nt = bwd_tile(dims, split=True)
+    nt = bwd_tile(dims)
     if nt == 0:
         return 0, 0, 0
     n_private, rows = private_levels(plan, model.encoding.active_levels(),
-                                     SMEM_OPTIN - bwd_smem_bytes(dims, nt, split=True))
+                                     SMEM_OPTIN - bwd_smem_bytes(dims, nt))
     return nt, n_private, rows * plan.f
 
 
@@ -345,7 +367,7 @@ def ig_tile(model) -> int:
     """Rows per block of K9 for a model `fused_plan_for` takes: K6's layout
     plus L * D f32 per row of dL/dx partials, or 0 when no tile fits."""
     plan = fused_plan_for(model)
-    return bwd_tile(model.network.dims, split=True, ig_floats=plan.n_levels * plan.d)
+    return bwd_tile(model.network.dims, ig_floats=plan.n_levels * plan.d)
 
 
 def supported_ig(model) -> bool:

@@ -39,7 +39,7 @@ def _model(d=2, n_out=3, width=64, n_hidden=2, **enc):
 def test_plan_at_config_hash_and_reference_default(enc, k6, k4):
     net = _model(**enc)
     dims = net.network.dims
-    assert mlp_kernel.SMEM_OPTIN - mlp_kernel.bwd_smem_bytes(dims, 128, split=True) == 82_944
+    assert mlp_kernel.SMEM_OPTIN - mlp_kernel.bwd_smem_bytes(dims, 128) == 82_944
     assert train_kernel.train_layout(net) == k6
     plan = net.encoding.plan
     assert grid_kernel.private_levels(plan, plan.n_levels, grid_kernel.K4_PRIVATE_BYTES) == k4
@@ -79,7 +79,7 @@ def test_plan_empty_where_nothing_fits():
     net = _model(width=128, n_hidden=5, n_features_per_level=8, base_resolution=64,
                  log2_hashmap_size=19)
     nt, p, priv = train_kernel.train_layout(net)
-    spare = mlp_kernel.SMEM_OPTIN - mlp_kernel.bwd_smem_bytes(net.network.dims, nt, split=True)
+    spare = mlp_kernel.SMEM_OPTIN - mlp_kernel.bwd_smem_bytes(net.network.dims, nt)
     assert nt > 0 and p == 0 and priv == 0 and spare < net.encoding.plan.sizes[0] * 8 * 4
 
 
@@ -105,5 +105,5 @@ def test_k6_layout_fits_the_block(f):
                         assert nt > 0 and 0 <= p <= net.encoding.active_levels()
                         assert not any(plan.use_hash[:p])
                         assert priv == plan.offsets[p] * f
-                        assert mlp_kernel.bwd_smem_bytes(net.network.dims, nt, split=True,
+                        assert mlp_kernel.bwd_smem_bytes(net.network.dims, nt,
                                                          priv_floats=priv) <= mlp_kernel.SMEM_OPTIN

@@ -343,10 +343,10 @@ def test_route_gate():
     lum = tt.create_from_config(2, 1, _cfg("RelativeL2Luminance"), device="cpu")
     assert not train_kernel.supported(lum.network, lum.trainer.loss_fn)
     dims = tm.network.network.dims
-    assert mlp_kernel.bwd_tile(dims, split=True) == 128
+    assert mlp_kernel.bwd_tile(dims) == 128
     big = mlp_kernel.MlpDims(32, 128, 5, 16, dims.activation, dims.output_activation)
-    assert mlp_kernel.bwd_smem_bytes(big, 32, split=True) <= mlp_kernel.SMEM_OPTIN
-    assert mlp_kernel.bwd_tile(big, split=True) == 32
+    assert mlp_kernel.bwd_smem_bytes(big, 32) <= mlp_kernel.SMEM_OPTIN
+    assert mlp_kernel.bwd_tile(big) == 32
 
 
 def test_forward_loss_and_hyperparams():
