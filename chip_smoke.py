@@ -15,7 +15,8 @@ Phases, each printing JSON lines:
      K4 grid backward, K5 fused MLP backward (also 128x5; its gW and gx
      bit-equal between two launches on the same inputs, wherever it is
      checked), K6 fused train step (also with a pdf, output noise and an
-     external dL/doutput), each gradient bound beside a control of lower
+     external dL/doutput; its weight gradient bit-equal between two
+     launches at each B), each gradient bound beside a control of lower
      precision that it must reject; then, at B = 2^16 - 37, K6 on all nine losses and K4, K5 and K6
      on every activation but Sine, Smoothstep and Nearest interpolation and
      max_level; and K4 and K6 at 8 features per level (B = 2^18, 2^18 - 37),
@@ -40,7 +41,9 @@ Phases, each printing JSON lines:
      gives them: K7 grid backward with dL/dx, K8 grid double backward
      (without and with a table cotangent; Linear and Smoothstep), K9 fused
      input-gradient backward, each gradient part beside a control of lower
-     precision that its bound must reject; K7 and K8 also at D = 2 and 4;
+     precision that its bound must reject; the same at 8 features per
+     level (B = 2^16, inputs from their own generator); K7 and K8 also at
+     D = 2 and 4;
   8. the SDF slice: `create_from_config` on that config trains SDF_STEPS
      eikonal steps through tcnn_tpu_torch.samples.learn_a_sdf (counters:
      K3, K9, K1, K7, K8 and K1, K2, K5, K4 on every step), the loss falling
@@ -104,7 +107,8 @@ Phases, each printing JSON lines:
      composed one, and times.
 Then a line with every kernel and option (its launches on the main path,
 error against its twin, time, twin's time, bound, what bounds it and its
-yardstick's time; K3's and K5's entries, redesigned for Hopper, say so),
+yardstick's time; K3's, K5's, K6's and K9's entries, redesigned for
+Hopper, say so),
 the `nvidia-smi` line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; it also exits non-zero when no GPU is present.
@@ -570,18 +574,28 @@ def composed_twin(prep, n_active, loss, x, targets, loss_scale, pdf=None, noise=
 
 
 def check_train_step(name, net, loss, params, x, targets, loss_scale, bounds, control_too=False,
-                     ctl_plan=None, **kw):
+                     ctl_plan=None, bits=False, **kw):
     """K6 against its twin on one step: the loss sum within TRAIN_LOSS_RTOL,
     the gradient's weights and table parts within `bounds`; with
     `control_too`, the composed route's precision must break them, and with
-    `ctl_plan`, the twin on that plan (other draws or another hash seed).
-    Returns the max abs error of the gradient."""
+    `ctl_plan`, the twin on that plan (other draws or another hash seed);
+    with `bits`, the weights' gradient of a second launch must be the same
+    bits (K6 sums it in a fixed order). Returns the max abs error of the
+    gradient."""
     import torch
     from tcnn_tpu_torch.ops.cuda import train_kernel
 
     prep = train_kernel.prepare_forward(net, params)
     n_active = net.encoding.active_levels()
     kl, kg = train_kernel.fused_train_grads(net, loss, params, x, targets, loss_scale, **kw)
+    if bits:
+        _, kg2 = train_kernel.fused_train_grads(net, loss, params, x, targets, loss_scale, **kw)
+        torch.cuda.synchronize()
+        n = prep.dims.n_weights
+        same = torch.equal(kg[:n], kg2[:n])
+        emit({"phase": "compare", "name": f"K6 {name}, weights of two launches bit-equal",
+              "ok": same})
+        check(same, f"K6 {name}: two launches' weight gradients differ")
     pl, pg = train_kernel._fused_train_grads_plain(
         prep.plan, prep.dims, n_active, prep.table, prep.weights, loss, x, targets, loss_scale,
         kw.get("pdf"), kw.get("noise"), kw.get("ext_dl", False))
@@ -2014,7 +2028,7 @@ def main() -> int:
         for label, kw, tgt in variants:
             errs["K6"] = max(errs["K6"], check_train_step(
                 f"{label} B={B}", net, tr.loss_fn, tr.params, x, tgt, tr.loss_scale, K6_REL,
-                control_too=True, **kw))
+                control_too=True, bits=not label, **kw))
 
     # 3b. coverage of K4, K5 and K6 beyond config_hash's main path
     for label, enc_over, net_over, max_level, losses in COVER_CASES:
@@ -2219,6 +2233,19 @@ def main() -> int:
             for k, v in check_ig_kernels(f"{interp} B={B}", sm.network, sm.trainer.params, x,
                                          gen).items():
                 errs[k] = max(errs.get(k, 0.0), v)
+    # K9 (and K7, K8) at 8 features per level (MLP input 96), each beside
+    # its control; its own generator leaves every later input as it was
+    f8_gen = torch.Generator().manual_seed(SEED + 14)
+    scfg = json.loads(json.dumps(sdf.CONFIG))
+    scfg["encoding"]["n_features_per_level"] = 8
+    sm = tt.create_from_config(3, 1, scfg, seed=SEED + 14, device=dev)
+    sm.trainer.set_params(random_params(sm.trainer, f8_gen))
+    check(sm.network.encoding.plan.f == 8 and train_kernel.supported_ig(sm.network),
+          "the SDF config at F = 8 must take the fused ig route")
+    x = torch.rand(B_SDF, 3, generator=f8_gen).to(dev)
+    for k, v in check_ig_kernels(f"F=8 B={B_SDF}", sm.network, sm.trainer.params, x,
+                                 f8_gen).items():
+        errs[k] = max(errs.get(k, 0.0), v)
     cover = dict.fromkeys(("gtable", "gx", "ct_gy", "gtable2", "ct_x"), COVER_IG_REL)
     for d, interp in ((2, "Smoothstep"), (4, "Linear")):
         scfg = json.loads(json.dumps(sdf.CONFIG))
@@ -2408,9 +2435,10 @@ def main() -> int:
     for k, replaces in binned.items():
         entries.append((f"{k} T=2^19", f"{sources[k][0]} (T=2^19)", sources[k][1], replaces,
                         ref_launches[k], ref_errs[k], ref_ms[k], ref_bounds[k]))
-    # K3 and K5, redesigned for Hopper (mma.sync layers in registers,
-    # persistent blocks, K5's weight gradient in registers across tiles)
-    redesigned = {"K3": "redesigned for Hopper", "K5": "redesigned for Hopper"}
+    # K3, K5, K6 and K9, redesigned for Hopper (mma.sync layers in
+    # registers, persistent blocks, the weight gradient in registers across
+    # tiles)
+    redesigned = dict.fromkeys(("K3", "K5", "K6", "K9"), "redesigned for Hopper")
     entries = [(key, (name[:-1] + "; " + redesigned[key.split()[0]] + ")" if name.endswith(")")
                       else f"{name} ({redesigned[key.split()[0]]})")
                 if key.split()[0] in redesigned else name, *rest)

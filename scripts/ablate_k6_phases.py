@@ -3,18 +3,29 @@
 through copies of the kernel library in which the step loses one phase
 more each time, on one CUDA GPU:
 
-    python3 scripts/ablate_k6_phases.py
+    python3 scripts/ablate_k6_phases.py [VARIANT ...]
 
 Variants of ``fused_train.cuh``'s train step, each built from this
 checkout's sources with text edits made in a temporary directory (the
-package's own sources and library are not touched):
+package's own sources and library are not touched; only the F = 2 half,
+``fused_train_f2.cu``, is rebuilt per variant, which is what both
+configurations run):
   full       the step as it is;
   -scatter   step 5, the table-gradient scatter, removed;
-  -backward  also step 4, the MLP backward and its weight-gradient partials;
+  -backward  also step 4, the MLP backward (dgrad and wgrad), left as one
+             barrier;
   -forward   also steps 2-3, the MLP forward and the loss: the gather, the
-             weights' load and the fixed-order reduce are left.
+             weights' load, the register units' store and the fixed-order
+             reduce are left.
 So the scatter takes full - (-scatter), the backward (-scatter) -
-(-backward), the forward and loss (-backward) - (-forward). K6 is timed
+(-backward), the forward and loss (-backward) - (-forward). Each VARIANT
+named on the command line (EXTRA) is built beside them, its edits made to
+the step as it is:
+  reg-units-8      8 register units a warp (not 4);
+  gather-unroll-2  the warp's gather loop unrolled twice (-4: four times);
+  block-gather     the block gathers the whole tile, one (sample, level) a
+                   thread as K1 maps them, then a block barrier, in place
+                   of each warp gathering its own rows. K6 is timed
 with CUDA events (50 launches, best of two turns, variants in turns) at
 B = 2^18 on data/config_hash.json and at the reference's default hash grid
 (log2_hashmap_size 19, per_level_scale 2.0), the table redrawn from
@@ -44,39 +55,75 @@ ITERS = 50
 VARIANTS = (
     ("full", []),
     ("-scatter", [(r"if \(row < B\) grid_level_bwd<F>\([^;]*\);", ";")]),
-    ("-backward", [(r"mlp_backward_chain<true>\((?:.|\n)*?\}\);", "nullptr;")]),
-    ("-forward", [(r"mlp_forward_keep\(m, L, smem, sw, sc\);", ";"),
-                  (r"for \(int e = lane; e < 16 \* out_w; e \+= 32\)",
-                   "for (int e = lane; e < 0; e += 32)")]),
+    ("-backward", [(r"    // 4\. backward(?:.|\n)*?(?=    // 5\. scatter)", "    __syncthreads();\n")]),
+    ("-forward", [(r"frag_forward<WIDTH, ACT, OUT_ACT>\((?:.|\n)*?\n        \}\);", ";")]),
 )
+_GATHER = r"(    // 1\. gather the warp's rows[^\n]*\n)"
+#: (name, [(pattern, replacement)]): variants of the step as it is
+EXTRA = (
+    ("reg-units-8", [(r"TRAIN_REG_UNITS = 4;", "TRAIN_REG_UNITS = 8;")]),
+    ("gather-unroll-2", [(_GATHER, "\\1#pragma unroll 2\n")]),
+    ("gather-unroll-4", [(_GATHER, "\\1#pragma unroll 4\n")]),
+    ("block-gather", [(r"    for \(int p = lane; p < 16 \* g\.L; p \+= 32\) \{\n(?:.|\n)*?"
+                       r"\n    __syncwarp\(\);\n", """\
+    for (int p = threadIdx.x; p < nt * g.L; p += blockDim.x) {
+      const int r = p / g.L, l = p % g.L;
+      float v[F];
+      if (row0 + r < B && l < n_active) {
+        grid_level<F>(g, row0 + r, l, v);
+      } else {
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[f] = 0.f;
+      }
+      store_bf16<F>(h0 + r * ld0 + l * F, v);
+    }
+    __syncthreads();
+""")]),
+)
+#: the source rebuilt per variant: K6's F = 2 half
+VARIANT_SOURCE = "fused_train_f2.cu"
 
 
-def build_variants(tmp: pathlib.Path) -> dict:
-    """{variant: path of its library}: every source but fused_train.cu
-    compiled once, fused_train.cu once per variant, all at once."""
+def variant_headers(header: str, extra) -> list:
+    """[(name, header text)]: VARIANTS, each with the edits of those before
+    it, then the `extra` variants, each on `header` as it is; every pattern
+    must match exactly once."""
+    def edit(text, name, edits):
+        for pattern, repl in edits:
+            text, n = re.subn(pattern, repl, text)
+            if n != 1:
+                raise RuntimeError(f"{name}: {pattern!r} matched {n} times")
+        return text
+
+    out, text = [], header
+    for name, edits in VARIANTS:
+        text = edit(text, name, edits)
+        out.append((name, text))
+    return out + [(name, edit(header, name, edits)) for name, edits in extra]
+
+
+def build_variants(tmp: pathlib.Path, extra=()) -> dict:
+    """{variant: path of its library}: every source but VARIANT_SOURCE
+    compiled once, VARIANT_SOURCE once per variant, all at once."""
     from tcnn_tpu_torch.ops.cuda import _build
 
     nvcc = _build._nvcc()
     src = tmp / "src"
     shutil.copytree(_build.CSRC, src)
     header = (src / "fused_train.cuh").read_text()
-    base = [p for p in sorted(src.glob("*.cu")) if p.name != "fused_train.cu"]
+    base = [p for p in sorted(src.glob("*.cu")) if p.name != VARIANT_SOURCE]
     cmds = [[nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(tmp / f"{p.stem}.o"), str(p)] for p in base]
-    text = header
-    for name, edits in VARIANTS:
-        for pattern, repl in edits:
-            text, n = re.subn(pattern, repl, text)
-            if n != 1:
-                raise RuntimeError(f"{name}: {pattern!r} matched {n} times")
+    variants = variant_headers(header, extra)
+    for name, text in variants:
         vdir = tmp / f"v{len(cmds)}"
         shutil.copytree(src, vdir)
         (vdir / "fused_train.cuh").write_text(text)
-        cmds.append([nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(vdir / "fused_train.o"),
-                     str(vdir / "fused_train.cu")])
+        cmds.append([nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(vdir / "variant.o"),
+                     str(vdir / VARIANT_SOURCE)])
     _build._run_all(cmds)
     objs = [str(tmp / f"{p.stem}.o") for p in base]
     libs, links = {}, []
-    for (name, _), cmd in zip(VARIANTS, cmds[len(base):]):
+    for (name, _), cmd in zip(variants, cmds[len(base):]):
         lib = tmp / f"lib{len(libs)}.so"
         links.append([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib), *objs, cmd[-2]])
         libs[name] = lib
@@ -97,7 +144,11 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     with tempfile.TemporaryDirectory() as tmp:
         libs = {}
-        for name, path in build_variants(pathlib.Path(tmp)).items():
+        extra = [v for v in EXTRA if v[0] in sys.argv[1:]]
+        unknown = set(sys.argv[1:]) - {v[0] for v in EXTRA}
+        if unknown:
+            raise SystemExit(f"unknown variants {sorted(unknown)}; known: {[v[0] for v in EXTRA]}")
+        for name, path in build_variants(pathlib.Path(tmp), extra).items():
             lib = ctypes.CDLL(str(path))
             lib.tcnn_error_string.argtypes = [ctypes.c_int]
             lib.tcnn_error_string.restype = ctypes.c_char_p
@@ -135,7 +186,7 @@ def main() -> int:
                     torch.cuda.synchronize()
                     ms[name].append(start.elapsed_time(end) / ITERS)
             best = {name: min(v) for name, v in ms.items()}
-            names = [n for n, _ in VARIANTS]
+            names = list(ms)
             phases = {"scatter": best["full"] - best["-scatter"],
                       "mlp_backward": best["-scatter"] - best["-backward"],
                       "mlp_forward_and_loss": best["-backward"] - best["-forward"],

@@ -17,15 +17,16 @@ seed, the grid table redrawn from U(-1, 1):
   data/config_hash.json, B = 2^18: K1 (grid_encode), K2 (mlp_forward), K1
     + K2 (the two in sequence), K3 (fused_forward_prepared),
     `trainer.inference`, K5 (mlp_backward, random bf16 cotangent), K6
-    (fused_train_grads); K3 also at 2^20 (the image sample's render chunk)
-    and at the reference's default grid (log2_hashmap_size 19,
+    (fused_train_grads); K3 also at 2^20 (the image sample's render chunk);
+    K3 and K6 also at the reference's default grid (log2_hashmap_size 19,
     per_level_scale 2.0), B = 2^18;
   samples/learn_a_sdf.CONFIG: K3 and K9 (fused_ig_grads) at the eikonal
-    term's 1024 points, K5 at B = 2^16 (the data term), K9 at 2^16;
+    term's 1024 points, K5 at B = 2^16 (the data term), K9 at 2^16 and 2^18;
   K5 at width 128 with 5 hidden layers (in 32, out 16), B = 2^18.
-With --ptxas, also `nvcc -Xptxas -v` of the checkout's fused_infer.cu and
-mlp_bwd.cu at the build's flags: each K3 and K5 instantiation's registers
-and spills. Prints one JSON line with the card's `nvidia-smi`
+With --ptxas, also `nvcc -Xptxas -v` of the checkout's fused_infer.cu,
+mlp_bwd.cu and K6's and K9's sources (fused_train*.cu, fused_ig*.cu) at
+the build's flags, all at once: each K3, K5, K6 and K9 instantiation's
+registers and spills. Prints one JSON line with the card's `nvidia-smi`
 name and power limit. Exits non-zero without a CUDA device.
 """
 
@@ -101,16 +102,23 @@ def randomized(model, gen):
     return tr
 
 
+KERNELS = ("fused_infer_kernel", "mlp_bwd_kernel", "fused_train_kernel")
+
+
 def ptxas_readings():
-    """{kernel instantiation: ptxas's 'Used ...' line} of K3 and K5."""
+    """{kernel instantiation: ptxas's 'Used ...' and spill lines} of K3, K5,
+    K6 and K9."""
     from tcnn_tpu_torch.ops.cuda import _build
 
     out = {}
+    sources = [_build.CSRC / "fused_infer.cu", _build.CSRC / "mlp_bwd.cu",
+               *sorted(_build.CSRC.glob("fused_train*.cu")),
+               *sorted(_build.CSRC.glob("fused_ig*.cu"))]
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                                   "-o", f"{tmp}/{src}.o", str(_build.CSRC / src)],
+                                   "-o", f"{tmp}/{src.name}.o", str(src)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for src in ("fused_infer.cu", "mlp_bwd.cu")]
+                 for src in sources]
         for proc in procs:
             text = proc.communicate()[0]
             name = None
@@ -118,7 +126,7 @@ def ptxas_readings():
                 m = re.search(r"Compiling entry function '(\w+)'", line)
                 if m:
                     name = m.group(1)
-                elif name and ("fused_infer_kernel" in name or "mlp_bwd_kernel" in name):
+                elif name and any(k in name for k in KERNELS):
                     if "Used" in line or "spill" in line:
                         out.setdefault(name, []).append(line.split("info    :")[-1].strip())
     return out
@@ -156,10 +164,12 @@ def main() -> int:
         plan, dims = prep.plan, prep.dims
         enc_w = net.encoding.padded_output_width
         x = torch.rand(1 << 18, 2, generator=gen).to(dev)
+        t = torch.rand(1 << 18, 3, generator=gen).to(dev)
         timed("K3" + tag, lambda: train_kernel.fused_forward_prepared(prep, x))
         if tag:
+            timed("K6" + tag, lambda: train_kernel.fused_train_grads(net, tr.loss_fn, tr.params,
+                                                                     x, t, tr.loss_scale))
             continue
-        t = torch.rand(1 << 18, 3, generator=gen).to(dev)
         enc = grid_kernel.grid_encode(plan, prep.table, x, enc_w, plan.n_levels)
         gy = torch.randn(1 << 18, dims.out_w, generator=gen).to(torch.bfloat16).to(dev)
         timed("K1", lambda: grid_kernel.grid_encode(plan, prep.table, x, enc_w,
@@ -182,7 +192,7 @@ def main() -> int:
     sm = tt.create_from_config(3, 1, sdf.CONFIG, seed=SEED, device=dev)
     str_, snet = randomized(sm, gen), sm.network
     sprep = train_kernel.prepare_forward(snet, str_.params)
-    for B in (sdf.N_EIKONAL, 1 << 16):
+    for B in (sdf.N_EIKONAL, 1 << 16, 1 << 18):
         x = torch.rand(B, 3, generator=gen).to(dev)
         gy_out = torch.zeros((B, snet.network.padded_output_width), device=dev)
         gy_out[:, 0] = 1.0
@@ -190,7 +200,7 @@ def main() -> int:
                                                                           gy_out))
         if B == sdf.N_EIKONAL:
             timed(f"K3 SDF B={B}", lambda: train_kernel.fused_forward_prepared(sprep, x))
-        else:
+        elif B == 1 << 16:
             enc = grid_kernel.grid_encode(sprep.plan, sprep.table, x,
                                           snet.encoding.padded_output_width,
                                           sprep.plan.n_levels)

@@ -1,0 +1,6 @@
+// K9 (the fused input-gradient backward) at F = 2 features per level: its kernels and
+// their launch (fused_train.cuh), compiled apart from the other F so
+// that nvcc builds them in parallel; its entry points are in fused_ig.cu.
+#include "fused_train.cuh"
+
+TCNN_TRAIN_INSTANCE(, 2, true)

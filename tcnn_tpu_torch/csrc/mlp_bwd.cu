@@ -18,7 +18,7 @@
 //   across every warp's rows), and dgrad takes G from registers, applies the
 //   activation transfer from the kept output and writes the next G once as
 //   bf16, and the input gradient as 16-byte row pieces. The weight gradient
-//   is dealt out in 16x16 units (k5_unit): a warp keeps up to K5_REG_UNITS of
+//   is dealt out in 16x16 units (gw_unit): a warp keeps up to K5_REG_UNITS of
 //   them in registers across every tile it walks, and the block writes its
 //   partial once, at the end; units past that (wide or deep MLPs) add into
 //   the block's partial in L2 once a tile, several at a time at width 128 so
@@ -31,9 +31,9 @@
 
 namespace tcnn {
 
-// 16x16 weight-gradient units a warp keeps in registers (8 f32 a thread
-// each): 32 units at 8 warps, config_hash's 28 among them
-// (tests/test_torch_mlp_layouts.py copies the plan).
+// 16x16 weight-gradient units (mlp_frag.cuh: gw_unit) a warp keeps in
+// registers (8 f32 a thread each): 32 units at 8 warps, config_hash's 28
+// among them (tests/test_torch_mlp_layouts.py copies the plan).
 constexpr int K5_REG_UNITS = 4;
 
 // Shared memory of a block of nt rows, in elements from its base
@@ -55,35 +55,6 @@ struct K5Layout {
   }
   __host__ __device__ size_t bytes() const { return g_offset(2) * sizeof(bf16); }
 };
-
-// Weight-gradient units: 16x16 blocks of each layer's gW [fan_out, fan_in],
-// numbered layer by layer, row-major within a layer. Unit u belongs to warp
-// u % n_warps, in its register slot u / n_warps while that is below
-// K5_REG_UNITS.
-__host__ __device__ inline int layer_units(const MlpArgs& m, int i) {
-  return (frag_fan_out(m, i) / 16) * (frag_fan_in(m, i) / 16);
-}
-// flat offset of layer i's gW in the [n_weights] gradient
-__host__ __device__ inline size_t flat_offset(const MlpArgs& m, int i) {
-  size_t off = 0;
-  for (int j = 0; j < i; ++j) off += (size_t)frag_fan_out(m, j) * frag_fan_in(m, j);
-  return off;
-}
-// unit u's first float in the flat gradient, and its row pitch
-__device__ __forceinline__ float* k5_unit(const MlpArgs& m, float* gw, int u, int* ld) {
-  int i = 0;
-  while (u >= layer_units(m, i)) u -= layer_units(m, i++);
-  const int cb = frag_fan_in(m, i) / 16;
-  *ld = frag_fan_in(m, i);
-  return gw + flat_offset(m, i) + (size_t)(u / cb) * 16 * *ld + (u % cb) * 16;
-}
-
-// This thread's two floats of element pair (g + 8 half, 8 q + 2t) of a
-// unit's C fragments in the flat gradient
-__device__ __forceinline__ float2* unit_pair(float* dst, int ld, int q, int half) {
-  const int lane = threadIdx.x & 31;
-  return reinterpret_cast<float2*>(dst + ((lane >> 2) + 8 * half) * ld + 8 * q + 2 * (lane & 3));
-}
 
 // c += G^T h over the tile's nt rows for the unit at (o0, c0): G [nt, fan_out]
 // and h [nt, fan_in], both read transposed from shared memory; unrolled so
@@ -277,7 +248,7 @@ __global__ void __launch_bounds__(256, WIDTH <= 64 ? 2 : 1)
     for (int i = 0; i <= H; ++i) n_units += layer_units(m, i);
     if (u >= n_units) break;
     int ld;
-    float* dst = k5_unit(m, partial, u, &ld);
+    float* dst = gw_unit(m, partial, u, &ld);
 #pragma unroll
     for (int q = 0; q < 2; ++q)
 #pragma unroll

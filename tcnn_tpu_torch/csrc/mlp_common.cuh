@@ -1,7 +1,6 @@
-// The fully fused MLP layer chain of K2 (mlp_fwd.cu); its per-warp layer
-// (warp_layer) also serves K6 and K9 (mlp_bwd_common.cuh), and the
-// activations, forward and backward, every MLP kernel (K3 and K5 run theirs
-// on mma.sync, mlp_frag.cuh).
+// The fully fused MLP layer chain of K2 (mlp_fwd.cu), and the activations,
+// forward and backward, of every MLP kernel (K3, K5, K6 and K9 run their
+// layers on mma.sync, mlp_frag.cuh).
 //
 // Shared-memory layout of a block of nt rows (nt/16 warps, 16 rows each):
 //   [weights: all layers, flat bf16, row-major [fan_out, fan_in] per matrix]

@@ -1,5 +1,5 @@
 // A warp's MLP layer on mma.sync with the activations in registers, shared
-// by K3 (fused_infer.cu) and K5 (mlp_bwd.cu).
+// by K3 (fused_infer.cu), K5 (mlp_bwd.cu) and K6 / K9 (fused_train.cuh).
 //
 // A warp owns 16 rows. Each product is mma.sync.m16n8k16 (bf16 in, f32
 // accumulate; PTX ISA "Matrix Fragments for mma.m16n8k16"). With
@@ -26,6 +26,12 @@
 // Every other shared tile of K3 and K5 is padded the same way. y = x W^T
 // reads W's rows as B's columns directly (ldmatrix); dgrad's G W and
 // wgrad's G^T h read their operands transposed (ldmatrix .trans).
+//
+// K6 and K9 keep the gradient g at about f32 precision as two bf16 A
+// operands, hi = bf16(g) and lo = bf16(g - hi) (hi + lo carries 16
+// significant bits): each product runs once for hi and once for lo into the
+// same f32 accumulators (mma_pair_split_*), and each result is split again
+// (split_pair).
 #pragma once
 
 #include <stdint.h>
@@ -153,6 +159,49 @@ __device__ __forceinline__ void mma_pair_smem(const bf16* a, int lda, int k_len,
   }
 }
 
+// acc[q] (the n8 tiles 2p + q) = (Ahi + Alo) B over k = 0..16*NS, the hi and
+// lo A fragments in registers: per k16 slab, the hi product, then the lo one.
+template <int NS, bool TRANS>
+__device__ __forceinline__ void mma_pair_split_regs(const uint32_t (&hi)[NS][4],
+                                                    const uint32_t (&lo)[NS][4], const bf16* w,
+                                                    int ldw, int p, float (&acc)[2][4]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    uint32_t b[4];
+    b_frags<TRANS>(b, w, ldw, p, s);
+    mma_bf16(acc[0], hi[s], b[0], b[1]);
+    mma_bf16(acc[1], hi[s], b[2], b[3]);
+    mma_bf16(acc[0], lo[s], b[0], b[1]);
+    mma_bf16(acc[1], lo[s], b[2], b[3]);
+  }
+}
+
+// The same with hi and lo read from the warp's 16 rows at `hi` and `lo`
+// (shared memory, pitch lda), k = 0..k_len (a multiple of 16).
+template <bool TRANS>
+__device__ __forceinline__ void mma_pair_split_smem(const bf16* hi, const bf16* lo, int lda,
+                                                    int k_len, const bf16* w, int ldw, int p,
+                                                    float (&acc)[2][4]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+  for (int s = 0; s < k_len / 16; ++s) {
+    uint32_t ah[4], al[4], b[4];
+    ldsm_x4<false>(ah, rows_first(hi, lda, 0, 16 * s));
+    ldsm_x4<false>(al, rows_first(lo, lda, 0, 16 * s));
+    b_frags<TRANS>(b, w, ldw, p, s);
+    mma_bf16(acc[0], ah, b[0], b[1]);
+    mma_bf16(acc[1], ah, b[2], b[3]);
+    mma_bf16(acc[0], al, b[0], b[1]);
+    mma_bf16(acc[1], al, b[2], b[3]);
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -176,6 +225,22 @@ __device__ __forceinline__ void pack_pair(uint32_t (&a)[4], const float (&acc)[2
   for (int j = 0; j < 4; ++j) {
     const int q = j >> 1, e = (j & 1) * 2;
     a[j] = pack_bf16(fn(j, 0, acc[q][e]), fn(j, 1, acc[q][e + 1]));
+  }
+}
+
+// pack_pair's split: v = fn(j, e, f32) for each element, then the hi A
+// fragment of bf16(v) and the lo one of bf16(v - bf16(v)) (v - bf16(v) is
+// exact in f32).
+template <class Fn>
+__device__ __forceinline__ void split_pair(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                           const float (&acc)[2][4], Fn&& fn) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int q = j >> 1, e = (j & 1) * 2;
+    const float v0 = fn(j, 0, acc[q][e]), v1 = fn(j, 1, acc[q][e + 1]);
+    hi[j] = pack_bf16(v0, v1);
+    const float2 h = unpack_bf16(hi[j]);
+    lo[j] = pack_bf16(v0 - h.x, v1 - h.y);
   }
 }
 
@@ -249,6 +314,35 @@ __device__ __forceinline__ void store_slab_rows(bf16* out, int ld, long row0, lo
     *reinterpret_cast<uint4*>(out + row * ld + col0 + (t & 1) * 8) =
         make_uint4(at(0), at(1), at(2), at(3));
   }
+}
+
+// Weight-gradient units of K5 and K6 / K9: 16x16 blocks of each layer's gW
+// [fan_out, fan_in], numbered layer by layer, row-major within a layer. Unit
+// u belongs to warp u % n_warps, in its register slot u / n_warps while that
+// is below the kernel's register budget (K5_REG_UNITS, TRAIN_REG_UNITS).
+__host__ __device__ inline int layer_units(const MlpArgs& m, int i) {
+  return (frag_fan_out(m, i) / 16) * (frag_fan_in(m, i) / 16);
+}
+// flat offset of layer i's gW in the [n_weights] gradient
+__host__ __device__ inline size_t flat_offset(const MlpArgs& m, int i) {
+  size_t off = 0;
+  for (int j = 0; j < i; ++j) off += (size_t)frag_fan_out(m, j) * frag_fan_in(m, j);
+  return off;
+}
+// unit u's first float in the flat gradient, and its row pitch
+__device__ __forceinline__ float* gw_unit(const MlpArgs& m, float* gw, int u, int* ld) {
+  int i = 0;
+  while (u >= layer_units(m, i)) u -= layer_units(m, i++);
+  const int cb = frag_fan_in(m, i) / 16;
+  *ld = frag_fan_in(m, i);
+  return gw + flat_offset(m, i) + (size_t)(u / cb) * 16 * *ld + (u % cb) * 16;
+}
+
+// This thread's two floats of element pair (g + 8 half, 8 q + 2t) of a
+// unit's C fragments in the flat gradient
+__device__ __forceinline__ float2* unit_pair(float* dst, int ld, int q, int half) {
+  const int lane = threadIdx.x & 31;
+  return reinterpret_cast<float2*>(dst + ((lane >> 2) + 8 * half) * ld + 8 * q + 2 * (lane & 3));
 }
 
 // The forward chain of the warp's 16 rows, from x (shared memory, pitch

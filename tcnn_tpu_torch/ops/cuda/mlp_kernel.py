@@ -172,36 +172,38 @@ _MLP_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 def bwd_smem_bytes(dims: MlpDims, nt: int, ig_floats: int = 0, priv_floats: int = 0) -> int:
     """Shared memory of a K6 or K9 block of nt rows, for the gate that
     picks the tile before any device is asked (the launch takes its bytes
-    from csrc/mlp_bwd_common.cuh's BwdLayout, the same count, and opts in to
-    them there): the weights, every layer's kept bf16 output (row pitch =
-    width + 8), two gradient tiles (bf16 hi and lo halves of the split f32
-    gradient) of pitch max(in_w, width, out_w) + 8, a 16x16 f32 scratch per
-    warp, K9's `ig_floats` f32 per row (its dL/dx partials, L * D) and K6's
+    from csrc/fused_train.cuh's TrainLayout, the same count, and opts in to
+    them there): the padded weights (`frag_weight_elems`), the kept bf16
+    outputs h_0 (the encoding, pitch in_w + 8) and h_1..h_H (pitch
+    width + 8), the output layer's gradient as bf16 hi and lo (pitch
+    out_w + 8), two gradient tiles of hi and lo (pitch width + 8), the
+    second at least the f32 encoding gradient (pitch in_w + 1), K9's
+    `ig_floats` f32 per row (its dL/dx partials, L * D) and K6's
     `priv_floats` f32 of private table gradient
     (`train_kernel.train_layout`)."""
-    ld_g = max(dims.in_w, dims.width, dims.out_w) + 8
-    kept = (dims.in_w + 8) + dims.n_hidden * (dims.width + 8) + (dims.out_w + 8)
+    kept = (dims.in_w + 8) + dims.n_hidden * (dims.width + 8)
+    g_tile = 2 * 2 * nt * (dims.width + 8)
     return (
-        2 * dims.n_weights
+        2 * frag_weight_elems(dims)
         + 2 * nt * kept
-        + 2 * 2 * 2 * nt * ld_g
-        + (nt // 16) * 256 * 4
+        + 2 * 2 * nt * (dims.out_w + 8)
+        + g_tile + max(g_tile, 4 * nt * (dims.in_w + 1))
         + 4 * nt * ig_floats
         + 4 * priv_floats
     )
 
 
-def bwd_tile(dims: MlpDims, ig_floats: int = 0) -> int:
-    """Rows per block of K6/K9: the largest of 128, 64, 32, 16 whose
-    shared memory fits SMEM_OPTIN, else 0."""
+def bwd_tile(dims: MlpDims, ig_floats: int = 0, max_nt: int = 128) -> int:
+    """Rows per block of K6/K9: the largest of 128, 64, 32, 16 up to
+    `max_nt` whose shared memory fits SMEM_OPTIN, else 0."""
     for nt in (128, 64, 32, 16):
-        if bwd_smem_bytes(dims, nt, ig_floats) <= SMEM_OPTIN:
+        if nt <= max_nt and bwd_smem_bytes(dims, nt, ig_floats) <= SMEM_OPTIN:
             return nt
     return 0
 
 
 def frag_weight_elems(dims: MlpDims) -> int:
-    """Elements of the weights in K3's and K5's shared memory
+    """Elements of the weights in K3's, K5's, K6's and K9's shared memory
     (csrc/mlp_frag.cuh): each layer's [fan_out, fan_in] at a row pitch of
     fan_in + 8, so that ldmatrix's eight rows fall in distinct banks."""
     return sum(r * (c + 8) for r, c in dims.layer_sizes())

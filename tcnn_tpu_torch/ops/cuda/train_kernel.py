@@ -16,12 +16,15 @@ returns a `PreparedForward` that holds the grid plan, the MLP shape and the
 bf16 operands, and `fused_forward_prepared` reads nothing else.
 
 K6 replaces ``_kernel_vt`` (reached through ``fused_train_grads`` from
-``Trainer.loss_and_grad_fn``): per tile, K1's gather, the MLP forward
-keeping every layer's output, the loss value and gradient (or an external
-dL/doutput), the MLP backward and K4's scatter, with the encoding and the
-hidden activations kept in shared memory; the scatter sums the leading
-dense levels in the block's spare shared memory (`train_layout`) and adds
-the rest with one vector atomic per corner. `supported` is its gate. Its
+``Trainer.loss_and_grad_fn``): per tile, K1's gather into each warp's own
+rows, the MLP forward on ``mma.sync`` from registers (``csrc/mlp_frag.cuh``)
+keeping each hidden output once, the loss value and gradient from the
+output fragments (or an external dL/doutput), the MLP backward with g split
+into bf16 hi + lo and the weight gradient kept in registers across tiles,
+and K4's scatter; the encoding and the hidden activations never leave
+shared memory. The scatter sums the leading dense levels in the block's
+spare shared memory (`train_layout`, `K6_LAYOUT`) and adds the rest with
+one vector atomic per corner. `supported` is its gate. Its
 stochastic and Rng options replace ``_kernel`` (train_kernel.py:968), where
 the JAX package sends those plans (``_resolve_variant``), and K3's Rng
 option replaces ``_infer_kernel``'s Rng plans (:1331).
@@ -226,19 +229,35 @@ def supported(model, loss, perturbation_sigma: float = 0.0) -> bool:
     return bwd_tile(model.network.dims) > 0
 
 
+#: Shared memory of an H100 SM, of which each resident block reserves 1 KB.
+SMEM_SM = 233_472
+
+#: K6's layout: the most rows of a block's tile and the blocks an SM its
+#: private levels leave room for (each block's budget is SMEM_SM / blocks
+#: less 1 KB, at most SMEM_OPTIN). Chosen by scripts/time_k6_layouts.py
+#: (H100 80GB HBM3, 700 W, B = 2^18; every layout holds 8 warps an SM): at
+#: config_hash 0.828 ms (levels 0-3 private) against 0.957 at (64, 2) and
+#: 0.941 at (32, 4); at the reference default T=2^19 1.143 against 1.239
+#: and 1.422.
+K6_LAYOUT = (128, 1)
+
+
 def train_layout(model) -> tuple:
     """(nt, P, priv) of K6 for a model that `supported` takes: the rows of
-    a block's tile (`mlp_kernel.bwd_tile`), then the leading dense levels
-    0..P-1 whose table gradient the block sums in the shared memory that
-    tile leaves spare (`grid_kernel.private_levels`), and their f32 count
+    a block's tile (`mlp_kernel.bwd_tile`, at most K6_LAYOUT's), then the
+    leading dense levels 0..P-1 whose table gradient the block sums in the
+    shared memory that tile leaves spare of its budget for K6_LAYOUT's
+    blocks an SM (`grid_kernel.private_levels`), and their f32 count
     priv = rows x F, which the launch adds to its layout's bytes; (0, 0, 0)
     when no tile fits."""
     plan, dims = fused_plan_for(model), model.network.dims
-    nt = bwd_tile(dims)
+    max_nt, blocks = K6_LAYOUT
+    nt = bwd_tile(dims, max_nt=max_nt)
     if nt == 0:
         return 0, 0, 0
+    budget = min(SMEM_OPTIN, SMEM_SM // blocks - 1024)
     n_private, rows = private_levels(plan, model.encoding.active_levels(),
-                                     SMEM_OPTIN - bwd_smem_bytes(dims, nt))
+                                     max(0, budget - bwd_smem_bytes(dims, nt)))
     return nt, n_private, rows * plan.f
 
 
@@ -323,10 +342,9 @@ def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noi
     grads = torch.zeros(model.n_params, dtype=torch.float32, device=dev)
     if B == 0:
         return loss_sum, grads
-    grid = persistent_grid("tcnn_fused_train_grid", (B, plan.f, priv, nt, *dims.c_args()[:4]),
-                           dev)
+    grid = persistent_grid("tcnn_fused_train_grid", (B, plan.f, priv, nt, *dims.c_args()), dev)
     # a block's partial: the weights' gradient, then the private levels',
-    # padded to 8 floats (csrc/mlp_bwd_common.cuh: BwdLayout::n_partial)
+    # padded to 8 floats (csrc/fused_train.cuh: TrainLayout::n_partial)
     partials = torch.empty(grid * (dims.n_weights + -(-priv // 8) * 8), dtype=torch.float32,
                            device=dev)
     level_i32, level_f32 = plan.device_consts(dev)
@@ -431,7 +449,7 @@ def fused_ig_grads(model, params, x, gy):
     if B == 0:
         return grads, gx
     grid = persistent_grid("tcnn_fused_ig_grid",
-                           (B, plan.f, plan.n_levels * plan.d, nt, *dims.c_args()[:4]), dev)
+                           (B, plan.f, plan.n_levels * plan.d, nt, *dims.c_args()), dev)
     partials = torch.empty(grid * dims.n_weights, dtype=torch.float32, device=dev)
     level_i32, level_f32 = plan.device_consts(dev)
     fn = _build.function("tcnn_fused_ig", _FUSED_IG_ARGS)

@@ -46,8 +46,8 @@ def test_argtypes_match_the_c_entry_points():
     # the persistent grids, called as mlp_kernel.persistent_grid calls them
     assert sigs["tcnn_grid_bwd_grid"] == [ctypes.c_int] * 4
     assert sigs["tcnn_mlp_bwd_grid"] == [ctypes.c_int] * 9
-    assert sigs["tcnn_fused_train_grid"] == [ctypes.c_int] * 9
-    assert sigs["tcnn_fused_ig_grid"] == [ctypes.c_int] * 9
+    assert sigs["tcnn_fused_train_grid"] == [ctypes.c_int] * 11
+    assert sigs["tcnn_fused_ig_grid"] == [ctypes.c_int] * 11
 
 
 def test_library_path_tracks_the_sources(tmp_path, monkeypatch):
@@ -61,7 +61,7 @@ def test_library_path_tracks_the_sources(tmp_path, monkeypatch):
     edited.write_text(edited.read_text() + "\n// edited\n")
     second = _build.library_path()
     assert second != first
-    header = src / "mlp_bwd_common.cuh"  # a header every backward kernel includes
+    header = src / "mlp_frag.cuh"  # a header every MLP kernel includes
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build.library_path() != second
 
@@ -82,7 +82,7 @@ def test_build_compiles_each_source_in_parallel_then_links(tmp_path, monkeypatch
     out = tmp_path / "lib.so"
     _build._compile_and_link(sources, tmp_path, out)
     calls = log.read_text().splitlines()
-    assert len(calls) == len(sources) + 1 and len(sources) == 11
+    assert len(calls) == len(sources) + 1 and len(sources) == 19
     assert all(" -c " in c for c in calls[:-1]) and " -shared " in calls[-1]
     assert sorted(c.split()[-1] for c in calls[:-1]) == sorted(map(str, sources))
     assert out.exists()

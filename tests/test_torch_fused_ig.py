@@ -84,9 +84,15 @@ def _port_first_order(tm, p, x, gyw):
     return torch.autograd.grad((out.float() * torch.from_numpy(gyw)).sum(), (params, xt))
 
 
-@pytest.mark.parametrize("interp,n_dims", [("Linear", 2), ("Smoothstep", 3)])
-def test_first_order_matches_fused_apply_ig(interp, n_dims):
-    jm, tm, p, x = _pair(n_dims=n_dims, interp=interp)
+@pytest.mark.parametrize("interp,n_dims,f", [
+    pytest.param("Linear", 2, 2, id="Linear-2"),
+    pytest.param("Smoothstep", 3, 2, id="Smoothstep-3"),
+    # 8 features per level: two float4 atomics a corner in K9's scatter
+    pytest.param("Linear", 2, 8, id="Linear-2-F8"),
+])
+def test_first_order_matches_fused_apply_ig(interp, n_dims, f):
+    jm, tm, p, x = _pair(n_dims=n_dims, interp=interp, n_features_per_level=f)
+    assert tm.encoding.plan.f == f and train_kernel.supported_ig(tm)
     gyw = np.random.default_rng(1).standard_normal((x.shape[0], 16)).astype(np.float32)
     jg, jx = _jax_first_order(jm, p, x, jnp.asarray(gyw))
     pg, px = _port_first_order(tm, p, x, gyw)

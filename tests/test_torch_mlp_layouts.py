@@ -1,13 +1,17 @@
-"""K3's and K5's layouts and their mma.sync fragment maps, on the CPU.
+"""K3's, K5's, K6's and K9's layouts and their mma.sync fragment maps, on
+the CPU.
 
-K3 (csrc/fused_infer.cu) and K5 (csrc/mlp_bwd.cu) run the MLP on
-mma.sync.m16n8k16 with the activations in registers (csrc/mlp_frag.cuh).
-The card is the only place they run, so a wrong index (a fragment map, an
-ldmatrix address, the quad exchange of the row stores, a unit of the weight
-gradient dealt twice) would show there only. These tests pin the Python
-mirrors of the shared-memory layouts, tile choices and K5's weight-gradient
-plan, and emulate the header's index arithmetic in numpy (a Python copy of
-every address formula, lane by lane) against plain matrix products.
+K3 (csrc/fused_infer.cu), K5 (csrc/mlp_bwd.cu), K6 and K9
+(csrc/fused_train.cuh) run the MLP on mma.sync.m16n8k16 with the
+activations in registers (csrc/mlp_frag.cuh). The card is the only place
+they run, so a wrong index (a fragment map, an ldmatrix address, the quad
+exchange of the row stores, a unit of the weight gradient dealt twice)
+would show there only. These tests pin the Python mirrors of the
+shared-memory layouts, tile choices and the weight-gradient plans, and
+emulate the header's index arithmetic in numpy (a Python copy of every
+address formula, lane by lane) against plain matrix products; K6's and
+K9's backward with g split into bf16 hi + lo is emulated against the f32
+chain of their twins.
 """
 
 import pathlib
@@ -15,7 +19,9 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
+import tcnn_tpu_torch as tt
 from tcnn_tpu_torch.common import Activation
 from tcnn_tpu_torch.ops.cuda import mlp_kernel as mk
 from tcnn_tpu_torch.ops.cuda import train_kernel as tk
@@ -30,23 +36,31 @@ def _dims(in_w, width, n_hidden, out_w=16):
 REG_UNITS = 4
 
 
-def mlp_bwd_units(dims, nt):
-    """A Python copy of K5's weight-gradient plan at nt rows a block
-    (csrc/mlp_bwd.cu: layer_units, k5_unit and the wgrad loops): [(layer,
-    o0, c0, warp, slot)] for every 16x16 unit gW_layer[o0:o0+16, c0:c0+16],
-    numbered layer by layer and row-major within a layer. Unit u belongs to
-    warp u % (nt // 16); `slot` is its register slot u // (nt // 16) while
-    that is below REG_UNITS, else None: its sums then go through the
-    block's f32 partial once a tile."""
+def mlp_bwd_units(dims, nt, reg_units=REG_UNITS):
+    """A Python copy of K5's (and K6's, K9's) weight-gradient plan at nt
+    rows a block (csrc/mlp_frag.cuh: layer_units, gw_unit; the wgrad loops
+    of csrc/mlp_bwd.cu and csrc/fused_train.cuh): [(layer, o0, c0, warp,
+    slot)] for every 16x16 unit gW_layer[o0:o0+16, c0:c0+16], numbered
+    layer by layer and row-major within a layer. Unit u belongs to warp
+    u % (nt // 16); `slot` is its register slot u // (nt // 16) while that
+    is below `reg_units`, else None: its sums then go through the block's
+    f32 partial once a tile."""
     n_warps = nt // 16
     units = []
     for i, (fan_out, fan_in) in enumerate(dims.layer_sizes()):
         for o0 in range(0, fan_out, 16):
             for c0 in range(0, fan_in, 16):
                 u = len(units)
-                slot = u // n_warps if u // n_warps < REG_UNITS else None
+                slot = u // n_warps if u // n_warps < reg_units else None
                 units.append((i, o0, c0, u % n_warps, slot))
     return units
+
+
+def train_reg_units():
+    """K6's and K9's register units a warp (csrc/fused_train.cuh:
+    TRAIN_REG_UNITS), read from the source."""
+    src = (pathlib.Path(mk.__file__).parents[2] / "csrc" / "fused_train.cuh").read_text()
+    return int(re.search(r"constexpr int TRAIN_REG_UNITS = (\d+);", src).group(1))
 
 
 # (n_hidden, in_w): K3 warps, K3 bytes, K5 rows, K5 bytes, K5 units, all units
@@ -358,3 +372,170 @@ def test_emulated_row_stores():
         words = [got[lane][(s - t) & 3] for s in range(4)]
         out[row, col:col + 8] = np.concatenate(words)
     assert np.array_equal(out, S)
+
+
+# ---------------------------------------------------------------------------
+# K6 and K9 (csrc/fused_train.cuh)
+
+CONFIG = pathlib.Path(__file__).resolve().parents[1] / "data" / "config_hash.json"
+
+
+def _train_net(case):
+    """The networks of K6's and K9's paths: config_hash, the reference
+    default T=2^19, config_hash at F = 8, the SDF sample's config."""
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    if case == "sdf":
+        return tt.create_from_config(3, 1, sdf.CONFIG, device="cpu").network
+    cfg = tt.load_config(str(CONFIG))
+    cfg["encoding"].update({"T=2^19": {"log2_hashmap_size": 19, "per_level_scale": 2.0},
+                            "F=8": {"n_features_per_level": 8}}.get(case, {}))
+    return tt.create_from_config(2, 3, cfg, device="cpu").network
+
+
+# case: (K6 rows, K6 private levels, K6 bytes with them; K9 rows, K9 bytes)
+TRAIN_LAYOUTS = {
+    "config_hash": (128, 4, 149_760 + 41_280, 128, 149_760 + 128 * 16 * 2 * 4),
+    "T=2^19": (128, 3, 149_760 + 43_008, 128, 149_760 + 128 * 16 * 2 * 4),
+    "F=8": (128, 1, 215_808 + 8_192, 128, 215_808 + 128 * 16 * 2 * 4),
+    "sdf": (128, 3, 149_760 + 64_576, 128, 149_760 + 128 * 12 * 3 * 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_LAYOUTS))
+def test_k6_and_k9_layouts_and_units(case):
+    """K6's and K9's tiles, private levels and shared memory at the paths'
+    configs fit SMEM_OPTIN, and their weight-gradient plans cover every
+    weight once, each (warp, register slot) used once."""
+    net = _train_net(case)
+    dims, plan = net.network.dims, net.encoding.plan
+    nt, n_private, priv = tk.train_layout(net)
+    nt9 = tk.ig_tile(net)
+    got = (nt, n_private, mk.bwd_smem_bytes(dims, nt, priv_floats=priv), nt9,
+           mk.bwd_smem_bytes(dims, nt9, ig_floats=plan.n_levels * plan.d))
+    assert got == TRAIN_LAYOUTS[case]
+    assert got[2] <= mk.SMEM_OPTIN and got[4] <= mk.SMEM_OPTIN
+    for rows in (nt, nt9):
+        seen = [np.zeros(s, dtype=int) for s in dims.layer_sizes()]
+        slots = set()
+        r = train_reg_units()
+        for layer, o0, c0, warp, slot in mlp_bwd_units(dims, rows, r):
+            seen[layer][o0:o0 + 16, c0:c0 + 16] += 1
+            if slot is not None:
+                assert (warp, slot) not in slots and slot < r
+                slots.add((warp, slot))
+        assert all((s == 1).all() for s in seen)
+    # config_hash's 28 units all stay in registers at 128 rows
+    if case == "config_hash":
+        assert all(u[4] is not None for u in mlp_bwd_units(dims, nt, train_reg_units()))
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).double().numpy()
+
+
+def _split(m):
+    """mlp_frag.cuh:split_pair on a block: bf16 hi and the bf16 of the rest."""
+    hi = _bf16(m)
+    return hi, _bf16(m - hi)
+
+
+def _frags(m):
+    """The A fragments [32][4][2] of a 16 x 16 block (frag_row, frag_col)."""
+    return np.array([[m[r, c:c + 2] for r, c in (a_pos(lane, j) for j in range(4))]
+                     for lane in range(32)])
+
+
+def _emulated_split_backward(dims, ws, hs, g_out, nt, with_lo=True):
+    """K6's backward (csrc/fused_train.cuh) on nt rows, lane by lane: gout
+    split into hi + lo; per layer from the last, wgrad's units (G^T h, hi
+    then lo, by ldmatrix .trans) and each warp's dgrad (G W, hi then lo:
+    mma_pair_split_smem from gout, mma_pair_split_regs from registers), the
+    ReLU transfer on the accumulators and the split again; the first
+    layer's dgrad in f32 (fin). Sums are exact in f64. Returns (the flat
+    weight gradient, fin). Without `with_lo`, g is bf16 (the control)."""
+    H = dims.n_hidden
+    g_hi, g_lo = _split(g_out)
+    if not with_lo:
+        g_lo = np.zeros_like(g_lo)
+    regs = None  # per warp: (hi slabs, lo slabs) of G_i
+    grads = [None] * (H + 1)
+    fin = np.zeros((nt, dims.in_w))
+    for i in range(H, -1, -1):
+        fan_out, fan_in = ws[i].shape
+        gw = np.zeros((fan_out, fan_in))
+        for o0 in range(0, fan_out, 16):
+            for c0 in range(0, fan_in, 16):
+                c = [np.zeros((32, 4)), np.zeros((32, 4))]
+                for r in range(0, nt, 16):
+                    b = ldsm_x4(padded(hs[i]), rows_first, r, c0, True)
+                    for gt in (g_hi, g_lo):
+                        a = ldsm_x4(padded(gt), cols_first, r, o0, True)
+                        c[0] = mma(c[0], a, b[:, 0], b[:, 1])
+                        c[1] = mma(c[1], a, b[:, 2], b[:, 3])
+                for lane in range(32):
+                    for q in range(2):
+                        for half in range(2):
+                            gw[o0 + lane // 4 + 8 * half,
+                               c0 + 8 * q + 2 * (lane % 4):c0 + 8 * q + 2 * (lane % 4) + 2] = \
+                                c[q][lane][2 * half:2 * half + 2]
+        grads[i] = gw.reshape(-1)
+        new_hi, new_lo, new_regs = np.zeros((nt, fan_in)), np.zeros((nt, fan_in)), []
+        for w in range(nt // 16):
+            rows = slice(16 * w, 16 * w + 16)
+            if i == H:
+                his = [ldsm_x4(padded(g_hi[rows]), rows_first, 0, 16 * s, False)
+                       for s in range(fan_out // 16)]
+                los = [ldsm_x4(padded(g_lo[rows]), rows_first, 0, 16 * s, False)
+                       for s in range(fan_out // 16)]
+            else:
+                his, los = regs[w]
+            out_hi, out_lo = [], []
+            for p in range(fan_in // 16):
+                acc = mma_pair(his, padded(ws[i]), p, True)
+                acc_lo = mma_pair(los, padded(ws[i]), p, True)
+                m = slab_matrix(pack_pair([acc[0] + acc_lo[0], acc[1] + acc_lo[1]]))
+                cols = slice(16 * p, 16 * p + 16)
+                if i == 0:
+                    fin[rows, cols] = m
+                    continue
+                m = m * (hs[i][rows, cols] > 0)  # ReLU's transfer from the kept output
+                hi, lo = _split(m)
+                if not with_lo:
+                    lo = np.zeros_like(lo)
+                new_hi[rows, cols], new_lo[rows, cols] = hi, lo
+                out_hi.append(_frags(hi))
+                out_lo.append(_frags(lo))
+            new_regs.append((out_hi, out_lo))
+        g_hi, g_lo, regs = new_hi, new_lo, new_regs
+    return np.concatenate(grads), fin
+
+
+def test_emulated_split_backward_matches_the_f32_chain():
+    """K6's and K9's hi + lo backward against their twins' f32 chain
+    (train_kernel._mlp_backward_f32), both in f64 on the same bf16 weights
+    and kept outputs. Tolerance 2^-14 norm-relative (hi + lo carries g to
+    16 significant bits, 2^-17 relative an element, split again at each of
+    three layers; measured 3.4e-6 on the weights and 4.2e-6 on the encoding
+    gradient, seeds 5-7); the control, g in bf16 alone (lo dropped), reads
+    2.4e-3 to 3.0e-3 and must fail it."""
+    rng = np.random.default_rng(5)
+    dims = _dims(32, 32, 2)
+    nt = 32
+    ws = [_bf16(rng.normal(size=s) * 0.3) for s in dims.layer_sizes()]
+    x = _bf16(rng.uniform(-1, 1, (nt, dims.in_w)))
+    hs = [h.double().numpy() for h in mk._forward_keep(
+        dims, [torch.from_numpy(w).float() for w in ws], torch.from_numpy(x).float())]
+    g_out = rng.normal(size=(nt, dims.out_w)).astype(np.float32).astype(np.float64) * 1e-2
+    ref_grads, ref_fin = tk._mlp_backward_f32(
+        dims, [torch.from_numpy(w) for w in ws], [torch.from_numpy(h) for h in hs],
+        torch.from_numpy(g_out))
+    ref = np.concatenate([g.numpy() for g in ref_grads])
+
+    def rel(a, b):
+        return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+    gw, fin = _emulated_split_backward(dims, ws, hs, g_out, nt)
+    assert rel(gw, ref) < 2.0**-14 and rel(fin, ref_fin.numpy()) < 2.0**-14
+    gw, fin = _emulated_split_backward(dims, ws, hs, g_out, nt, with_lo=False)
+    assert rel(gw, ref) > 2.0**-14 and rel(fin, ref_fin.numpy()) > 2.0**-14

@@ -31,7 +31,7 @@ def _model(d=2, n_out=3, width=64, n_hidden=2, **enc):
 
 
 @pytest.mark.parametrize("enc,k6,k4", [
-    # levels 0-3 (5,160 rows) in K6's 82,944 spare bytes; K4 levels 0-4
+    # levels 0-3 (5,160 rows) in K6's 82,688 spare bytes; K4 levels 0-4
     ({}, (128, 4, 5160 * 2), (5, 11728)),
     # 256, 1024, 4096 rows (43,008 bytes); level 3's 16,384 rows do not fit
     (REFERENCE, (128, 3, 5376 * 2), (3, 5376)),
@@ -39,7 +39,7 @@ def _model(d=2, n_out=3, width=64, n_hidden=2, **enc):
 def test_plan_at_config_hash_and_reference_default(enc, k6, k4):
     net = _model(**enc)
     dims = net.network.dims
-    assert mlp_kernel.SMEM_OPTIN - mlp_kernel.bwd_smem_bytes(dims, 128) == 82_944
+    assert mlp_kernel.SMEM_OPTIN - mlp_kernel.bwd_smem_bytes(dims, 128) == 82_688
     assert train_kernel.train_layout(net) == k6
     plan = net.encoding.plan
     assert grid_kernel.private_levels(plan, plan.n_levels, grid_kernel.K4_PRIVATE_BYTES) == k4
@@ -84,11 +84,13 @@ def test_plan_empty_where_nothing_fits():
 
 
 @pytest.mark.parametrize("f", [1, 2, 4, 8])
-def test_k6_layout_fits_the_block(f):
+def test_k6_layout_fits_the_block(f, monkeypatch):
     """For every model the fused train kernel takes (here: D 2 and 3, F,
-    every fused width, 1-5 hidden layers, T = 2^14 and 2^19, any max_level),
-    the tile plus its private levels fit SMEM_OPTIN, the private rows are
-    whole unhashed levels from row 0, and none lies past n_active."""
+    every fused width, 1-5 hidden layers, T = 2^14 and 2^19, any max_level)
+    and each K6_LAYOUT that scripts/time_k6_layouts.py times, the tile plus
+    its private levels fit SMEM_OPTIN and, when any level is private, the
+    layout's per-block budget; the private rows are whole unhashed levels
+    from row 0, and none lies past n_active."""
     loss = tt.create_loss({"otype": "RelativeL2"})
     for d in (2, 3):
         for width in mlp_kernel.FUSED_WIDTHS:
@@ -100,10 +102,15 @@ def test_k6_layout_fits_the_block(f):
                         net.encoding.max_level = max_level
                         if not train_kernel.supported(net, loss):
                             continue
-                        nt, p, priv = train_kernel.train_layout(net)
                         plan = net.encoding.plan
-                        assert nt > 0 and 0 <= p <= net.encoding.active_levels()
-                        assert not any(plan.use_hash[:p])
-                        assert priv == plan.offsets[p] * f
-                        assert mlp_kernel.bwd_smem_bytes(net.network.dims, nt,
-                                                         priv_floats=priv) <= mlp_kernel.SMEM_OPTIN
+                        for max_nt, blocks in ((128, 1), (64, 2), (32, 4)):
+                            monkeypatch.setattr(train_kernel, "K6_LAYOUT", (max_nt, blocks))
+                            nt, p, priv = train_kernel.train_layout(net)
+                            assert 0 < nt <= max_nt and 0 <= p <= net.encoding.active_levels()
+                            assert not any(plan.use_hash[:p])
+                            assert priv == plan.offsets[p] * f
+                            used = mlp_kernel.bwd_smem_bytes(net.network.dims, nt,
+                                                             priv_floats=priv)
+                            assert used <= mlp_kernel.SMEM_OPTIN
+                            budget = train_kernel.SMEM_SM // blocks - 1024
+                            assert priv == 0 or used <= budget
