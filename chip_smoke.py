@@ -11,7 +11,9 @@ Phases, each printing JSON lines:
      one nvcc per source, in parallel;
   3. each kernel against its plain PyTorch twin on the card at config_hash
      shapes, B = 2^18, 2^18 - 37 and 1: K1 grid forward, K2 fused MLP
-     forward (also at width 128 with 5 hidden layers), K3 fused inference,
+     forward (also at width 128 with 5 hidden layers; beside a control, its
+     twin on an input whose last 16 columns are dropped, at B > 1), K3
+     fused inference (also equal to K2(K1(x)) bit for bit),
      K4 grid backward, K5 fused MLP backward (also 128x5; its gW and gx
      bit-equal between two launches on the same inputs, wherever it is
      checked), K6 fused train step (also with a pdf, output noise and an
@@ -19,8 +21,9 @@ Phases, each printing JSON lines:
      launches at each B), each gradient bound beside a control of lower
      precision that it must reject; then, at B = 2^16 - 37, K6 on all nine losses and K4, K5 and K6
      on every activation but Sine, Smoothstep and Nearest interpolation and
-     max_level; and K4 and K6 at 8 features per level (B = 2^18, 2^18 - 37),
-     each beside its control;
+     max_level; K3, K4 and K6 at 8 features per level (B = 2^18,
+     2^18 - 37), each beside its control; K1 bit for bit at the SDF config
+     (B = 2^16, 2^16 - 37 and 1024 points), at D = 4 and with Nearest;
   4. the inference slice: `create_from_config` on data/config_hash.json at
      full width, requests through `trainer.inference` (K3) checked against
      the composed `model.apply` (K1 + K2) and the plain twins on the CPU, the
@@ -107,8 +110,8 @@ Phases, each printing JSON lines:
      composed one, and times.
 Then a line with every kernel and option (its launches on the main path,
 error against its twin, time, twin's time, bound, what bounds it and its
-yardstick's time; K3's, K5's, K6's and K9's entries, redesigned for
-Hopper, say so),
+yardstick's time; K1's, K2's, K3's, K5's, K6's and K9's entries,
+redesigned for Hopper, say so),
 the `nvidia-smi` line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; it also exits non-zero when no GPU is present.
@@ -384,6 +387,32 @@ def compare(name, got, want, rel_ulp=None, rel_max=None):
     check(ok, f"{name}: kernel disagrees with its plain twin (max abs err {err})")
     torch.cuda.synchronize()
     return err
+
+
+def compare_exact(name, got, want):
+    """`got` equal to `want` bit for bit (bf16 compared as its bits, so a
+    zero's sign counts); the largest difference is printed either way."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype, f"{name}: shape/dtype")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    bits = (lambda t: t.view(torch.int16)) if got.dtype == torch.bfloat16 else (lambda t: t)
+    same = bool(torch.equal(bits(got), bits(want)))
+    emit({"phase": "compare", "name": name, "B": int(got.shape[0]), "max_abs_err": err,
+          "bit_equal_share": float((diff == 0).float().mean()) if diff.numel() else 1.0,
+          "limit": "bit-equal", "ok": same})
+    check(same, f"{name}: not bit-equal (max abs err {err})")
+    return err
+
+
+def drop_last_slab(x):
+    """x with its last 16 columns zeroed: the input of a fused MLP chain
+    that skips its last k16 slab, K2's control."""
+    y = x.clone()
+    y[:, -16:] = 0
+    return y
 
 
 def norm_errors(got, want, bounds, split=None):
@@ -665,10 +694,11 @@ def scatter_f32(plan, x, g, z=None):
 
 def check_f8(cfg, gen, dev):
     """Phase 3c: config_hash with 8 features per level (a 128-wide MLP
-    input; K6 at a 64-row tile; levels 0-2 private in K4 and K6): K4 and
-    K6 against their twins at B = 2^18 and 2^18 - 37, each bound beside a
-    control that must break it (K4's contributions unrounded; K6 with g in
-    bf16). Returns {kernel: max abs err}."""
+    input; K6 at a 64-row tile; levels 0-2 private in K4 and K6): K3, K4
+    and K6 against their twins at B = 2^18 and 2^18 - 37, each bound beside
+    a control that must break it (K3's twin reading each row's features
+    rotated by one; K4's contributions unrounded; K6 with g in bf16).
+    Returns {kernel: max abs err}."""
     import torch
     from tcnn_tpu_torch.ops.cuda import grid_kernel, train_kernel
 
@@ -677,9 +707,18 @@ def check_f8(cfg, gen, dev):
     plan = net.encoding.plan
     check(plan.f == 8 and tr.use_fused(), "F = 8 must take K6")
     L, w = plan.n_levels, net.encoding.padded_output_width
-    errs = {"K4": 0.0, "K6": 0.0}
+    prep = train_kernel.prepare_forward(net, tr.params)
+    errs = {"K3": 0.0, "K4": 0.0, "K6": 0.0}
     for B in BATCHES[:2]:
         x = torch.rand(B, 2, generator=gen).to(dev)
+        want3 = train_kernel._fused_forward_plain(prep, x)
+        errs["K3"] = max(errs["K3"], compare(
+            f"K3 fused_infer F=8 B={B}", train_kernel.fused_forward_prepared(prep, x), want3,
+            rel_max=MLP_REL))
+        control_max(f"K3 F=8 B={B}, each row's features rotated by one",
+                    train_kernel._fused_forward_plain(
+                        dataclasses.replace(prep, table=prep.table.roll(1, dims=1)), x),
+                    want3, MLP_REL)
         gy = torch.randn(B, w, generator=gen).to(torch.bfloat16).to(dev)
         want = grid_kernel._grid_backward_plain(plan, x, gy, L)
         errs["K4"] = max(errs["K4"], compare_norm(
@@ -694,6 +733,35 @@ def check_f8(cfg, gen, dev):
         "K4": grid_kernel.private_levels(plan, L, grid_kernel.K4_PRIVATE_BYTES)[0],
         "K6": train_kernel.train_layout(net)[1]}, "tile": train_kernel.train_layout(net)[0]})
     return errs
+
+
+def check_k1_shapes(cfg, dev):
+    """Phase 3d: K1 bit for bit against its twin where config_hash does not
+    take it: the SDF sample's 3-D grid (12 levels, T = 2^17; 24 columns
+    padded to 32, the padding groups written by K1) at B = 2^16, 2^16 - 37
+    and the eikonal term's 1024 points, that grid at D = 4, and config_hash
+    with Nearest (one corner, loaded by one lane of each pair), B = 2^16.
+    Its own generator, so later inputs are those they were. Returns the
+    max abs err."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, train_kernel
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    k1_gen = torch.Generator().manual_seed(SEED + 15)
+    err = 0.0
+    cases = (("SDF", sdf.CONFIG, 3, {}, (B_SDF, B_SDF - 37, sdf.N_EIKONAL)),
+             ("SDF D=4", sdf.CONFIG, 4, {}, (B_SDF,)),
+             ("Nearest", cfg, 2, {"interpolation": "Nearest"}, (B_SDF,)))
+    for label, c, d, enc, batches in cases:
+        m = reference_model(c, SEED + 15, dev, k1_gen, d=d, n_out=1, **enc)
+        prep = train_kernel.prepare_forward(m.network, m.trainer.params)
+        plan, w = prep.plan, m.network.encoding.padded_output_width
+        for B in batches:
+            x = torch.rand(B, d, generator=k1_gen).to(dev)
+            err = max(err, compare_exact(
+                f"K1 grid_fwd {label} B={B}", grid_kernel.grid_encode(plan, prep.table, x, w, plan.n_levels),
+                grid_kernel._grid_encode_plain(plan, prep.table, x, w, plan.n_levels)))
+    return err
 
 
 def eikonal_inputs(net, params, x):
@@ -1249,11 +1317,13 @@ def k5_bound(dims, weights, enc, gy):
 
 
 def time_path_shapes(net, params, snet, sparams, gen, w128):
-    """K3 and K5 at their paths' other shapes, each (ms, twin ms, None)
-    beside its (bound ms, bound_by): K3 at B = 2^20 on `net` (the image
-    sample's render chunk) and at the eikonal term's 1024 points on the SDF
-    model `snet`; K5 at the SDF's data term (B = 2^16) and at 128 x 5 (the
-    weights `w128`, B = 2^18)."""
+    """K1, K2, K3 and K5 at their paths' other shapes, each (ms, twin ms,
+    None) beside its (bound ms, bound_by): K3 at B = 2^20 on `net` (the
+    image sample's render chunk) and at the eikonal term's 1024 points on
+    the SDF model `snet`; K5 at the SDF's data term (B = 2^16) and at 128 x
+    5 (the weights `w128`, B = 2^18); K1 at the SDF's 2^16 and 1024 points;
+    K2 at the SDF's data term, at 128 x 5 and at the PPNG sample models'
+    MLP input widths 48 and 16 (B = 2^16)."""
     import torch
     from tcnn_tpu_torch.common import Activation
     from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
@@ -1283,6 +1353,33 @@ def time_path_shapes(net, params, snet, sparams, gen, w128):
                             lambda: mlp_kernel._mlp_backward_plain(dims, weights, enc, gy),
                             iters=20)
         bounds[key] = k5_bound(dims, weights, enc, gy)
+    # K1 at the SDF step's two launches (the data term's 2^16 points and the
+    # eikonal term's 1024), K2 at its data term, at 128 x 5 and at the PPNG
+    # sample models' MLP input widths (random bf16 inputs)
+    w = snet.encoding.padded_output_width
+    for B in (B_SDF, sdf.N_EIKONAL):
+        x = torch.rand(B, 3, generator=gen).to(dev)
+        ms[f"K1 SDF B={B}"] = time_pair(
+            lambda: grid_kernel.grid_encode(sprep.plan, sprep.table, x, w, sprep.plan.n_levels),
+            lambda: grid_kernel._grid_encode_plain(sprep.plan, sprep.table, x, w,
+                                                   sprep.plan.n_levels), iters=20)
+        bounds[f"K1 SDF B={B}"] = kernel_bound(bytes_of(x, sprep.table) + B * w * 2,
+                                               f32=grid_ops(B, sprep.plan, "fwd"))
+    x = torch.rand(B_SDF, 3, generator=gen).to(dev)
+    enc = grid_kernel.grid_encode(sprep.plan, sprep.table, x, w, sprep.plan.n_levels)
+    cases = [("K2 SDF B=2^16", sprep.dims, sprep.weights, enc),
+             ("K2 128x5", dims128, w128, (torch.rand(B_MAIN, dims128.in_w, generator=gen) * 2 - 1)
+              .to(torch.bfloat16).to(dev))]
+    for in_w in (48, 16):
+        pdims = mlp_kernel.MlpDims(in_w, 64, 2, 16, Activation.ReLU, Activation.NONE)
+        pw = (torch.rand(pdims.n_weights, generator=gen) * 0.2 - 0.1).to(torch.bfloat16).to(dev)
+        px = (torch.rand(B_SDF, in_w, generator=gen) * 2 - 1).to(torch.bfloat16).to(dev)
+        cases.append((f"K2 in_w={in_w} B=2^16", pdims, pw, px))
+    for key, dims, weights, xin in cases:
+        ms[key] = time_pair(lambda: mlp_kernel.mlp_forward(dims, weights, xin),
+                            lambda: mlp_kernel._mlp_forward_plain(dims, weights, xin), iters=20)
+        bounds[key] = kernel_bound(bytes_of(xin, weights) + xin.shape[0] * dims.out_w * 2,
+                                   bf16=2 * xin.shape[0] * dims.n_weights)
     return ms, bounds
 
 
@@ -1991,15 +2088,23 @@ def main() -> int:
         errs["K1"] = max(errs["K1"], compare(
             "K1 grid_fwd", grid_kernel.grid_encode(plan, prep.table, x, enc_w, L),
             enc_plain, rel_ulp=K1_REL))
+        k2_want = mlp_kernel._mlp_forward_plain(dims, prep.weights, enc_plain)
         errs["K2"] = max(errs["K2"], compare(
-            "K2 mlp_fwd", mlp_kernel.mlp_forward(dims, prep.weights, enc_plain),
-            mlp_kernel._mlp_forward_plain(dims, prep.weights, enc_plain), rel_max=MLP_REL))
+            "K2 mlp_fwd", mlp_kernel.mlp_forward(dims, prep.weights, enc_plain), k2_want,
+            rel_max=MLP_REL))
+        if B > 1:  # one sample's output need not move past the bound's absolute floor
+            control_max(f"K2 B={B}, its input's last k16 slab dropped", mlp_kernel._mlp_forward_plain(
+                dims, prep.weights, drop_last_slab(enc_plain)), k2_want, MLP_REL)
         errs["K2"] = max(errs["K2"], compare(
             "K2 mlp_fwd 128x5", mlp_kernel.mlp_forward(dims128, w128, enc_plain),
             mlp_kernel._mlp_forward_plain(dims128, w128, enc_plain), rel_max=MLP_REL))
+        k3 = train_kernel.fused_forward_prepared(prep, x)
         errs["K3"] = max(errs["K3"], compare(
-            "K3 fused_infer", train_kernel.fused_forward_prepared(prep, x),
-            train_kernel._fused_forward_plain(prep, x), rel_max=MLP_REL))
+            "K3 fused_infer", k3, train_kernel._fused_forward_plain(prep, x), rel_max=MLP_REL))
+        # K3 gathers with the shared walker and K1 with its lane pairs, in the
+        # same corner order; both run frag_forward on the same bf16 encoding
+        compare_exact(f"K3 vs K2(K1) B={B}", k3, mlp_kernel.mlp_forward(
+            dims, prep.weights, grid_kernel.grid_encode(plan, prep.table, x, enc_w, L)))
 
         gy = torch.randn(B, enc_w, generator=gen).to(torch.bfloat16).to(dev)
         errs["K4"] = max(errs["K4"], compare_norm(
@@ -2066,10 +2171,12 @@ def main() -> int:
                 f"K4 grid_bwd {label}", grid_kernel.grid_backward(vprep.plan, x, gy, n_active),
                 grid_kernel._grid_backward_plain(vprep.plan, x, gy, n_active), GRID_BWD_REL))
 
-    # 3c. F = 8 through K4 and K6 (two float4 atomics a corner; the private
-    #     levels' budget at 32 bytes a row)
+    # 3c. F = 8 through K3, K4 and K6 (16-byte rows; two float4 atomics a
+    #     corner; the private levels' budget at 32 bytes a row)
     for k, v in check_f8(cfg, gen, dev).items():
         errs[k] = max(errs[k], v)
+    # 3d. K1 bit for bit beyond config_hash (its own generator)
+    errs["K1"] = max(errs["K1"], check_k1_shapes(cfg, dev))
 
     # 4. the inference slice, through the entry points a user calls
     reset_counters()
@@ -2435,10 +2542,11 @@ def main() -> int:
     for k, replaces in binned.items():
         entries.append((f"{k} T=2^19", f"{sources[k][0]} (T=2^19)", sources[k][1], replaces,
                         ref_launches[k], ref_errs[k], ref_ms[k], ref_bounds[k]))
-    # K3, K5, K6 and K9, redesigned for Hopper (mma.sync layers in
+    # K1-K3, K5, K6 and K9, redesigned for Hopper (K1: D fixed at compile
+    # time, lane pairs sharing corner loads; the others: mma.sync layers in
     # registers, persistent blocks, the weight gradient in registers across
     # tiles)
-    redesigned = dict.fromkeys(("K3", "K5", "K6", "K9"), "redesigned for Hopper")
+    redesigned = dict.fromkeys(("K1", "K2", "K3", "K5", "K6", "K9"), "redesigned for Hopper")
     entries = [(key, (name[:-1] + "; " + redesigned[key.split()[0]] + ")" if name.endswith(")")
                       else f"{name} ({redesigned[key.split()[0]]})")
                 if key.split()[0] in redesigned else name, *rest)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times of the MLP kernels at the shapes their paths launch, on one CUDA
-GPU, through the package's public wrappers only:
+"""Times of the grid forward and MLP kernels at the shapes their paths
+launch, on one CUDA GPU, through the package's public wrappers only:
 
     python3 scripts/time_mlp_kernels.py [CHECKOUT] [--ptxas]
 
@@ -22,11 +22,15 @@ seed, the grid table redrawn from U(-1, 1):
     per_level_scale 2.0), B = 2^18;
   samples/learn_a_sdf.CONFIG: K3 and K9 (fused_ig_grads) at the eikonal
     term's 1024 points, K5 at B = 2^16 (the data term), K9 at 2^16 and 2^18;
-  K5 at width 128 with 5 hidden layers (in 32, out 16), B = 2^18.
-With --ptxas, also `nvcc -Xptxas -v` of the checkout's fused_infer.cu,
-mlp_bwd.cu and K6's and K9's sources (fused_train*.cu, fused_ig*.cu) at
-the build's flags, all at once: each K3, K5, K6 and K9 instantiation's
-registers and spills. Prints one JSON line with the card's `nvidia-smi`
+  K5 at width 128 with 5 hidden layers (in 32, out 16), B = 2^18;
+  K1 at the SDF config's B = 2^16 and 1024 points (its two launches a step:
+    the data term and the eikonal term's second order), K2 at B = 2^16 on
+    its encoding, K2 at 128 x 5 (B = 2^18), and K2 at the PPNG sample
+    models' MLP input widths 48 and 16 (B = 2^16, random bf16 inputs).
+With --ptxas, also `nvcc -Xptxas -v` of the checkout's grid_fwd.cu,
+mlp_fwd.cu, fused_infer.cu, mlp_bwd.cu and K6's and K9's sources
+(fused_train*.cu, fused_ig*.cu) at the build's flags, all at once: each
+K1, K2, K3, K5, K6 and K9 instantiation's registers and spills. Prints one JSON line with the card's `nvidia-smi`
 name and power limit. Exits non-zero without a CUDA device.
 """
 
@@ -102,16 +106,18 @@ def randomized(model, gen):
     return tr
 
 
-KERNELS = ("fused_infer_kernel", "mlp_bwd_kernel", "fused_train_kernel")
+KERNELS = ("grid_fwd_kernel", "mlp_fwd_kernel", "fused_infer_kernel", "mlp_bwd_kernel",
+           "fused_train_kernel")
 
 
 def ptxas_readings():
-    """{kernel instantiation: ptxas's 'Used ...' and spill lines} of K3, K5,
-    K6 and K9."""
+    """{kernel instantiation: ptxas's 'Used ...' and spill lines} of K1, K2,
+    K3, K5, K6 and K9."""
     from tcnn_tpu_torch.ops.cuda import _build
 
     out = {}
-    sources = [_build.CSRC / "fused_infer.cu", _build.CSRC / "mlp_bwd.cu",
+    sources = [_build.CSRC / "grid_fwd.cu", _build.CSRC / "mlp_fwd.cu",
+               _build.CSRC / "fused_infer.cu", _build.CSRC / "mlp_bwd.cu",
                *sorted(_build.CSRC.glob("fused_train*.cu")),
                *sorted(_build.CSRC.glob("fused_ig*.cu"))]
     with tempfile.TemporaryDirectory() as tmp:
@@ -188,6 +194,7 @@ def main() -> int:
         w128 = (torch.rand(dims128.n_weights, generator=gen) * 0.2 - 0.1).to(torch.bfloat16)
         w128 = w128.to(dev)
         timed("K5 128x5", lambda: mlp_kernel.mlp_backward(dims128, w128, enc, gy))
+        timed("K2 128x5", lambda: mlp_kernel.mlp_forward(dims128, w128, enc))
 
     sm = tt.create_from_config(3, 1, sdf.CONFIG, seed=SEED, device=dev)
     str_, snet = randomized(sm, gen), sm.network
@@ -200,13 +207,24 @@ def main() -> int:
                                                                           gy_out))
         if B == sdf.N_EIKONAL:
             timed(f"K3 SDF B={B}", lambda: train_kernel.fused_forward_prepared(sprep, x))
-        elif B == 1 << 16:
+        if B < 1 << 18:
+            timed(f"K1 SDF B={B}", lambda: grid_kernel.grid_encode(
+                sprep.plan, sprep.table, x, snet.encoding.padded_output_width,
+                sprep.plan.n_levels))
+        if B == 1 << 16:
             enc = grid_kernel.grid_encode(sprep.plan, sprep.table, x,
                                           snet.encoding.padded_output_width,
                                           sprep.plan.n_levels)
             gy = torch.randn(B, sprep.dims.out_w, generator=gen).to(torch.bfloat16).to(dev)
             timed(f"K5 SDF B={B}", lambda: mlp_kernel.mlp_backward(
                 sprep.dims, sprep.weights, enc, gy))
+            timed(f"K2 SDF B={B}", lambda: mlp_kernel.mlp_forward(sprep.dims, sprep.weights, enc))
+            for in_w in (48, 16):  # the PPNG sample models' data term
+                pdims = mlp_kernel.MlpDims(in_w, 64, 2, 16, Activation.ReLU, Activation.NONE)
+                pw = (torch.rand(pdims.n_weights, generator=gen) * 0.2 - 0.1).to(torch.bfloat16)
+                px = (torch.rand(B, in_w, generator=gen) * 2 - 1).to(torch.bfloat16)
+                pw, px = pw.to(dev), px.to(dev)
+                timed(f"K2 PPNG in_w={in_w} B={B}", lambda: mlp_kernel.mlp_forward(pdims, pw, px))
 
     print(json.dumps({"checkout": str(ROOT), "card": smi, "ms": ms, "device_ms": dev_ms,
                       "ptxas": ptxas_readings() if "--ptxas" in sys.argv else None}),

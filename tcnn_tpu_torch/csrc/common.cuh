@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA kernels: bf16 row loads/stores of F
-// features and the fixed-order sum of per-block partials.
+// features (and the f32 values of a row's raw bits) and the fixed-order sum
+// of per-block partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,11 +19,16 @@ template <> struct BfVec<4> { using T = uint2; };
 template <> struct BfVec<8> { using T = uint4; };
 
 template <int F>
-__device__ __forceinline__ void load_bf16(const bf16* p, float* v) {
+__device__ __forceinline__ void unpack_bf16(typename BfVec<F>::T raw, float* v) {
   union { typename BfVec<F>::T raw; unsigned short h[F]; } u;
-  u.raw = *reinterpret_cast<const typename BfVec<F>::T*>(p);
+  u.raw = raw;
 #pragma unroll
   for (int f = 0; f < F; ++f) v[f] = __uint_as_float(((unsigned)u.h[f]) << 16);  // exact
+}
+
+template <int F>
+__device__ __forceinline__ void load_bf16(const bf16* p, float* v) {
+  unpack_bf16<F>(*reinterpret_cast<const typename BfVec<F>::T*>(p), v);
 }
 
 template <int F>

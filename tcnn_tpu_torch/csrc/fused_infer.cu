@@ -11,13 +11,14 @@
 //   a few microseconds of the tensor cores.
 // What the design does about it: persistent blocks load the weights once
 //   (mlp_frag.cuh's padded layout) and their warps walk 16-row tiles, each
-//   on its own: a warp gathers its rows' encoding with K1's per-(sample,
-//   level) walker (grid_common.cuh) into its own slice of shared memory,
-//   runs the layer chain on mma.sync with the activations in registers
-//   (frag_forward), and writes the output rows as 16-byte pieces. No
-//   barrier follows the weights' load, so while one warp runs its MLP the
-//   SM's other warps keep their gathers in flight; registers (64 a thread
-//   up to width 64) and the block's small shared memory set how many. A
+//   on its own: a warp gathers its rows' encoding with the shared
+//   per-(sample, level) walker (grid_common.cuh:grid_level) into its own
+//   slice of shared memory, runs the layer chain on mma.sync with the
+//   activations in registers (frag_forward), and writes the output rows as
+//   16-byte pieces. No barrier follows the weights' load, so while one warp
+//   runs its MLP the SM's other warps keep their gathers in flight;
+//   registers (64 a thread up to width 64) and the block's small shared
+//   memory (K2's layout, mlp_frag.cuh:frag_tile_smem_bytes) set how many. A
 //   kernel is built for the ReLU / None activations with no branch on them
 //   (mlp_frag.cuh:with_acts). The batch tail is masked.
 // Rng option: replaces train_kernel.py:_infer_kernel's Rng plans (:1331), which
@@ -27,13 +28,6 @@
 #include "mlp_frag.cuh"
 
 namespace tcnn {
-
-// A block's shared memory at `warps` warps: the padded weights, then each
-// warp's 16 encoded rows at a pitch of in_w + 8 (ops/cuda/train_kernel.py:
-// infer_smem_bytes counts the same).
-inline size_t infer_smem_bytes(const MlpArgs& m, int warps) {
-  return (frag_weight_elems(m) + (size_t)warps * 16 * (m.in_w + 8)) * sizeof(bf16);
-}
 
 template <int F, int WIDTH, int ACT, int OUT_ACT>
 __global__ void __launch_bounds__(256, WIDTH <= 64 ? 4 : 2)
@@ -79,7 +73,7 @@ static int launch_fused(const GridArgs& g, const MlpArgs& m, bf16* out, long B, 
                         int device, cudaStream_t stream) {
   return with_acts(m.act, m.out_act, [&](auto act, auto out_act) {
     const auto kernel = fused_infer_kernel<F, WIDTH, decltype(act)::value, decltype(out_act)::value>;
-    const size_t smem = infer_smem_bytes(m, warps);
+    const size_t smem = frag_tile_smem_bytes(m, warps);
     const long n_tiles = (B + 15) / 16;
     const int grid = resident_grid(kernel, warps * 32, smem, device, (n_tiles + warps - 1) / warps);
     if (grid < 0) return -grid;
@@ -117,10 +111,8 @@ extern "C" int tcnn_fused_infer(const void* x, const void* table, const void* le
       cudaSuccess)
     return (int)cudaErrorInvalidValue;
   MlpArgs m{static_cast<const bf16*>(weights), in_w, width, n_hidden, out_w, act, out_act};
-  // the most warps a block (up to 8) whose shared memory fits
-  // (train_kernel.py:infer_warps)
-  int warps = 8;
-  while (warps > 0 && infer_smem_bytes(m, warps) > (size_t)limit) warps /= 2;
+  // the most warps a block (up to 8) whose shared memory fits, K2's layout
+  const int warps = frag_tile_warps(m, (size_t)limit);
   if (warps == 0) return (int)cudaErrorInvalidValue;
   GridArgs g{static_cast<const float*>(x), static_cast<const bf16*>(table),
              static_cast<const int*>(level_i32), static_cast<const float*>(level_f32),

@@ -1,6 +1,7 @@
 // One (sample, level) of the multiresolution grid, forward and backward,
-// shared by K1 (grid_fwd.cu), K3 (fused_infer.cu), K4 (grid_bwd.cu), K6 and
-// K9 (fused_train.cu), K7 (grid_bwd_ig.cu) and K8 (grid_bwd_bwd.cu).
+// shared by K3 (fused_infer.cu), K4 (grid_bwd.cu), K6 and K9
+// (fused_train.cu), K7 (grid_bwd_ig.cu) and K8 (grid_bwd_bwd.cu); K1
+// (grid_fwd.cu) walks the same corners on lane pairs, grid_level_pair.
 //
 // The arithmetic is written to round exactly where the plain PyTorch twin
 // (ops/cuda/grid_kernel.py:_corners) and the JAX package round: every float
@@ -11,10 +12,11 @@
 // c = 0..C-1, in the twin's order. Cells are int32(floor(pos)) reinterpreted
 // as uint32; strides, hashes and dense indices wrap in uint32
 // (grid.py:256-291), and the row within a level is an exact integer modulo.
-// The forward and the backwards visit the corners through one function,
-// grid_corners, so all agree on every corner at cell boundaries; the
-// stochastic scatter picks its one corner through the same position and
-// row functions (grid_stoch_row).
+// The fused forwards and the backwards visit the corners through one
+// function, grid_corners, so all agree on every corner at cell boundaries;
+// the stochastic scatter picks its one corner through the same position and
+// row functions (grid_stoch_row). K1's grid_level_pair repeats the same
+// operations in the same order with D fixed at compile time.
 //
 // Two options of every grid kernel (K1, K3, K4, K6, K7, K8, K9):
 // - HashType.Rng (HASH_RNG): a hashed level indexes through rng_hash, the
@@ -278,6 +280,150 @@ __device__ __forceinline__ void grid_level(const GridArgs& g, long b, int l, flo
 #pragma unroll
     for (int f = 0; f < F; ++f) out[f] = __fadd_rn(out[f], __fmul_rn(v[f], cw));
   });
+}
+
+// A level's constants in registers (K1): two 16-byte loads of its
+// level_i32 row and its scale.
+struct LevelConsts {
+  unsigned offset, size, stride[4];
+  float scale;
+  bool hashed, pow2;
+};
+
+__device__ __forceinline__ LevelConsts level_consts(const GridArgs& g, int l) {
+  const int4 c0 = reinterpret_cast<const int4*>(g.level_i32)[2 * l];
+  const int4 c1 = reinterpret_cast<const int4*>(g.level_i32)[2 * l + 1];
+  LevelConsts k;
+  k.offset = (unsigned)c0.x;
+  k.size = (unsigned)c0.y;
+  k.hashed = c0.z != 0;
+  k.pow2 = (k.size & (k.size - 1u)) == 0u;
+  k.stride[0] = (unsigned)c0.w;
+  k.stride[1] = (unsigned)c1.x;
+  k.stride[2] = (unsigned)c1.y;
+  k.stride[3] = (unsigned)c1.z;
+  k.scale = g.level_f32[l];
+  return k;
+}
+
+// The row of corner c (bit d of c: cell[d] + 1) at the level k, as
+// level_row computes it, with D fixed at compile time: the index sums
+// unroll over d < D with no test of D, and the row is reduced modulo the
+// level's size only when it lies past it (a dense level's in-grid cells
+// never do), which gives level_row's row.
+template <int D>
+__device__ __forceinline__ unsigned corner_row(const GridArgs& g, const LevelConsts& k,
+                                               const unsigned* cell, int c) {
+  unsigned cc[4] = {0u, 0u, 0u, 0u};
+  unsigned dense = 0u, hash = 0u;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    cc[d] = cell[d] + ((c >> d) & 1u);
+    dense += cc[d] * k.stride[d];
+    hash ^= cc[d] * g.factors[d];
+  }
+  unsigned idx = dense;
+  if (k.hashed) idx = g.hash == HASH_RNG ? rng_hash(cc, D) : hash;
+  if (idx >= k.size) idx = k.pow2 ? (idx & (k.size - 1u)) : idx % k.size;
+  return k.offset + idx;
+}
+
+// A raw row from lane ^ 1 of the warp (every lane of the warp calls it).
+__device__ __forceinline__ unsigned short shfl_pair(unsigned short v) {
+  return (unsigned short)__shfl_xor_sync(0xffffffffu, (unsigned)v, 1);
+}
+__device__ __forceinline__ unsigned shfl_pair(unsigned v) {
+  return __shfl_xor_sync(0xffffffffu, v, 1);
+}
+__device__ __forceinline__ uint2 shfl_pair(uint2 v) {
+  return make_uint2(shfl_pair(v.x), shfl_pair(v.y));
+}
+__device__ __forceinline__ uint4 shfl_pair(uint4 v) {
+  return make_uint4(shfl_pair(v.x), shfl_pair(v.y), shfl_pair(v.z), shfl_pair(v.w));
+}
+
+// K1's walker: two lanes of a warp, 2i and 2i + 1, serve levels 2i and
+// 2i + 1 of one sample (items 0 and 1), lane 2i + q owning item q, with D
+// fixed at compile time. For both items, the lane whose x bit (lane & 1)
+// is k loads the 2^(D-1) corners whose bit 0 (their x bit) is k, corner
+// 2j + k in slot j; so corners c and c ^ 1 of an item, which differ in x
+// alone, go out in one load instruction: at a dense level, and at a hashed
+// level under the Prime family's x factor 1 (CoherentPrime), they are
+// neighbouring rows, most often in one 32-byte sector, which the two lanes
+// then fetch once. Each lane computes both items' cells, loads for both,
+// sends its partner the rows of the partner's item and receives those of
+// its own (__shfl_xor_sync(..., 1): one 32-bit word a row up to F = 2),
+// then sums its own item's 2^D corners in the twin's order c = 0, 1, ...,
+// each weight the product over d = 0..D-1 and each term rounded as
+// grid_corners and grid_level round: the twin's sum bit for bit. Nearest
+// loads corner 0 alone (lane 2i, for both items). An item that is not
+// active (its level at or past n_active, its sample past the batch) loads
+// nothing and sums to zero, but its lanes still swap: every lane of the
+// warp must reach the shuffles.
+template <int F, int D>
+__device__ __forceinline__ void grid_level_pair(const GridArgs& g, long b, int l, bool in_batch,
+                                                int n_active, float* out) {
+  using Raw = typename BfVec<F>::T;
+  constexpr int H = 1 << (D - 1);
+  const int xbit = threadIdx.x & 1;
+  const bool smooth = g.interp == INTERP_SMOOTHSTEP, nearest = g.interp == INTERP_NEAREST;
+  float x[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) x[d] = in_batch ? g.x[b * D + d] : 0.f;
+  bool active[2];
+  LevelConsts k[2];
+  unsigned cell[2][D];
+  float w[D];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int lq = (l & ~1) | q;
+    active[q] = in_batch && lq < n_active;
+    k[q] = level_consts(g, active[q] ? lq : 0);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float pos = __fadd_rn(__fmul_rn(x[d], k[q].scale), 0.5f);
+      const float cf = floorf(pos);
+      cell[q][d] = (unsigned)(int)cf;
+      if (q == xbit) {
+        const float fr = __fsub_rn(pos, cf);
+        w[d] = smooth ? __fmul_rn(__fmul_rn(fr, fr), __fsub_rn(3.0f, __fmul_rn(2.0f, fr))) : fr;
+      }
+    }
+  }
+  Raw mine[2][H], theirs[H];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const int c = 2 * j + xbit;
+      mine[q][j] = Raw{};
+      if (active[q] && !(nearest && c > 0)) {
+        mine[q][j] = *reinterpret_cast<const Raw*>(
+            g.table + (size_t)corner_row<D>(g, k[q], cell[q], c) * F);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < H; ++j) theirs[j] = shfl_pair(xbit ? mine[0][j] : mine[1][j]);
+#pragma unroll
+  for (int f = 0; f < F; ++f) out[f] = 0.f;
+  if (!(xbit ? active[1] : active[0])) return;
+#pragma unroll
+  for (int c = 0; c < (1 << D); ++c) {
+    if (nearest && c > 0) break;
+    float cw = 1.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float term = ((c >> d) & 1) ? w[d] : __fsub_rn(1.0f, w[d]);
+      cw = d == 0 ? term : __fmul_rn(cw, term);
+    }
+    if (nearest) cw = 1.f;
+    float v[F];
+    unpack_bf16<F>((c & 1) == xbit ? (xbit ? mine[1][c >> 1] : mine[0][c >> 1]) : theirs[c >> 1],
+                   v);
+#pragma unroll
+    for (int f = 0; f < F; ++f) out[f] = __fadd_rn(out[f], __fmul_rn(v[f], cw));
+  }
 }
 
 // dst[0..F) += v[0..F) in global memory, one vector atomic per 2 or 4

@@ -1,5 +1,6 @@
 // A warp's MLP layer on mma.sync with the activations in registers, shared
-// by K3 (fused_infer.cu), K5 (mlp_bwd.cu) and K6 / K9 (fused_train.cuh).
+// by K2 (mlp_fwd.cu), K3 (fused_infer.cu), K5 (mlp_bwd.cu) and K6 / K9
+// (fused_train.cuh).
 //
 // A warp owns 16 rows. Each product is mma.sync.m16n8k16 (bf16 in, f32
 // accumulate; PTX ISA "Matrix Fragments for mma.m16n8k16"). With
@@ -23,7 +24,7 @@
 // weights sit there per layer as row-major [fan_out, fan_in] with a row
 // pitch of fan_in + 8 (frag_weight_elems): a multiple of 16 elements plus
 // 8, so the eight 16-byte rows of every 8x8 matrix fall in distinct banks.
-// Every other shared tile of K3 and K5 is padded the same way. y = x W^T
+// Every other shared tile of K2, K3 and K5 is padded the same way. y = x W^T
 // reads W's rows as B's columns directly (ldmatrix); dgrad's G W and
 // wgrad's G^T h read their operands transposed (ldmatrix .trans).
 //
@@ -57,6 +58,21 @@ __host__ __device__ inline size_t frag_w_offset(const MlpArgs& m, int i) {
 }
 __host__ __device__ inline size_t frag_weight_elems(const MlpArgs& m) {
   return frag_w_offset(m, m.n_hidden + 1);
+}
+
+// The shared memory of a K2 or K3 block of `warps` warps: the padded
+// weights, then each warp's 16 input rows at a pitch of in_w + 8
+// (ops/cuda/mlp_kernel.py:frag_tile_smem_bytes counts the same).
+inline size_t frag_tile_smem_bytes(const MlpArgs& m, int warps) {
+  return (frag_weight_elems(m) + (size_t)warps * 16 * (m.in_w + 8)) * sizeof(bf16);
+}
+
+// Warps of a K2 or K3 block: the most of 8, 4, 2, 1 whose shared memory
+// fits `limit` bytes, else 0 (mlp_kernel.py:frag_tile_warps).
+inline int frag_tile_warps(const MlpArgs& m, size_t limit) {
+  int warps = 8;
+  while (warps > 0 && frag_tile_smem_bytes(m, warps) > limit) warps /= 2;
+  return warps;
 }
 
 // Block-wide copy of the flat weights into the padded layout (16-byte

@@ -16,10 +16,13 @@ Hopper each thread owns one (sample, level), reads its 2^D corner rows
 directly from a bf16 [total_rows, F] table that stays in L2, and scatters
 table gradients with f32 atomics: K4 (and K6, ``train_kernel``) sum the
 leading dense levels in shared memory (`private_levels`) and add the rest
-with one vector atomic per corner. Only the bf16 rounding carries over from
-the TPU layout; the public column order is the JAX package's (level-major,
-feature-minor). Every kernel and twin visits the corners through one walker
-(`_corners` here, ``grid_corners`` in ``csrc/grid_common.cuh``).
+with one vector atomic per corner. K1 pairs the lanes of two levels of a
+sample, so that the two rows of each x-pair of corners go out in one load
+instruction and share a sector fetch (``grid_level_pair``). Only the bf16
+rounding carries over from the TPU layout; the public column order is the
+JAX package's (level-major, feature-minor). Every kernel and twin visits
+the corners in one order (`_corners` here, ``grid_corners`` and K1's
+``grid_level_pair`` in ``csrc/grid_common.cuh``).
 
 Two options ride on the plan. Under `HashType.Rng` the hashed levels index
 through the PCG32-advance hash (`pcg32.rng_hash`; in the kernels the device
@@ -487,6 +490,9 @@ def grid_encode(plan: GridPlan, table, x, out_width: int, n_active: int):
         raise ValueError(f"out_width {out_width} < L*F = {plan.n_levels * plan.f}")
     if x.device.type == "cpu":
         return _grid_encode_plain(plan, table, x, out_width, n_active)
+    if out_width % plan.f:
+        raise ValueError(f"K1 writes F = {plan.f} columns a store: out_width {out_width} "
+                         "must be a multiple of F")
     global LAUNCHES
     out = torch.empty((B, out_width), dtype=torch.bfloat16, device=x.device)
     if B == 0:

@@ -4,23 +4,25 @@ the autograd Function that joins them.
 
 K2 replaces ``tcnn_tpu/ops/pallas/mlp_kernel.py:_fwd_kernel`` (reached
 through ``_fwd_call`` and ``fused_mlp_apply``), K5 its ``_bwd_kernel``
-(through ``_bwd_call`` and ``_fused_mlp_bwd``). One block owns a tile of samples;
-all layer weights sit in shared memory in the flat parameter layout
-(row-major [fan_out, fan_in] per matrix, mlp.py:16-20, y = x·Wᵀ), the
-products run on the tensor cores in bf16 with f32 accumulation, and each
-layer's activation is applied in f32 and rounded to bf16, as
-``mlp_kernel.py:51-62`` does. Sine has no fused form
+(through ``_bwd_call`` and ``_fused_mlp_bwd``). All layer weights sit in
+shared memory, padded to a row pitch of fan_in + 8 (`frag_weight_elems`);
+the products run on the tensor cores (``mma.sync``, ``csrc/mlp_frag.cuh``)
+in bf16 with f32 accumulation, with the activations in registers between
+layers, and each layer's activation is applied in f32 and rounded to bf16,
+as ``mlp_kernel.py:51-62`` does. Sine has no fused form
 (``mlp_kernel.py:44-48``); FullyFusedMLP sends it to the matmul chain.
 
-K5 recomputes the forward chain keeping every layer's bf16 output, then
-runs the dgrad chain as ``mlp_kernel.py:86-106`` does: g = act'(g) from
-the kept output, rounded to bf16, gW += h^T g in f32, g = g W; the input
-gradient leaves as bf16. Weight gradients come out in the params slice's
-own flat row-major [fan_out, fan_in] layout, with no transpose. K5 runs
-its layers on ``mma.sync`` with the activations in registers
-(``csrc/mlp_frag.cuh``) and keeps the weight gradient in registers across
-tiles; `mlp_bwd_smem_bytes` and `mlp_bwd_tile` mirror its layout and tile
-on the CPU.
+K2 is K3's chain without the gather: persistent blocks load the weights
+once, and each warp copies its 16 input rows into its own slice of shared
+memory and runs them through every layer (`frag_tile_smem_bytes`,
+`frag_tile_warps`). K5 recomputes the forward chain keeping every layer's
+bf16 output, then runs the dgrad chain as ``mlp_kernel.py:86-106`` does:
+g = act'(g) from the kept output, rounded to bf16, gW += h^T g in f32,
+g = g W; the input gradient leaves as bf16. Weight gradients come out in the
+params slice's own flat row-major [fan_out, fan_in] layout, with no
+transpose. K5 keeps the weight gradient in registers across tiles;
+`mlp_bwd_smem_bytes` and `mlp_bwd_tile` mirror its layout and tile on the
+CPU.
 
 `mlp_forward` and `mlp_backward` take the plain twin for a CPU tensor and
 the kernel for a CUDA tensor; there is no other route.
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -93,15 +96,40 @@ class MlpDims:
 
 
 def tile_rows(dims: MlpDims, device: torch.device) -> int:
-    """Rows per block K2 runs for `dims` on the CUDA `device`: the largest
-    of 128, 64, 32, 16 whose weights, two activation buffers and
-    accumulator scratch fit the block's shared memory, or 0 when none does
-    (the gate every fused MLP kernel's wrapper checks)."""
+    """Rows a K2 block runs for `dims` on the CUDA `device`: 16 times the
+    most warps, of 8, 4, 2, 1, whose padded weights and input rows fit the
+    block's shared memory on that card (`frag_tile_warps` against its
+    opt-in limit, asked once per shape and card), or 0 when none does: the
+    gate every fused MLP kernel's wrapper checks. K3 shares the layout; K5,
+    K6 and K9 choose their own tiles (`mlp_bwd_tile`, `bwd_tile`)."""
     dims.check_fused()
+    return _tile_rows(dims, device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_rows(dims: MlpDims, index: int) -> int:
     fn = _build.library().tcnn_mlp_tile
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
-    return fn(dims.in_w, dims.width, dims.n_hidden, dims.out_w, device.index)
+    return fn(dims.in_w, dims.width, dims.n_hidden, dims.out_w, index)
+
+
+def frag_tile_smem_bytes(dims: MlpDims, warps: int) -> int:
+    """Shared memory of a K2 or K3 block of `warps` warps
+    (csrc/mlp_frag.cuh counts the same): the padded weights
+    (`frag_weight_elems`), then each warp's 16 input rows (K3: encoded
+    rows) at a pitch of in_w + 8, all bf16."""
+    return 2 * (frag_weight_elems(dims) + warps * 16 * (dims.in_w + 8))
+
+
+def frag_tile_warps(dims: MlpDims) -> int:
+    """Warps of a K2 or K3 block: the most of 8, 4, 2, 1 whose shared
+    memory fits SMEM_OPTIN, else 0. The C side makes the same choice
+    against the card's own opt-in limit."""
+    for warps in (8, 4, 2, 1):
+        if frag_tile_smem_bytes(dims, warps) <= SMEM_OPTIN:
+            return warps
+    return 0
 
 
 def _weights(dims: MlpDims, weights):
@@ -203,7 +231,7 @@ def bwd_tile(dims: MlpDims, ig_floats: int = 0, max_nt: int = 128) -> int:
 
 
 def frag_weight_elems(dims: MlpDims) -> int:
-    """Elements of the weights in K3's, K5's, K6's and K9's shared memory
+    """Elements of the weights in K2's, K3's, K5's, K6's and K9's shared memory
     (csrc/mlp_frag.cuh): each layer's [fan_out, fan_in] at a row pitch of
     fan_in + 8, so that ldmatrix's eight rows fall in distinct banks."""
     return sum(r * (c + 8) for r, c in dims.layer_sizes())

@@ -8,16 +8,17 @@ input-gradient route.
 K3 replaces ``tcnn_tpu/ops/pallas/train_kernel.py:_infer_kernel_vt``
 (reached through ``fused_forward_prepared`` from ``Trainer.inference``).
 Its persistent blocks load the weights once; each warp walks 16-row tiles
-on its own: K1's gather fills the warp's encoded rows [16, enc_pad] bf16 in
-shared memory and the layer chain runs from there on ``mma.sync`` with the
-activations in registers (``csrc/mlp_frag.cuh``), so the encoding never
-touches device memory (`infer_smem_bytes`, `infer_warps`). Its layout is carried explicitly: `prepare_forward`
+on its own: the shared grid walker (``grid_common.cuh:grid_level``) fills
+the warp's encoded rows [16, enc_pad] bf16 in shared memory and the layer
+chain runs from there on ``mma.sync`` with the activations in registers (``csrc/mlp_frag.cuh``), so the encoding never
+touches device memory (K2's layout: `mlp_kernel.frag_tile_smem_bytes`,
+`frag_tile_warps`). Its operands are carried explicitly: `prepare_forward`
 returns a `PreparedForward` that holds the grid plan, the MLP shape and the
 bf16 operands, and `fused_forward_prepared` reads nothing else.
 
 K6 replaces ``_kernel_vt`` (reached through ``fused_train_grads`` from
-``Trainer.loss_and_grad_fn``): per tile, K1's gather into each warp's own
-rows, the MLP forward on ``mma.sync`` from registers (``csrc/mlp_frag.cuh``)
+``Trainer.loss_and_grad_fn``): per tile, the shared walker's gather into
+each warp's own rows, the MLP forward on ``mma.sync`` from registers (``csrc/mlp_frag.cuh``)
 keeping each hidden output once, the loss value and gradient from the
 output fragments (or an external dL/doutput), the MLP backward with g split
 into bf16 hi + lo and the weight gradient kept in registers across tiles,
@@ -72,7 +73,6 @@ from .mlp_kernel import (
     bwd_smem_bytes,
     bwd_tile,
     check_mlp_inputs,
-    frag_weight_elems,
     persistent_grid,
 )
 
@@ -130,23 +130,6 @@ def prepare_forward(model, params) -> PreparedForward:
     )
 
 
-def infer_smem_bytes(dims: MlpDims, warps: int) -> int:
-    """Shared memory of a K3 block of `warps` warps (csrc/fused_infer.cu
-    counts the same): the padded weights (`frag_weight_elems`), then each
-    warp's 16 encoded rows at a pitch of in_w + 8, all bf16."""
-    return 2 * (frag_weight_elems(dims) + warps * 16 * (dims.in_w + 8))
-
-
-def infer_warps(dims: MlpDims) -> int:
-    """Warps of a K3 block: the most of 8, 4, 2, 1 whose shared memory fits
-    SMEM_OPTIN, else 0. The C side makes the same choice against the
-    card's own opt-in limit."""
-    for warps in (8, 4, 2, 1):
-        if infer_smem_bytes(dims, warps) <= SMEM_OPTIN:
-            return warps
-    return 0
-
-
 def _fused_forward_plain(prep: PreparedForward, x):
     """What K3 computes, in plain PyTorch on any device: the grid forward
     into the padded bf16 encoding, then the MLP chain."""
@@ -164,8 +147,6 @@ def fused_forward_prepared(prep: PreparedForward, x):
         raise ValueError("MLP input narrower than the encoding")
     if x.device.type == "cpu":
         return _fused_forward_plain(prep, x)
-    if infer_warps(prep.dims) == 0:
-        raise ValueError(f"fused MLP {prep.dims} does not fit K3's shared memory")
     global LAUNCHES
     plan, dims = prep.plan, prep.dims
     out = torch.empty((B, dims.out_w), dtype=torch.bfloat16, device=x.device)

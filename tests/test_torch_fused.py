@@ -46,6 +46,7 @@ def _models(cfg, d=2, seed=0):
         ({}, 2),
         ({"type": "Dense", "interpolation": "Smoothstep", "n_features_per_level": 4}, 3),
         ({"type": "Tiled", "interpolation": "Nearest"}, 2),
+        ({"n_features_per_level": 8}, 2),
     ],
 )
 def test_plain_fused_matches_jax_fused_forward(enc, d):

@@ -1,8 +1,8 @@
-"""K3's, K5's, K6's and K9's layouts and their mma.sync fragment maps, on
-the CPU.
+"""K2's, K3's, K5's, K6's and K9's layouts and their mma.sync fragment maps,
+on the CPU.
 
-K3 (csrc/fused_infer.cu), K5 (csrc/mlp_bwd.cu), K6 and K9
-(csrc/fused_train.cuh) run the MLP on mma.sync.m16n8k16 with the
+K2 (csrc/mlp_fwd.cu), K3 (csrc/fused_infer.cu), K5 (csrc/mlp_bwd.cu), K6
+and K9 (csrc/fused_train.cuh) run the MLP on mma.sync.m16n8k16 with the
 activations in registers (csrc/mlp_frag.cuh). The card is the only place
 they run, so a wrong index (a fragment map, an ldmatrix address, the quad
 exchange of the row stores, a unit of the weight gradient dealt twice)
@@ -102,18 +102,40 @@ LAYOUTS = {
 }
 
 
-@pytest.mark.parametrize("width", sorted(LAYOUTS))
-def test_k3_and_k5_layouts(width):
+#: K2's layout beyond LAYOUTS' input widths, (width, n_hidden, in_w): (warps,
+#: bytes): config_hash at F = 8 (a 128-wide input), and 128 x 5 on it.
+K2_WIDE = {(64, 2, 128): (8, 63744), (128, 5, 128): (8, 213248)}
+
+
+@pytest.mark.parametrize("width,kernel", [pytest.param(w, "K3 K5", id=str(w)) for w in sorted(LAYOUTS)]
+                         + [pytest.param(w, "K2", id=f"K2-{w}") for w in sorted(LAYOUTS)])
+def test_k3_and_k5_layouts(width, kernel):
+    """K3's and K5's layouts and tiles; K2 (csrc/mlp_fwd.cu) runs K3's
+    layout without the gather, so its warps and bytes are K3's columns
+    (mlp_frag.cuh:frag_tile_warps, frag_tile_smem_bytes), and 16 rows a
+    warp are what tcnn_mlp_tile answers for the gate."""
+    src = (pathlib.Path(mk.__file__).parents[2] / "csrc" / "mlp_fwd.cu").read_text()
+    assert "frag_tile_smem_bytes(m, warps)" in src and "16 * tcnn::frag_tile_warps(m" in src
     for (n_hidden, in_w), want in LAYOUTS[width].items():
         d = _dims(in_w, width, n_hidden)
-        warps, nt = tk.infer_warps(d), mk.mlp_bwd_tile(d)
+        if kernel == "K2":
+            warps = mk.frag_tile_warps(d)
+            assert (warps, mk.frag_tile_smem_bytes(d, warps)) == want[:2], (n_hidden, in_w)
+            continue
+        warps, nt = mk.frag_tile_warps(d), mk.mlp_bwd_tile(d)
         units = mlp_bwd_units(d, nt)
-        got = (warps, tk.infer_smem_bytes(d, warps), nt, mk.mlp_bwd_smem_bytes(d, nt),
+        got = (warps, mk.frag_tile_smem_bytes(d, warps), nt, mk.mlp_bwd_smem_bytes(d, nt),
                len(units), all(u[4] is not None for u in units))
         assert got == want, (width, n_hidden, in_w)
         assert got[1] <= mk.SMEM_OPTIN and got[3] <= mk.SMEM_OPTIN
         # the next larger K5 tile would not fit
         assert nt == 128 or mk.mlp_bwd_smem_bytes(d, 2 * nt) > mk.SMEM_OPTIN
+    if kernel == "K2":
+        for (w, n_hidden, in_w), want in K2_WIDE.items():
+            if w == width:
+                d = _dims(in_w, w, n_hidden)
+                assert (mk.frag_tile_warps(d), mk.frag_tile_smem_bytes(d, 8)) == want
+                assert want[1] <= mk.SMEM_OPTIN
 
 
 def test_main_path_shapes_take_the_register_plan():
@@ -288,15 +310,42 @@ def test_padded_pitches_are_bank_conflict_free():
             assert len(banks) == 32, (w, j)
 
 
-@pytest.mark.parametrize("in_w,width,out_w", [(32, 64, 16), (48, 32, 32), (16, 128, 16)])
-def test_emulated_forward_chain(in_w, width, out_w):
+def k2_input_copy(x, row0, ld):
+    """csrc/mlp_fwd.cu's copy of a warp's 16 input rows into its shared
+    slice: lane by lane, piece i = lane, lane + 32, ... of 16 * in_w / 8
+    16-byte pieces goes to row i // chunks, columns 8 (i % chunks) ..., at
+    the pitch ld; rows past the batch are zeros."""
+    B, in_w = x.shape
+    chunks = in_w // 8
+    xs = np.full((16, ld), np.nan)
+    for lane in range(32):
+        for i in range(lane, 16 * chunks, 32):
+            r, c = i // chunks, i % chunks
+            xs[r, 8 * c:8 * c + 8] = x[row0 + r, 8 * c:8 * c + 8] if row0 + r < B else 0.0
+    return xs
+
+
+@pytest.mark.parametrize("in_w,width,out_w,k2", [
+    pytest.param(32, 64, 16, False, id="32-64-16"), pytest.param(48, 32, 32, False, id="48-32-32"),
+    pytest.param(16, 128, 16, False, id="16-128-16"),
+    pytest.param(32, 64, 16, True, id="K2-32-64-16"), pytest.param(48, 64, 16, True, id="K2-48-64-16"),
+    pytest.param(128, 64, 16, True, id="K2-128-64-16")])
+def test_emulated_forward_chain(in_w, width, out_w, k2):
     """frag_forward's first layer (A by ldmatrix from x), a hidden layer (A
-    from registers) and the output layer give x W^T, layer by layer."""
+    from registers) and the output layer give x W^T, layer by layer. K2's
+    cases take x through its input copy first, on the batch's last tile
+    (13 of its 16 rows in the batch)."""
     rng = np.random.default_rng(1)
     x = _ints(rng, (16, in_w))
     ws = [_ints(rng, (width, in_w)), _ints(rng, (width, width)),
           _ints(rng, (out_w, width))]
     xs = padded(x)
+    if k2:
+        batch = _ints(rng, (32 + 13, in_w))
+        batch[32:] = x[:13]
+        x[13:] = 0.0
+        xs = k2_input_copy(batch, 32, in_w + 8)
+        assert np.isnan(xs[:, in_w:]).all()  # the pad columns: no ldmatrix reads them
     h = [pack_pair(mma_pair([ldsm_x4(xs, rows_first, 0, 16 * s, False)
                              for s in range(in_w // 16)], padded(ws[0]), p, False))
          for p in range(width // 16)]
