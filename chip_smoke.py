@@ -259,10 +259,14 @@ PPNG_VARIANTS = ("PPNG1", "PPNG2", "PPNG3")
 #: differing on 48-100% of the values: PPNG1's gather over a bf16 table,
 #: PPNG2's over a table truncated (not rounded) to bf16, K12 keeping its
 #: corner sum in bf16.
-#: K11 and K13's table half add the same contributions as their twins by
-#: f32 atomics in another order: norm-relative EXT_SCATTER_REL (readings:
-#: PPNG1 4.4e-7 to 4.6e-7, where thousands of adds land on each of its 37 K
-#: gradient floats; PPNG2 1.6e-7; K13 2.6e-8). Controls: PPNG1's
+#: K11 and K13's table half add the same contributions as their twins in
+#: another order: norm-relative EXT_SCATTER_REL (readings of the first-slice
+#: kernels: PPNG1 4.4e-7 to 4.6e-7, where thousands of adds land on each of
+#: its 37 K gradient floats; PPNG2 1.6e-7; K13 2.6e-8; of the redesigned
+#: ones: PPNG1 1.0e-6 at 2^16 and 1.6e-6 at 2^17, the twin's own drift, as
+#: the private copies sum in blocks: against float64 the kernel reads
+#: 1.7e-7 and the twin 1.6e-6; PPNG2 1.7e-7 to 3.2e-7; K13 2.6e-8 to
+#: 8.2e-8; H100 80GB HBM3, 700 W). Controls: PPNG1's
 #: contributions rounded to bf16 where its einsum does not round (3.5e-4);
 #: PPNG2's and PPNG3's not rounded where the dense-ext scatter rounds
 #: (9.1e-4, 1.0e-3).
@@ -288,6 +292,17 @@ PPNG_SDF_LIMITS = {"PPNG1": (100.0, 0.15), "PPNG2": (100.0, 0.15), "PPNG3": (8.0
 #: (the kernel-level readings of EXT_SCATTER_REL). Control: the twins' scatters
 #: accumulating in bf16.
 PPNG_GRAD_REL = {"weights": EXT_SCATTER_REL, "table": EXT_SCATTER_REL}
+#: Phase 10's hot-row input: every sample at one point, so that every pick
+#: of a column lands on one row (every K13 warp sums its lanes, K11's
+#: private route sums its clashing lanes) and the batch leaves a ragged
+#: last warp. Its cotangents are seeded random values: the data term's
+#: would be equal for every sample. The kernels are held under the same
+#: EXT_SCATTER_REL against the twin's contributions summed in float64,
+#: since the twin's own f32 sum of B_HOT adds a float drifts past it (its
+#: distance is reported: 4.6e-6 at PPNG1, H100 80GB HBM3, 700 W). The
+#: kernels read 3.5e-7 (K11) and 2.2e-7 (K13) there.
+B_HOT = (1 << 16) - 37
+HOT_POINT = (0.5, 0.0, 1.0)
 #: Launches per SDF step of each PPNG config: the data term's gather and its
 #: table gradient (K10, K11 or K12, K13) and K2, K5; the eikonal term's
 #: gather, its first order (PPNG3: K13's two halves, each a Function) and
@@ -739,8 +754,10 @@ def check_k1_shapes(cfg, dev):
     """Phase 3d: K1 bit for bit against its twin where config_hash does not
     take it: the SDF sample's 3-D grid (12 levels, T = 2^17; 24 columns
     padded to 32, the padding groups written by K1) at B = 2^16, 2^16 - 37
-    and the eikonal term's 1024 points, that grid at D = 4, and config_hash
-    with Nearest (one corner, loaded by one lane of each pair), B = 2^16.
+    and the eikonal term's 1024 points, that grid at D = 4, config_hash
+    with Nearest (one corner, loaded by one lane of each pair), B = 2^16,
+    and that grid's encoding at 16 levels padded to a width that is not a
+    multiple of F (F = 4 at 66 columns, F = 8 at 132), B = 2^16, 2^16 - 37.
     Its own generator, so later inputs are those they were. Returns the
     max abs err."""
     import torch
@@ -761,6 +778,23 @@ def check_k1_shapes(cfg, dev):
             err = max(err, compare_exact(
                 f"K1 grid_fwd {label} B={B}", grid_kernel.grid_encode(plan, prep.table, x, w, plan.n_levels),
                 grid_kernel._grid_encode_plain(plan, prep.table, x, w, plan.n_levels)))
+    # padded widths that are not a multiple of F: 16 levels of F = 4 at
+    # alignment 6 (64 -> 66 columns), of F = 8 at alignment 12 (128 -> 132)
+    import tcnn_tpu_torch as tt
+
+    for f, alignment in ((4, 6), (8, 12)):
+        enc_cfg = dict(sdf.CONFIG["encoding"], n_levels=16, n_features_per_level=f)
+        enc = tt.create_encoding(3, enc_cfg, alignment=alignment)
+        plan, w = enc.plan, enc.padded_output_width
+        check(w % f != 0, f"K1 width {w} is a multiple of F = {f}")
+        table = (torch.rand(plan.total_rows, f, generator=k1_gen) * 2 - 1).to(torch.bfloat16)
+        table = table.to(dev)
+        for B in (B_SDF, B_SDF - 37):
+            x = torch.rand(B, 3, generator=k1_gen).to(dev)
+            err = max(err, compare_exact(
+                f"K1 grid_fwd F={f} width {w} B={B}",
+                grid_kernel.grid_encode(plan, table, x, w, plan.n_levels),
+                grid_kernel._grid_encode_plain(plan, table, x, w, plan.n_levels)))
     return err
 
 
@@ -942,10 +976,14 @@ def check_ppng_variant(tag, net, params, x, errs, timed=False):
             control_exact(f"K10 {tag} over a truncated bf16 table",
                           ek._ext_gather_plain(trunc, idx), want)
         ct = inp["ct"]
-        got = ek.ext_scatter(idx, ct, spec.n_rows)
+        got = ek.ext_scatter(idx, ct, spec.n_rows, spec.n_levels)
         want = ek._ext_scatter_plain(idx, ct, spec.n_rows)
         errs["K11"] = max(errs["K11"], compare_norm(f"K11 ext_scatter {tag}", got, want,
                                                     EXT_SCATTER_REL))
+        exact = ek._ext_scatter_plain(idx, ct.double(), spec.n_rows)
+        emit({"phase": "float64", "name": f"K11 {tag}, kernel and twin against float64",
+              "kernel": norm_errors(got, exact, {"all": 0})[0]["all"],
+              "twin": norm_errors(want, exact, {"all": 0})[0]["all"]})
         if spec.dtype == torch.bfloat16:
             control(f"K11 {tag}, unrounded",
                     ek._ext_scatter_plain(idx, inp["ct_f32"], spec.n_rows), want, EXT_SCATTER_REL)
@@ -960,7 +998,7 @@ def check_ppng_variant(tag, net, params, x, errs, timed=False):
                 lambda: ek.ext_gather(tbl, idx), lambda: ek._ext_gather_plain(tbl, idx),
                 lambda: tbl.index_select(0, idx.reshape(-1)))
             ms["K11"] = time_pair(
-                lambda: ek.ext_scatter(idx, ct, spec.n_rows),
+                lambda: ek.ext_scatter(idx, ct, spec.n_rows, spec.n_levels),
                 lambda: ek._ext_scatter_plain(idx, ct, spec.n_rows),
                 lambda: out.zero_().index_add_(0, idx.reshape(-1), ct32.reshape(P, F)))
             bounds["K10"] = kernel_bound(bytes_of(idx, tbl, picks))
@@ -1000,19 +1038,83 @@ def check_ppng_variant(tag, net, params, x, errs, timed=False):
             lambda: ek._ext_lookup_plain(tbl, idx, cw, NL),
             lambda: torch.nn.functional.embedding_bag(bag_idx, tbl32, mode="sum",
                                                       per_sample_weights=bag_w))
-        ms["K13"] = time_pair(
+        ms["K13 both"] = time_pair(
             lambda: ek.ext_lookup_bwd(tbl, idx, cw, gy, spec.n_rows, NL),
             lambda: ek._ext_lookup_bwd_plain(tbl, idx, cw, gy, spec.n_rows, NL, True, True))
+        # the table half alone, as the data term launches it, beside index_add_
+        # of the bf16-rounded contributions computed beforehand (as k4_yardstick)
+        contrib = (cw.reshape(B, -1, NL, 1) * gy.reshape(B, 1, NL, F)).to(torch.bfloat16)
+        contrib, rows = contrib.float().reshape(P, F), idx.reshape(-1)
+        out = torch.zeros((spec.n_rows, F), device=x.device)
+        ms["K13"] = time_pair(
+            lambda: ek.ext_lookup_bwd(None, idx, cw, gy, spec.n_rows, NL, want_dots=False),
+            lambda: ek._ext_lookup_bwd_plain(None, idx, cw, gy, spec.n_rows, NL, True, False),
+            lambda: out.zero_().index_add_(0, rows, contrib))
         bounds["K12"] = kernel_bound(bytes_of(idx, cw, tbl, y), f32=2 * P * F)
-        bounds["K13"] = kernel_bound(bytes_of(idx, cw, gy, tbl, dT, dcw), f32=4 * P * F)
+        bounds["K13 both"] = kernel_bound(bytes_of(idx, cw, gy, tbl, dT, dcw), f32=4 * P * F)
+        bounds["K13"] = kernel_bound(bytes_of(idx, cw, gy, dT), f32=2 * P * F)
     return ms, bounds
+
+
+def check_ppng_hot(variant, enc, dev, errs):
+    """Phase 10's hot-row input (B_HOT samples at HOT_POINT) through K11
+    (PPNG1/2, on the route its plan takes) or K13 (PPNG3: both halves and
+    the table half alone), each against the float64 sum of the twin's
+    contributions under EXT_SCATTER_REL (K13's dots against the twin's,
+    EXT_DOTS_REL), beside a control of lower precision. Its own generator,
+    so later inputs are those they were. Adds to `errs`."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import ext_kernel as ek
+
+    hot_gen = torch.Generator().manual_seed(SEED + 16)
+    spec, tag = enc.spec, f"{variant} hot B={B_HOT}"
+    x = torch.tensor(HOT_POINT, dtype=torch.float32).expand(B_HOT, 3).contiguous().to(dev)
+    idx, w = enc.indices(x)
+    check(bool((idx == idx[:1]).all()), f"{tag}: the points do not share their rows")
+    if variant != "PPNG3":
+        ct32 = torch.randn(B_HOT, idx.shape[1] * spec.f, generator=hot_gen).to(dev)
+        ct = ct32.to(spec.dtype)
+        want = ek._ext_scatter_plain(idx, ct.double(), spec.n_rows)
+        got = ek.ext_scatter(idx, ct, spec.n_rows, spec.n_levels)
+        errs["K11"] = max(errs["K11"], compare_norm(f"K11 ext_scatter {tag}", got.double(), want,
+                                                    EXT_SCATTER_REL))
+        rel, _ = norm_errors(ek._ext_scatter_plain(idx, ct, spec.n_rows), want, {"all": 0})
+        emit({"phase": "hot twin", "name": f"K11 twin {tag} vs float64", "norm_rel_err": rel})
+        lower = ct32 if spec.dtype == torch.bfloat16 else ct.to(torch.bfloat16)
+        control(f"K11 {tag}, " + ("unrounded" if spec.dtype == torch.bfloat16 else
+                                  "rounded to bf16"),
+                ek._ext_scatter_plain(idx, lower, spec.n_rows), want, EXT_SCATTER_REL)
+        return
+    NL, F, B = spec.n_levels, spec.f, B_HOT
+    tbl = (torch.rand(spec.n_rows, F, generator=hot_gen) * 2 - 1).to(torch.bfloat16).to(dev)
+    gy = torch.randn(B, NL * F, generator=hot_gen).to(torch.bfloat16).float().to(dev)
+    cw = w.contiguous()
+    prod = cw.reshape(B, -1, NL, 1) * gy.reshape(B, 1, NL, F)
+    rows = idx.reshape(-1).long()
+    want = torch.zeros((spec.n_rows, F), dtype=torch.float64, device=dev).index_add_(
+        0, rows, prod.to(torch.bfloat16).double().reshape(-1, F))
+    dT, dcw = ek.ext_lookup_bwd(tbl, idx, cw, gy, spec.n_rows, NL)
+    alone, _ = ek.ext_lookup_bwd(None, idx, cw, gy, spec.n_rows, NL, want_dots=False)
+    wT, wcw = ek._ext_lookup_bwd_plain(tbl, idx, cw, gy, spec.n_rows, NL, True, True)
+    errs["K13"] = max(errs["K13"],
+                      compare_norm(f"K13 ext_lookup_bwd table {tag}", dT.double(), want,
+                                   EXT_SCATTER_REL),
+                      compare_norm(f"K13 ext_lookup_bwd table alone {tag}", alone.double(), want,
+                                   EXT_SCATTER_REL),
+                      compare_norm(f"K13 ext_lookup_bwd dots {tag}", dcw, wcw, EXT_DOTS_REL))
+    rel, _ = norm_errors(wT, want, {"all": 0})
+    emit({"phase": "hot twin", "name": f"K13 twin {tag} vs float64", "norm_rel_err": rel})
+    unrounded = torch.zeros_like(wT).index_add_(0, rows, prod.reshape(-1, F))
+    control(f"K13 table {tag}, unrounded", unrounded, want, EXT_SCATTER_REL)
 
 
 def check_ppng_kernels(gen, dev, smi, errs):
     """Phase 10: for each PPNG variant, K10-K13 against their twins with
     their controls at the factory defaults (B_PPNG), then at the sample's
-    config (B_SDF), whose kernel instantiations phase 11 launches, with K2
-    and K5 at its MLP input width; each timed. Adds to `errs`; returns
+    config (B_SDF), whose kernel instantiations phase 11 launches, and on
+    the hot-row input (check_ppng_hot), with K2 and K5 at its MLP input
+    width; each timed (K13 with both halves, and its table half beside
+    `index_add_`). Adds to `errs`; returns
     ({(kernel, variant): (ms, twin ms, yardstick ms)}, {(kernel, variant):
     (bound ms, bound_by)})."""
     import torch
@@ -1036,6 +1138,7 @@ def check_ppng_kernels(gen, dev, smi, errs):
         ms, bounds = check_ppng_variant(f"{variant} sample B={B_SDF}", pnet, pparams, x, errs,
                                         timed=True)
         sample_ms.update({(k, variant): (v, bounds[k]) for k, v in ms.items()})
+        check_ppng_hot(variant, pnet.encoding, dev, errs)
         # K2 and K5 at the MLP input width the sample config gives them
         pdims = pnet.network.dims
         net_p, enc_p = pnet.split_params(pparams)
@@ -1071,7 +1174,7 @@ def ext_twins(acc_bf16=False):
         out = torch.zeros((n_rows, contrib.shape[1]), dtype=torch.bfloat16, device=idx.device)
         return out.index_add_(0, idx.reshape(-1).long(), contrib.to(torch.bfloat16)).float()
 
-    def scatter(idx, ct, n_rows):
+    def scatter(idx, ct, n_rows, n_levels=1):
         if acc_bf16:
             return add_rows(n_rows, idx, ct.reshape(idx.numel(), -1))
         return ek._ext_scatter_plain(idx, ct, n_rows)
@@ -2496,7 +2599,8 @@ def main() -> int:
     # launches: K1-K3 from the inference slice, K6 from the fused training
     # loop, K4 and K5 from the composed training step, K7-K9 from the SDF
     # slice, K10-K13 from the PPNG SDF slice (all three configs); times of
-    # K10 and K11 at PPNG2's defaults, of K12 and K13 at PPNG3's
+    # K10 and K11 at PPNG2's defaults, of K12 and K13 at PPNG3's (K13's
+    # table half, as the data term launches it, beside index_add_)
     path_launches = {**{k: launches[k] for k in ("K1", "K2", "K3")},
                      "K4": composed_launches["K4"], "K5": composed_launches["K5"],
                      "K6": train_launches["K6"],
@@ -2542,11 +2646,15 @@ def main() -> int:
     for k, replaces in binned.items():
         entries.append((f"{k} T=2^19", f"{sources[k][0]} (T=2^19)", sources[k][1], replaces,
                         ref_launches[k], ref_errs[k], ref_ms[k], ref_bounds[k]))
-    # K1-K3, K5, K6 and K9, redesigned for Hopper (K1: D fixed at compile
-    # time, lane pairs sharing corner loads; the others: mma.sync layers in
-    # registers, persistent blocks, the weight gradient in registers across
-    # tiles)
-    redesigned = dict.fromkeys(("K1", "K2", "K3", "K5", "K6", "K9"), "redesigned for Hopper")
+    # K1-K3, K5, K6, K9, K11 and K13, redesigned for Hopper (K1: D fixed at
+    # compile time, lane pairs sharing corner loads; K2, K3, K5, K6, K9:
+    # mma.sync layers in registers, persistent blocks, the weight gradient
+    # in registers across tiles; K11: private levels summed by warps that
+    # own them, vector REDs; K13: warp sums of the lanes on one row, vector
+    # REDs)
+    redesigned = dict.fromkeys(("K1", "K2", "K3", "K5", "K6", "K9", "K11"),
+                               "redesigned for Hopper")
+    redesigned["K13"] = "redesigned for Hopper; its table half timed"
     entries = [(key, (name[:-1] + "; " + redesigned[key.split()[0]] + ")" if name.endswith(")")
                       else f"{name} ({redesigned[key.split()[0]]})")
                 if key.split()[0] in redesigned else name, *rest)

@@ -1,6 +1,6 @@
 // Shared helpers of the port's CUDA kernels: bf16 row loads/stores of F
-// features (and the f32 values of a row's raw bits) and the fixed-order sum
-// of per-block partials.
+// features (and the f32 values of a row's raw bits), a row's vector atomic
+// add, and the fixed-order sum of per-block partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +37,23 @@ __device__ __forceinline__ void store_bf16(bf16* p, const float* v) {
 #pragma unroll
   for (int f = 0; f < F; ++f) u.h[f] = __bfloat16_as_ushort(__float2bfloat16_rn(v[f]));
   *reinterpret_cast<typename BfVec<F>::T*>(p) = u.raw;
+}
+
+// dst[0..F) += v[0..F) in global memory, one vector atomic per 2 or 4
+// features: sm_90's float2 / float4 atomicAdd (F = 2, 4; F = 8 as two
+// float4), a scalar one for F = 1. dst is F-float aligned.
+template <int F>
+__device__ __forceinline__ void atomic_add_row(float* dst, const float* v) {
+  if constexpr (F == 1) {
+    atomicAdd(dst, v[0]);
+  } else if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < F; k += 4) {
+      atomicAdd(reinterpret_cast<float4*>(dst + k), make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
+    }
+  }
 }
 
 // out[j] = sum over blocks b = 0..n_blocks-1, in that order, of

@@ -13,26 +13,27 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-// F f32 values from p (16-byte aligned when F >= 4), as float4 loads where
-// they fit.
-template <int F>
-__device__ __forceinline__ void load_f32(const float* p, float* v) {
-  if constexpr (F % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < F / 4; ++i) {
-      const float4 q = reinterpret_cast<const float4*>(p)[i];
-      v[4 * i] = q.x;
-      v[4 * i + 1] = q.y;
-      v[4 * i + 2] = q.z;
-      v[4 * i + 3] = q.w;
-    }
+// V values (1, 2 or 4) from p, V-element aligned, as f32: one load.
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
   } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) v[f] = p[f];
+    v[0] = *p;
   }
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const bf16* p, float* v) {
+  load_bf16<V>(p, v);
 }
 
 inline unsigned blocks_for(long n, int threads) { return (unsigned)((n + threads - 1) / threads); }

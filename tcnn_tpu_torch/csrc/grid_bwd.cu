@@ -33,7 +33,7 @@
 //     and a deterministic sum over blocks (a flush by global atomics, one
 //     per private float and block, was not built).
 //   - Every other level adds with one vector atomic per corner (sm_90's
-//     float2 / float4 atomicAdd; grid_common.cuh:atomic_add_row), a
+//     float2 / float4 atomicAdd; common.cuh:atomic_add_row), a
 //     fire-and-forget RED, in place of F scalar ones.
 //   Each contribution is rounded to bf16 as the TPU kernel rounds it, then
 //   added in f32; only the order of the f32 sums differs from the twin's.

@@ -426,23 +426,6 @@ __device__ __forceinline__ void grid_level_pair(const GridArgs& g, long b, int l
   }
 }
 
-// dst[0..F) += v[0..F) in global memory, one vector atomic per 2 or 4
-// features: sm_90's float2 / float4 atomicAdd (F = 2, 4; F = 8 as two
-// float4), a scalar one for F = 1. dst is F-float aligned.
-template <int F>
-__device__ __forceinline__ void atomic_add_row(float* dst, const float* v) {
-  if constexpr (F == 1) {
-    atomicAdd(dst, v[0]);
-  } else if constexpr (F == 2) {
-    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
-  } else {
-#pragma unroll
-    for (int k = 0; k < F; k += 4) {
-      atomicAdd(reinterpret_cast<float4*>(dst + k), make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
-    }
-  }
-}
-
 // Backward (K4, K6): row += bf16(w * gy[f]) per corner, the contribution
 // rounded to bf16 as the TPU kernel rounds it (grid_kernel.py:674-677), then
 // added in f32. Stochastic: row += bf16(gy[f]) into the one drawn corner's

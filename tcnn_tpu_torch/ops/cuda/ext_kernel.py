@@ -16,11 +16,13 @@ kernels (which carry level-local rows as f32).
     its transpose into an f32 gradient table, the cotangents read in their
     own dtype: `ExtScatterFn` hands them over in the gathered table's, so
     they are rounded to bf16 exactly where the forward read bf16.
+    `scatter_plan` chooses the levels it sums in shared memory.
   - K12 replaces the ext_iw forward of ``binned_kernel.py``
     (``binned_ext_lookup``) and PPNG3's dense-ext gather plus weighted sum:
     y [B, NL * F] bf16 = sum over corners c of cw * T[idx], in f32.
   - K13 replaces ``binned_kernel.py:_combine_extg_kernel`` with the ext_iw
-    place/scatter: dT += bf16(cw * gy) and dcw = sum_f T[idx] * gy.
+    place/scatter: dT += bf16(cw * gy) and dcw = sum_f T[idx] * gy, its
+    levels in blocks of `lookup_chunk`.
 
 Each wrapper takes the plain twin for a CPU tensor and the kernel for a CUDA
 tensor; there is no other route. The twins also run in float64 (no
@@ -41,6 +43,8 @@ import dataclasses
 import torch
 
 from . import _build
+from .mlp_kernel import SMEM_OPTIN
+from .train_kernel import SMEM_SM
 
 #: Launches of K10, K11, K12 and K13 since the last reset (counted where each
 #: kernel launches).
@@ -51,6 +55,73 @@ LOOKUP_BWD_LAUNCHES = 0
 
 #: Row widths K12 and K13 take (PPNG3's n_features).
 LOOKUP_WIDTHS = (1, 2, 4, 8)
+#: Columns (corners x levels) and cotangents a sample of a K13 block's
+#: staged chunk (csrc/ext_scatter.cu:kTileCols); so also the most corners a
+#: level K13 takes.
+LOOKUP_TILE_COLS = 64
+
+#: Warps an H100 SM holds at once.
+SM_WARPS = 64
+#: Shared memory a K11 block may sum its private levels' f32 gradient in:
+#: all that one block can have, one block an SM (PPNG1's 36 tables,
+#: 147,456 bytes, in one group of 18 warps). Chosen by
+#: scripts/time_ext_kernels.py --budgets (H100 80GB HBM3, 700 W; PPNG1,
+#: B = 2^16): 0.198 ms, against 0.258 at 115,712 bytes (two groups of 18
+#: tables, three blocks an SM) and 0.221 at 34,816 (five groups of 8, six
+#: blocks an SM).
+K11_PRIVATE_BYTES = SMEM_OPTIN
+#: Fewest adds a private float must take from each block's share of the
+#: picks (on average over its rows) for the copy's zeroing and flush to
+#: pay: where the batch cannot give that to every resident block, the
+#: levels take the global route.
+K11_MIN_ADDS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterPlan:
+    """Where K11 sums each level's gradient: levels 0..n_private-1 in a
+    block's shared memory, `group_levels` consecutive levels a group (the
+    last group may hold fewer), each group's samples split over `blocks`
+    blocks of `warps` warps, each warp the only one to add into its
+    ceil(group_levels / warps) levels; levels n_private.. by vector atomics
+    into the global gradient."""
+
+    n_private: int = 0
+    group_levels: int = 0
+    warps: int = 0
+    blocks: int = 0
+
+    def groups(self) -> list:
+        """[(first level, end level)] of each private group."""
+        g = self.group_levels
+        return [(l0, min(l0 + g, self.n_private)) for l0 in range(0, self.n_private, g or 1)]
+
+
+def scatter_plan(n_levels: int, rows_per_level: int, f: int, corners: int, batch: int,
+                 n_sm: int, budget: int = None) -> ScatterPlan:
+    """K11's plan for tables of `n_levels` levels of `rows_per_level` rows x
+    `f` features, `corners` picks a level and sample, `batch` samples, on a
+    card of `n_sm` SMs: every level private, in as few groups of
+    consecutive levels as fit `budget` bytes (default K11_PRIVATE_BYTES) of
+    f32 gradient each, balanced, when a level fits and the batch gives
+    each resident block of a group (the resident blocks shared among the
+    groups) K11_MIN_ADDS adds a private float; else every level global. A
+    warp a level, or as few levels a warp as keep a block within 32
+    warps."""
+    budget = min(K11_PRIVATE_BYTES if budget is None else budget, SMEM_OPTIN)
+    level_bytes = rows_per_level * f * 4
+    fit = budget // level_bytes
+    if fit == 0:
+        return ScatterPlan()
+    n_groups = -(-n_levels // fit)
+    g = -(-n_levels // n_groups)
+    per_warp = -(-g // 32)
+    warps = -(-g // per_warp)
+    per_sm = min(SMEM_SM // (g * level_bytes + 1024), SM_WARPS // warps)
+    blocks = n_sm * per_sm // n_groups
+    if blocks == 0 or batch * corners < K11_MIN_ADDS * rows_per_level * blocks:
+        return ScatterPlan()
+    return ScatterPlan(n_levels, g, warps, blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,9 +274,12 @@ def ext_gather(table, idx):
 _EXT_GATHER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def ext_scatter(idx, ct, n_rows: int):
+def ext_scatter(idx, ct, n_rows: int, n_levels: int = 1):
     """The transpose of `ext_gather`: f32 [n_rows, F] with the per-pick
-    cotangents ct [B, K * F] (f32 or bf16) added at rows idx [B, K] (K11)."""
+    cotangents ct [B, K * F] (f32 or bf16) added at rows idx [B, K] (K11).
+    The rows are `n_levels` equal levels, column j's picks in level
+    j % n_levels; `scatter_plan` chooses the levels K11 sums in shared
+    memory."""
     _check_idx(idx)
     _check_cuda("ct", ct, idx.device)
     B, K = idx.shape
@@ -215,27 +289,37 @@ def ext_scatter(idx, ct, n_rows: int):
         return _ext_scatter_plain(idx, ct, n_rows)
     if ct.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"K11 reads f32 or bf16 cotangents, got {ct.dtype}")
+    if n_levels <= 0 or K % n_levels or n_rows % n_levels:
+        raise ValueError(f"{K} columns and {n_rows} rows must be multiples of {n_levels} levels")
     global SCATTER_LAUNCHES
+    dev = idx.device
     F = ct.shape[1] // K if K else 1
-    out = torch.zeros((n_rows, F), dtype=torch.float32, device=idx.device)
+    out = torch.zeros((n_rows, F), dtype=torch.float32, device=dev)
     if idx.numel() == 0:
         return out
+    rows = n_rows // n_levels
+    plan = scatter_plan(n_levels, rows, F, K // n_levels, B,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
     fn = _build.function("tcnn_ext_scatter", _EXT_SCATTER_ARGS)
     _build.check(fn(idx.data_ptr(), ct.data_ptr(), out.data_ptr(), B, K, F,
-                    int(ct.dtype == torch.bfloat16), idx.device.index, _stream(idx.device)),
+                    int(ct.dtype == torch.bfloat16), n_levels, rows, plan.n_private,
+                    plan.group_levels, plan.warps, plan.blocks, dev.index, _stream(dev)),
                  "tcnn_ext_scatter")
     SCATTER_LAUNCHES += 1
     return out
 
 
-_EXT_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_EXT_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def _check_lookup(idx, n_levels: int, F: int):
     if n_levels <= 0 or idx.shape[1] % n_levels:
         raise ValueError(f"idx width {idx.shape[1]} is not a multiple of NL = {n_levels}")
-    if idx.device.type == "cuda" and F not in LOOKUP_WIDTHS:
-        raise ValueError(f"K12/K13 take rows of {LOOKUP_WIDTHS} features, got {F}")
+    if idx.device.type == "cuda":
+        if F not in LOOKUP_WIDTHS:
+            raise ValueError(f"K12/K13 take rows of {LOOKUP_WIDTHS} features, got {F}")
+        if idx.shape[1] // n_levels > LOOKUP_TILE_COLS:
+            raise ValueError(f"K12/K13 take at most {LOOKUP_TILE_COLS} corners a level")
 
 
 def ext_lookup(table, idx, cw, n_levels: int):
@@ -265,6 +349,17 @@ def ext_lookup(table, idx, cw, n_levels: int):
 
 
 _EXT_LOOKUP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def lookup_chunk(n_levels: int, corners: int, f: int, batch: int, n_sm: int) -> int:
+    """K13's plan: the levels a block stages and takes, as many as keep the
+    chunk's corners x levels and a sample's cotangents within
+    LOOKUP_TILE_COLS (8 at PPNG3's sample config and defaults), and no more
+    than leave two blocks an SM where the batch's 32-sample tiles are
+    fewer (the eikonal term's 1024 points: a level a block)."""
+    most = max(1, min(n_levels, LOOKUP_TILE_COLS // corners, LOOKUP_TILE_COLS // f))
+    chunks = -(-2 * n_sm // -(-batch // 32))
+    return max(1, min(most, -(-n_levels // chunks)))
 
 
 def ext_lookup_bwd(table, idx, cw, gy, n_rows: int, n_levels: int, want_table: bool = True,
@@ -302,12 +397,15 @@ def ext_lookup_bwd(table, idx, cw, gy, n_rows: int, n_levels: int, want_table: b
                     cw.data_ptr() if want_table else None, gy.data_ptr(),
                     dT.data_ptr() if want_table else None,
                     dcw.data_ptr() if want_dots else None, B, n_levels, CNL // n_levels, F,
-                    dev.index, _stream(dev)), "tcnn_ext_lookup_bwd")
+                    lookup_chunk(n_levels, CNL // n_levels, F, B,
+                                 torch.cuda.get_device_properties(dev).multi_processor_count),
+                    dev.index, _stream(dev)),
+                 "tcnn_ext_lookup_bwd")
     LOOKUP_BWD_LAUNCHES += 1
     return dT, dcw
 
 
-_EXT_LOOKUP_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_EXT_LOOKUP_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +443,8 @@ class ExtScatterFn(torch.autograd.Function):
         ctx.save_for_backward(idx)
         ctx.spec = spec
         ctx.set_materialize_grads(False)
-        return ext_scatter(idx, ct.to(spec.dtype).contiguous(), spec.n_rows).reshape(-1)
+        return ext_scatter(idx, ct.to(spec.dtype).contiguous(), spec.n_rows,
+                           spec.n_levels).reshape(-1)
 
     @staticmethod
     def backward(ctx, g):

@@ -484,15 +484,18 @@ def _grid_backward_bwd_plain(plan: GridPlan, table, ct_table, x, gy, z):
 def grid_encode(plan: GridPlan, table, x, out_width: int, n_active: int):
     """x [B, D] f32 -> [B, out_width] bf16: levels in columns
     [0, L*F), levels >= n_active zeroed, columns [L*F, out_width) zero.
-    `table` is the bf16 [total_rows, F] feature table."""
+    `table` is the bf16 [total_rows, F] feature table. K1 stores F columns
+    at a time into rows whose width is a multiple of F, so a width that is
+    not is encoded into the next multiple of F and its leading `out_width`
+    columns copied out."""
     B = _check_inputs(plan, table, x)
     if out_width < plan.n_levels * plan.f:
         raise ValueError(f"out_width {out_width} < L*F = {plan.n_levels * plan.f}")
+    if out_width % plan.f:
+        wide = grid_encode(plan, table, x, -(-out_width // plan.f) * plan.f, n_active)
+        return wide[:, :out_width].contiguous()
     if x.device.type == "cpu":
         return _grid_encode_plain(plan, table, x, out_width, n_active)
-    if out_width % plan.f:
-        raise ValueError(f"K1 writes F = {plan.f} columns a store: out_width {out_width} "
-                         "must be a multiple of F")
     global LAUNCHES
     out = torch.empty((B, out_width), dtype=torch.bfloat16, device=x.device)
     if B == 0:
@@ -707,6 +710,15 @@ _GRID_BWD_ARGS = (
 )
 
 
+def _level_columns(plan: GridPlan, gy):
+    """The encoding cotangent as K4, K7 and K8 read it: bf16, contiguous,
+    cut to its leading L*F columns where its width is not a multiple of F
+    (they read F columns a load, and only those columns)."""
+    if gy.shape[1] % plan.f:
+        gy = gy[:, : plan.n_levels * plan.f]
+    return gy.to(torch.bfloat16).contiguous()
+
+
 class GridEncodeFn(torch.autograd.Function):
     """The grid encoding as an autograd Function of its f32 params slice
     (counterpart of ``_grid_pallas`` and its custom vjp, grid_kernel.py:
@@ -725,7 +737,7 @@ class GridEncodeFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         (x,) = ctx.saved_tensors
-        g = grid_backward(ctx.plan, x, gy.to(torch.bfloat16).contiguous(), ctx.n_active)
+        g = grid_backward(ctx.plan, x, _level_columns(ctx.plan, gy), ctx.n_active)
         return g.reshape(-1), None, None, None, None
 
 
@@ -763,10 +775,10 @@ class GridIgBackwardFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, params, x, gy, plan):
         table = params.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
-        gyb = gy.to(torch.bfloat16).contiguous()
+        gyb = _level_columns(plan, gy)
         gtable, gx = grid_backward_ig(plan, table, x, gyb)
         ctx.save_for_backward(params, x, gyb)
-        ctx.plan = plan
+        ctx.plan, ctx.gy_width = plan, gy.shape[1]
         ctx.set_materialize_grads(False)
         return gtable.reshape(-1), gx
 
@@ -781,6 +793,8 @@ class GridIgBackwardFn(torch.autograd.Function):
                     ct_gparams.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous())
         zz = None if z is None else z.float().contiguous()
         ct_gy, gtable2, ct_x = grid_backward_bwd(plan, table, ct_table, x, gyb, zz)
+        if ct_gy.shape[1] != ctx.gy_width:
+            ct_gy = torch.nn.functional.pad(ct_gy, (0, ctx.gy_width - ct_gy.shape[1]))
         return no_third_order(gtable2.reshape(-1), ct_x, ct_gy) + (None,)
 
 
