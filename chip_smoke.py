@@ -46,15 +46,22 @@ Phases, each printing JSON lines:
      input-gradient backward, each gradient part beside a control of lower
      precision that its bound must reject; the same at 8 features per
      level (B = 2^16, inputs from their own generator); K7 and K8 also at
-     D = 2 and 4;
+     D = 2 and 4; 7b (`check_ig_shapes`, its own generator): K7 and K8
+     (and K9) at the eikonal term's 1024 points and at 2^18, at 11 levels
+     (an odd L), at a cotangent width that is not a multiple of F (F = 4,
+     66 columns), and on a hot-row input (2^16 - 37 samples at one point)
+     whose table gradients are held against a float64 sum, each beside its
+     control;
   8. the SDF slice: `create_from_config` on that config trains SDF_STEPS
      eikonal steps through tcnn_tpu_torch.samples.learn_a_sdf (counters:
      K3, K9, K1, K7, K8 and K1, K2, K5, K4 on every step), the loss falling
      and the z = 0.5 slice error under limits set before the first run; the
      fused route's eikonal gradient against the composed route's;
   9. times of K7, K8, K9 and their twins at the eikonal term's 1024
-     points (the shape the SDF step launches), B = 2^16 and 2^18, and of one
-     SDF training step; K3 and K5 timed, with their bounds, at their paths'
+     points (the shape the SDF step launches), B = 2^16 and 2^18 (K7 and K8
+     also beside one `index_add_` of their table contributions, and their
+     device time under torch.profiler with and without their wrappers'
+     memsets), and of one SDF training step; K3 and K5 timed, with their bounds, at their paths'
      other shapes: K3 at B = 2^20 (the render's chunk) and at the SDF's
      1024 eikonal points, K5 at the SDF's data term (B = 2^16) and at 128 x
      5 (B = 2^18);
@@ -107,7 +114,7 @@ Phases, each printing JSON lines:
  15. the SDF sample at T=2^19 (3,471,664 rows): K7, K8 and K9 against
      their twins with controls, SDF_STEPS eikonal steps (counters as phase
      8) under SDF19_LIMITS, the fused eikonal gradient against the
-     composed one, and times.
+     composed one, and times (K7-K9 at 2^16, 2^18 and 1024 points).
 Then a line with every kernel and option (its launches on the main path,
 error against its twin, time, twin's time, bound, what bounds it and its
 yardstick's time; K1's, K2's, K3's, K5's, K6's and K9's entries,
@@ -881,6 +888,129 @@ def check_ig_kernels(tag, net, params, x, gen, control_too=True, bounds=None):
     return errs
 
 
+def ig_contributions64(plan, x, gy_enc, z=None):
+    """The twin's bf16-rounded table contributions of K7 (W_c gy) or, with
+    z, of K8 (zw_c gy) summed in float64."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel
+
+    L, F = plan.n_levels, plan.f
+    g = gy_enc[:, : L * F].float().reshape(-1, L, F)
+    out = torch.zeros((plan.total_rows, F), dtype=torch.float64, device=x.device)
+    for k in grid_kernel._corners(plan, x, derivs=True):
+        w = k.w if z is None else sum(z[:, None, d] * k.dw[d] for d in range(plan.d))
+        out.index_add_(0, k.rows.reshape(-1),
+                       (w[..., None] * g).to(torch.bfloat16).double().reshape(-1, F))
+    return out
+
+
+def check_ig_width(dev, gen):
+    """K7 and K8 at a cotangent width that is not a multiple of F: the SDF
+    grid at 16 levels of F = 4 and alignment 6 (64 level columns padded to
+    66), B = 2^16 - 37, seeded random cotangents, against the twins at the
+    full width; ct_gy's two padding columns must come back zero. Returns
+    the max abs errors {K7, K8}."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.ops.cuda import grid_kernel
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    enc = tt.create_encoding(3, dict(sdf.CONFIG["encoding"], n_levels=16, n_features_per_level=4),
+                             alignment=6)
+    plan, w = enc.plan, enc.padded_output_width
+    check(w % plan.f != 0, f"K7/K8 width {w} is a multiple of F = {plan.f}")
+    B = B_SDF - 37
+    table = (torch.rand(plan.total_rows, plan.f, generator=gen) * 2 - 1).to(torch.bfloat16).to(dev)
+    x = torch.rand(B, 3, generator=gen).to(dev)
+    gy = torch.randn(B, w, generator=gen).to(torch.bfloat16).to(dev)
+    z = torch.randn(B, 3, generator=gen).to(dev)
+    tag = f"F=4 width {w} B={B}"
+    kt, kx = grid_kernel.grid_backward_ig(plan, table, x, gy)
+    pt, px = grid_kernel._grid_backward_ig_plain(plan, table, x, gy)
+    errs = {"K7": max(compare_norm(f"K7 grid_bwd_ig gtable {tag}", kt, pt, K7_REL["gtable"]),
+                      compare_norm(f"K7 grid_bwd_ig gx {tag}", kx, px, K7_REL["gx"]))}
+    k = grid_kernel.grid_backward_bwd(plan, table, None, x, gy, z)
+    q = grid_kernel._grid_backward_bwd_plain(plan, table, None, x, gy, z)
+    check(tuple(k[0].shape) == (B, w) and not k[0][:, 16 * plan.f:].any(),
+          f"K8 ct_gy {tag}: shape {tuple(k[0].shape)} or nonzero padding columns")
+    errs["K8"] = max(compare_norm(f"K8 grid_bwd_bwd {part} {tag}", a, b, K8_REL[part])
+                     for part, a, b in zip(("ct_gy", "gtable2", "ct_x"), k, q))
+    return errs
+
+
+def check_ig_shapes(dev):
+    """Phase 7b: K7 and K8 where their shapes and lane map change, each
+    beside its control: the SDF config (T = 2^17) at the eikonal term's
+    1024 points (K9 there too) and at 2^18; at 11 levels (an odd L: the
+    last lane pair's second level idles), B = 2^16 - 37; at F = 4 with a
+    cotangent 66 columns wide (its wrappers cut it to the 64 level columns
+    and pad ct_gy back), B = 2^16 - 37; and on the hot-row input, B_HOT samples at
+    HOT_POINT with the eikonal step's cotangents at those points. There
+    every float of a table gradient takes B_HOT equal bf16 contributions,
+    which f32 sums exactly in any order (B_HOT < 2^16), so the kernels'
+    table gradients are held against the float64 sum under K7_REL /
+    K8_REL (one add lost or doubled moves a float by 1 / B_HOT), beside
+    the unrounded contributions; dL/dx, ct_gy and ct_x against the twin.
+    Its own generator, so later inputs are those they were. Returns the
+    max abs errors {K7, K8, K9}."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.ops.cuda import grid_kernel
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    ig_gen = torch.Generator().manual_seed(SEED + 41)
+    errs = {}
+
+    def note(new):
+        for k, v in new.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    sm = tt.create_from_config(3, 1, sdf.CONFIG, seed=SEED + 41, device=dev)
+    sm.trainer.set_params(random_params(sm.trainer, ig_gen))
+    net, params = sm.network, sm.trainer.params
+    plan = net.encoding.plan
+    for B in (sdf.N_EIKONAL, B_MAIN):
+        x = torch.rand(B, 3, generator=ig_gen).to(dev)
+        note(check_ig_kernels(f"B={B}", net, params, x, ig_gen,
+                              bounds=None if B == sdf.N_EIKONAL else {**K7_REL, **K8_REL}))
+    odd = json.loads(json.dumps(sdf.CONFIG))
+    odd["encoding"]["n_levels"] = 11
+    om = tt.create_from_config(3, 1, odd, seed=SEED + 42, device=dev)
+    om.trainer.set_params(random_params(om.trainer, ig_gen))
+    x = torch.rand(B_SDF - 37, 3, generator=ig_gen).to(dev)
+    note(check_ig_kernels(f"L=11 B={B_SDF - 37}", om.network, om.trainer.params, x, ig_gen,
+                          bounds={**K7_REL, **K8_REL}))
+    note(check_ig_width(dev, ig_gen))
+
+    x = torch.tensor(HOT_POINT, dtype=torch.float32).expand(B_HOT, 3).contiguous().to(dev)
+    table, _, gy_enc, z = eikonal_inputs(net, params, x)
+    tag = f"hot B={B_HOT}"
+    want7 = ig_contributions64(plan, x, gy_enc)
+    kt, kx = grid_kernel.grid_backward_ig(plan, table, x, gy_enc)
+    pt, px = grid_kernel._grid_backward_ig_plain(plan, table, x, gy_enc)
+    note({"K7": max(compare_norm(f"K7 grid_bwd_ig gtable {tag} vs float64", kt.double(), want7,
+                                 K7_REL["gtable"]),
+                    compare_norm(f"K7 grid_bwd_ig gx {tag}", kx, px, K7_REL["gx"]))})
+    rel, _ = norm_errors(pt, want7, {"all": 0})
+    emit({"phase": "hot twin", "name": f"K7 twin gtable {tag} vs float64", "norm_rel_err": rel})
+    control(f"K7 gtable {tag}, unrounded", scatter_f32(plan, x, gy_enc), want7, K7_REL["gtable"])
+    want8 = ig_contributions64(plan, x, gy_enc, z)
+    ct = (torch.randn(plan.total_rows, plan.f, generator=ig_gen) * 1e-2).to(torch.bfloat16).to(dev)
+    for label, ct_table in (("", None), (" ct_table", ct)):
+        k = grid_kernel.grid_backward_bwd(plan, table, ct_table, x, gy_enc, z)
+        q = grid_kernel._grid_backward_bwd_plain(plan, table, ct_table, x, gy_enc, z)
+        note({"K8": max(
+            compare_norm(f"K8 grid_bwd_bwd ct_gy{label} {tag}", k[0], q[0], K8_REL["ct_gy"]),
+            compare_norm(f"K8 grid_bwd_bwd gtable2{label} {tag} vs float64", k[1].double(), want8,
+                         K8_REL["gtable2"]),
+            compare_norm(f"K8 grid_bwd_bwd ct_x{label} {tag}", k[2], q[2], K8_REL["ct_x"]))})
+    rel, _ = norm_errors(q[1], want8, {"all": 0})
+    emit({"phase": "hot twin", "name": f"K8 twin gtable2 {tag} vs float64", "norm_rel_err": rel})
+    control(f"K8 gtable2 {tag}, unrounded", scatter_f32(plan, x, gy_enc, z), want8,
+            K8_REL["gtable2"])
+    return errs
+
+
 def control_exact(name, lower, want):
     """A lower-precision twin against the twin: a bit-equality bound must
     reject it."""
@@ -1380,9 +1510,54 @@ def time_steps(tr, x, t):
     return step_ms
 
 
+def ig_yardsticks(plan, x, gy_enc, z):
+    """K7's and K8's one-call PyTorch yardsticks: `index_add_` of every
+    corner's bf16-rounded table contribution into its row (K7: W_c gy; K8:
+    zw_c gy, zw_c = sum_d z_d dW_c/dx_d), rows and contributions computed
+    beforehand, as k4_yardstick times K4's."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel
+
+    L, F = plan.n_levels, plan.f
+    g = gy_enc[:, : L * F].float().reshape(-1, L, F)
+    rows, c7, c8 = [], [], []
+    for k in grid_kernel._corners(plan, x, derivs=True):
+        rows.append(k.rows.reshape(-1))
+        c7.append((k.w[..., None] * g).to(torch.bfloat16).float().reshape(-1, F))
+        zw = sum(z[:, None, d] * k.dw[d] for d in range(plan.d))
+        c8.append((zw[..., None] * g).to(torch.bfloat16).float().reshape(-1, F))
+    rows, c7, c8 = torch.cat(rows), torch.cat(c7), torch.cat(c8)
+    out = torch.zeros((plan.total_rows, F), dtype=torch.float32, device=x.device)
+    return {"K7": lambda: out.zero_().index_add_(0, rows, c7),
+            "K8": lambda: out.zero_().index_add_(0, rows, c8)}
+
+
+def kernel_device_ms(fn, key, iters=10):
+    """(device ms a call of the CUDA kernels whose name holds `key`, device
+    ms a call of all its kernels and memsets) under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    own = whole = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        t = ev.self_cuda_time_total if t is None else t
+        whole += t
+        own += t if key in ev.key else 0.0
+    return own / 1e3 / iters, whole / 1e3 / iters
+
+
 def time_ig_kernels(net, params, x, plain_iters=3):
     """K7, K8 and K9 on the eikonal step's inputs at x: ({kernel: (ms, twin
-    ms, None)}, {kernel: (bound ms, bound_by)}), 20 launches a turn."""
+    ms, yardstick ms or None)}, {kernel: (bound ms, bound_by)}, {K7, K8:
+    (the kernel's device ms, the call's device ms with its wrapper's
+    memsets)}), 20 launches a turn."""
     from tcnn_tpu_torch.ops.cuda import grid_kernel, train_kernel
 
     plan, B = net.encoding.plan, x.shape[0]
@@ -1397,7 +1572,11 @@ def time_ig_kernels(net, params, x, plain_iters=3):
                lambda: train_kernel._fused_ig_grads_plain(plan, prep.dims, prep.table,
                                                           prep.weights, x, gy_out)),
     }
-    ms = {k: time_pair(kern, plain, plain_iters=plain_iters) for k, (kern, plain) in timed.items()}
+    library = ig_yardsticks(plan, x, gy_enc, z)
+    ms = {k: time_pair(kern, plain, library.get(k), plain_iters=plain_iters)
+          for k, (kern, plain) in timed.items()}
+    device = {k: kernel_device_ms(timed[k][0], name)
+              for k, name in (("K7", "grid_bwd_ig_kernel"), ("K8", "grid_bwd_bwd_kernel"))}
     gtable = plan.total_rows * plan.f * 4
     bounds = {
         "K7": kernel_bound(bytes_of(x, gy_enc, table) + gtable + x.numel() * 4,
@@ -1408,7 +1587,7 @@ def time_ig_kernels(net, params, x, plain_iters=3):
                            + x.numel() * 4, f32=grid_ops(B, plan, "fwd") + grid_ops(B, plan, "ig"),
                            bf16=6 * B * prep.dims.n_weights),
     }
-    return ms, bounds
+    return ms, bounds, device
 
 
 def k5_bound(dims, weights, enc, gy):
@@ -1690,7 +1869,7 @@ def check_option_kernels(cfg, gen, dev, smi, enc_w):
     control(f"K9 table Rng, {label}", cg, pg, {"table": K9_REL["table"]}, sprep.dims.n_weights)
     # their times at B = 2^18, as phase 9 times them without the hash
     x = torch.rand(B_MAIN, 3, generator=gen).to(dev)
-    ig_ms, ig_bounds = time_ig_kernels(snet, sparams, x, plain_iters=1)
+    ig_ms, ig_bounds, _ = time_ig_kernels(snet, sparams, x, plain_iters=1)
     for k in ("K7", "K8", "K9"):
         ms[f"{k} rng"], bounds[f"{k} rng"] = ig_ms[k], ig_bounds[k]
         extra[f"{k} rng"] = {"hash_mul64": hash_int_ops(splan, x)}
@@ -2125,14 +2304,21 @@ def reference_sdf_slice(gen, dev, smi):
     compare_norm("T=2^19 SDF eikonal gradient, fused route (K3 K9) vs composed (K1 K7)", eik[0],
                  eik[1], SDF_ROUTE_REL)
 
-    ms, bounds = {}, {}
+    ms, bounds, device = {}, {}, {}
     for B in (B_SDF, B_MAIN):
-        ms[B], bounds[B] = time_ig_kernels(snet, sparams, torch.rand(B, 3, generator=gen).to(dev),
-                                           plain_iters=1)
+        ms[B], bounds[B], device[B] = time_ig_kernels(
+            snet, sparams, torch.rand(B, 3, generator=gen).to(dev), plain_iters=1)
+    # the eikonal term's points, from their own generator (later inputs stay as they were)
+    x = torch.rand(sdf.N_EIKONAL, 3, generator=torch.Generator().manual_seed(SEED + 43)).to(dev)
+    ms[sdf.N_EIKONAL], bounds[sdf.N_EIKONAL], device[sdf.N_EIKONAL] = time_ig_kernels(
+        snet, sparams, x, plain_iters=1)
     xs = torch.rand(B_SDF, 3, generator=gen).to(dev)
     step_ms = cuda_ms(lambda: sdf.train_step(str_, xs), 20)
     emit({"phase": "times reference sdf", "card": smi,
-          "ms": {f"{k} B={b}": {"kernel": v[0], "plain": v[1], "bound": bounds[b][k][0]}
+          "ms": {f"{k} B={b}": {"kernel": v[0], "plain": v[1], "library": v[2],
+                                "bound": bounds[b][k][0],
+                                **({"device": device[b][k][0], "device_with_memsets":
+                                    device[b][k][1]} if k in device[b] else {})}
                  for b in ms for k, v in ms[b].items()},
           "sdf_train_step_ms": step_ms, "sdf_steps_per_s": 1e3 / step_ms,
           "sdf_sample_steps_per_s": SDF_STEPS / loop_s})
@@ -2456,6 +2642,9 @@ def main() -> int:
     for k, v in check_ig_kernels(f"F=8 B={B_SDF}", sm.network, sm.trainer.params, x,
                                  f8_gen).items():
         errs[k] = max(errs.get(k, 0.0), v)
+    # 7b. K7 and K8 at 1024 points and 2^18, at an odd L and on a hot-row input
+    for k, v in check_ig_shapes(dev).items():
+        errs[k] = max(errs.get(k, 0.0), v)
     cover = dict.fromkeys(("gtable", "gx", "ct_gy", "gtable2", "ct_x"), COVER_IG_REL)
     for d, interp in ((2, "Smoothstep"), (4, "Linear")):
         scfg = json.loads(json.dumps(sdf.CONFIG))
@@ -2515,17 +2704,20 @@ def main() -> int:
     sm = tt.create_from_config(3, 1, sdf.CONFIG, seed=SEED + 10, device="cuda")
     sm.trainer.set_params(random_params(sm.trainer, gen))
     snet, sparams = sm.network, sm.trainer.params
-    ig_ms, ig_bounds = {}, {}
+    ig_ms, ig_bounds, ig_dev = {}, {}, {}
     # the timings of the paths' other shapes draw from their own generator,
     # so that every later check sees the inputs it saw before they existed
     shape_gen = torch.Generator().manual_seed(SEED + 13)
     for B in (sdf.N_EIKONAL, B_SDF, B_MAIN):
         x = torch.rand(B, 3, generator=shape_gen if B == sdf.N_EIKONAL else gen).to(dev)
-        ig_ms[B], ig_bounds[B] = time_ig_kernels(snet, sparams, x)
+        ig_ms[B], ig_bounds[B], ig_dev[B] = time_ig_kernels(snet, sparams, x)
     xs = torch.rand(B_SDF, 3, generator=gen).to(dev)
     sdf_step_ms = cuda_ms(lambda: sdf.train_step(sm.trainer, xs), 20)
     emit({"phase": "times ig", "card": smi,
-          "ms": {f"{k} B={b}": {"kernel": v[0], "plain": v[1], "bound": ig_bounds[b][k][0]}
+          "ms": {f"{k} B={b}": {"kernel": v[0], "plain": v[1], "library": v[2],
+                                "bound": ig_bounds[b][k][0],
+                                **({"device": ig_dev[b][k][0], "device_with_memsets":
+                                    ig_dev[b][k][1]} if k in ig_dev[b] else {})}
                  for b in ig_ms for k, v in ig_ms[b].items()},
           "sdf_train_step_ms": sdf_step_ms, "sdf_steps_per_s": 1e3 / sdf_step_ms})
     shape_ms, shape_bounds = time_path_shapes(net, tr.params, snet, sparams, shape_gen, w128)
@@ -2646,13 +2838,14 @@ def main() -> int:
     for k, replaces in binned.items():
         entries.append((f"{k} T=2^19", f"{sources[k][0]} (T=2^19)", sources[k][1], replaces,
                         ref_launches[k], ref_errs[k], ref_ms[k], ref_bounds[k]))
-    # K1-K3, K5, K6, K9, K11 and K13, redesigned for Hopper (K1: D fixed at
+    # K1-K3, K5-K9, K11 and K13, redesigned for Hopper (K1: D fixed at
     # compile time, lane pairs sharing corner loads; K2, K3, K5, K6, K9:
     # mma.sync layers in registers, persistent blocks, the weight gradient
-    # in registers across tiles; K11: private levels summed by warps that
+    # in registers across tiles; K7, K8: K1's lane pairs, one vector RED a
+    # corner; K11: private levels summed by warps that
     # own them, vector REDs; K13: warp sums of the lanes on one row, vector
     # REDs)
-    redesigned = dict.fromkeys(("K1", "K2", "K3", "K5", "K6", "K9", "K11"),
+    redesigned = dict.fromkeys(("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9", "K11"),
                                "redesigned for Hopper")
     redesigned["K13"] = "redesigned for Hopper; its table half timed"
     entries = [(key, (name[:-1] + "; " + redesigned[key.split()[0]] + ")" if name.endswith(")")

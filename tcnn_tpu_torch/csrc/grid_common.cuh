@@ -1,7 +1,8 @@
 // One (sample, level) of the multiresolution grid, forward and backward,
 // shared by K3 (fused_infer.cu), K4 (grid_bwd.cu), K6 and K9
-// (fused_train.cu), K7 (grid_bwd_ig.cu) and K8 (grid_bwd_bwd.cu); K1
-// (grid_fwd.cu) walks the same corners on lane pairs, grid_level_pair.
+// (fused_train.cu); K1 (grid_fwd.cu) walks the same corners on lane pairs,
+// grid_level_pair, and K7 (grid_bwd_ig.cu) and K8 (grid_bwd_bwd.cu) on
+// lane pairs with derivatives, pair_levels .. pair_tiles.
 //
 // The arithmetic is written to round exactly where the plain PyTorch twin
 // (ops/cuda/grid_kernel.py:_corners) and the JAX package round: every float
@@ -15,8 +16,9 @@
 // The fused forwards and the backwards visit the corners through one
 // function, grid_corners, so all agree on every corner at cell boundaries;
 // the stochastic scatter picks its one corner through the same position and
-// row functions (grid_stoch_row). K1's grid_level_pair repeats the same
-// operations in the same order with D fixed at compile time.
+// row functions (grid_stoch_row). K1's grid_level_pair and K7's and K8's
+// pair_levels repeat the same operations in the same order with D fixed
+// at compile time.
 //
 // Two options of every grid kernel (K1, K3, K4, K6, K7, K8, K9):
 // - HashType.Rng (HASH_RNG): a hashed level indexes through rng_hash, the
@@ -36,6 +38,8 @@
 //   would write and read back at config_hash's B = 2^18, and a kernel needs
 //   no extra input or launch.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -426,6 +430,136 @@ __device__ __forceinline__ void grid_level_pair(const GridArgs& g, long b, int l
   }
 }
 
+// K7's and K8's walker (grid_bwd_ig.cu, grid_bwd_bwd.cu), K1's lane pairs
+// with derivatives: lanes 2i and 2i + 1 of a warp serve levels l0 and
+// l0 + 1 of one sample (items 0 and 1), lane 2i + q owning item q, with D
+// fixed at compile time. pair_levels computes both items' positions in
+// grid_position's operations and order; the lane whose x bit (lane & 1) is
+// k takes corners 2j + k (j < 2^(D-1)) of both items: their rows
+// (corner_row), their table-row loads, which put each x-pair (c, c ^ 1) of
+// an item into one load instruction, and their table-gradient adds, which
+// put the two rows of an x-pair into one atomic instruction (neighbouring
+// rows at a dense level and, under CoherentPrime's x factor 1, at a hashed
+// level for an even x cell). own_corner gives a lane all 2^D raw rows of
+// its own item after the exchange (pair_swap), so that it sums its own
+// corners c = 0, 1, ... in the twin's order. An item that is not active
+// (its level at or past L, its sample past the batch) loads and adds
+// nothing and its lane leaves zeros, but still takes part in the swaps.
+template <int D>
+struct PairLevels {
+  LevelConsts k[2];
+  bool active[2];
+  unsigned cell[2][D];
+  float w[2][D], deriv[2][D], deriv2[2][D];
+};
+
+template <int D>
+__device__ __forceinline__ void pair_levels(const GridArgs& g, long b, int l0, bool in_batch,
+                                            PairLevels<D>& p) {
+  const bool smooth = g.interp == INTERP_SMOOTHSTEP;
+  float x[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) x[d] = in_batch ? g.x[b * D + d] : 0.f;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    p.active[q] = in_batch && l0 + q < g.L;
+    p.k[q] = level_consts(g, p.active[q] ? l0 + q : 0);
+    const float scale = p.k[q].scale;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float pos = __fadd_rn(__fmul_rn(x[d], scale), 0.5f);
+      const float cf = floorf(pos);
+      const float fr = __fsub_rn(pos, cf);
+      p.cell[q][d] = (unsigned)(int)cf;
+      p.w[q][d] = smooth ? __fmul_rn(__fmul_rn(fr, fr), __fsub_rn(3.0f, __fmul_rn(2.0f, fr))) : fr;
+      p.deriv[q][d] = smooth
+          ? __fmul_rn(__fmul_rn(__fmul_rn(6.0f, fr), __fsub_rn(1.0f, fr)), scale)
+          : scale;
+      p.deriv2[q][d] = smooth
+          ? __fmul_rn(__fmul_rn(__fmul_rn(6.0f, __fsub_rn(1.0f, __fmul_rn(2.0f, fr))), scale),
+                      scale)
+          : 0.f;
+    }
+  }
+}
+
+// Corner c's weight from the weights w[d], as grid_corners forms it.
+template <int D>
+__device__ __forceinline__ float corner_weight(const float* w, int c) {
+  float cw = 1.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float term = ((c >> d) & 1) ? w[d] : __fsub_rn(1.0f, w[d]);
+    cw = d == 0 ? term : __fmul_rn(cw, term);
+  }
+  return cw;
+}
+
+// Corner c's CornerDerivs from one item's weights and derivatives.
+template <int D>
+__device__ __forceinline__ CornerDerivs corner_derivs(const float* w, const float* deriv,
+                                                      const float* deriv2, int c) {
+  CornerDerivs k;
+  k.c = c;
+  k.D = D;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    k.term[d] = 1.f;
+    k.deriv[d] = k.deriv2[d] = 0.f;
+    if (d < D) {
+      k.term[d] = ((c >> d) & 1) ? w[d] : __fsub_rn(1.0f, w[d]);
+      k.deriv[d] = deriv[d];
+      k.deriv2[d] = deriv2[d];
+    }
+  }
+  return k;
+}
+
+// The rows of this lane's corners 2j + (lane & 1) of both items (0 for an
+// item that is not active).
+template <int D>
+__device__ __forceinline__ void pair_rows(const GridArgs& g, const PairLevels<D>& p,
+                                          unsigned (&row)[2][1 << (D - 1)]) {
+  const int xbit = threadIdx.x & 1;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int j = 0; j < (1 << (D - 1)); ++j)
+      row[q][j] = p.active[q] ? corner_row<D>(g, p.k[q], p.cell[q], 2 * j + xbit) : 0u;
+}
+
+// The raw rows of `tab` at this lane's corners of both items.
+template <int F, int D>
+__device__ __forceinline__ void pair_loads(const bf16* tab, const PairLevels<D>& p,
+                                           const unsigned (&row)[2][1 << (D - 1)],
+                                           typename BfVec<F>::T (&mine)[2][1 << (D - 1)]) {
+  using Raw = typename BfVec<F>::T;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int j = 0; j < (1 << (D - 1)); ++j)
+      mine[q][j] = p.active[q] ? *reinterpret_cast<const Raw*>(tab + (size_t)row[q][j] * F) : Raw{};
+}
+
+// The exchange: theirs[j] = the partner's row 2j + (its x bit) of this
+// lane's item (every lane of the warp calls it).
+template <int F, int D>
+__device__ __forceinline__ void pair_swap(const typename BfVec<F>::T (&mine)[2][1 << (D - 1)],
+                                          typename BfVec<F>::T (&theirs)[1 << (D - 1)]) {
+  const int xbit = threadIdx.x & 1;
+#pragma unroll
+  for (int j = 0; j < (1 << (D - 1)); ++j) theirs[j] = shfl_pair(xbit ? mine[0][j] : mine[1][j]);
+}
+
+// Corner c of this lane's own item, unpacked to f32.
+template <int F, int D>
+__device__ __forceinline__ void own_corner(const typename BfVec<F>::T (&mine)[2][1 << (D - 1)],
+                                           const typename BfVec<F>::T (&theirs)[1 << (D - 1)],
+                                           int c, float* v) {
+  const int xbit = threadIdx.x & 1;
+  unpack_bf16<F>((c & 1) == xbit ? (xbit ? mine[1][c >> 1] : mine[0][c >> 1]) : theirs[c >> 1], v);
+}
+
 // Backward (K4, K6): row += bf16(w * gy[f]) per corner, the contribution
 // rounded to bf16 as the TPU kernel rounds it (grid_kernel.py:674-677), then
 // added in f32. Stochastic: row += bf16(gy[f]) into the one drawn corner's
@@ -463,7 +597,7 @@ __device__ __forceinline__ void grid_level_bwd(const GridArgs& g, long b, int l,
   });
 }
 
-// Backward with input gradients (K7, K9): the same bf16-rounded
+// Backward with input gradients (K9): the same bf16-rounded
 // contributions, one scalar f32 atomic per feature into the global gradient
 // (every level), plus each corner's
 // feature row read again for dot = sum_f table[row, f] * gy[f], and
@@ -494,7 +628,8 @@ __device__ __forceinline__ void grid_level_bwd_ig(const GridArgs& g, long b, int
 // [rows][L][D] of samples b0 .. b0 + rows - 1: out[b * D + d] = sum over
 // l = 0..L-1, in order, of parts[b - b0][l][d], for b < B. One thread per
 // (sample, dim); deterministic, and the twin's order
-// (grid_kernel.py:_level_sum). K9 calls it on its tile's partials.
+// (grid_kernel.py:_level_sum). K9 calls it on its tile's partials, K7 and
+// K8 on theirs (pair_tiles).
 __device__ __forceinline__ void sum_level_parts(const float* parts, int rows, int D, int L,
                                                 long b0, long B, float* __restrict__ out) {
   for (int q = threadIdx.x; q < rows * D; q += blockDim.x) {
@@ -508,19 +643,79 @@ __device__ __forceinline__ void sum_level_parts(const float* parts, int rows, in
   }
 }
 
-// The same for a block whose thread t owns sample b0 + t / L at level t % L
-// (blockDim.x / L samples, blockDim.x <= 256) and holds that level's
-// partial part[d] (K7, K8). Every thread of the block must call it.
-__device__ __forceinline__ void sum_levels(const float* part, int D, int L, long b0, long B,
-                                           float* __restrict__ out) {
-  __shared__ float sm[256 * 4];
-  const int S = blockDim.x / L;
-  const int s = threadIdx.x / L, l = threadIdx.x % L;
-  if (s < S) {
-    for (int d = 0; d < D; ++d) sm[(s * L + l) * D + d] = part[d];
+// The tile walk of K7 and K8. A block of blockDim.x / 32 warps takes tiles
+// of kPairSamples * groups samples; within a tile, task t (t < groups *
+// n_pairs, n_pairs = ceil(L / 2)) is sample group t / n_pairs at level
+// pair t % n_pairs, and warp w takes tasks w, w + warps, ...: lane
+// 2i + q serves sample 16 (t / n_pairs) + i of the tile at level
+// 2 (t % n_pairs) + q. So every lane pair is one sample, whatever the
+// parity of L (an odd L leaves item 1 of the last pair inactive).
+// task(b, l0, part) runs one task and leaves the lane's own dL/dx partial
+// in part[0..D); those land in shared memory `smem` [tile samples][L][D],
+// and after the tile's tasks one thread per (sample, dim) sums them over
+// levels in order (sum_level_parts) into out_x. tile_end(b0) runs after
+// the sums. The walk is persistent: gridDim.x blocks take tiles
+// blockIdx.x, +gridDim.x, ...
+constexpr int kPairSamples = 16;
+// The most threads a K7 / K8 block has (grid_kernel.py:IG_WARPS warps).
+constexpr int kPairMaxThreads = 512;
+
+template <int D, class Task, class TileEnd>
+__device__ __forceinline__ void pair_tiles(const GridArgs& g, float* parts, long B, int groups,
+                                           float* __restrict__ out_x, long n_tiles, Task&& task,
+                                           TileEnd&& tile_end) {
+  const int tile = kPairSamples * groups, n_pairs = (g.L + 1) >> 1;
+  const int lane = threadIdx.x & 31, xbit = lane & 1;
+  for (long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long b0 = t * tile;
+    for (int task_i = threadIdx.x >> 5; task_i < groups * n_pairs; task_i += blockDim.x >> 5) {
+      const int s = (task_i / n_pairs) * kPairSamples + (lane >> 1);
+      const int l0 = 2 * (task_i % n_pairs);
+      float part[D];
+      task(b0 + s, l0, part);
+      if (b0 + s < B && l0 + xbit < g.L) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) parts[(s * g.L + l0 + xbit) * D + d] = part[d];
+      }
+    }
+    __syncthreads();
+    sum_level_parts(parts, tile, D, g.L, b0, B, out_x);
+    tile_end(b0);
+    __syncthreads();
   }
-  __syncthreads();
-  sum_level_parts(sm, S, D, L, b0, B, out);
+}
+
+// K7's and K8's shared memory a block: its tile's dL/dx (ct_x) partials.
+inline size_t pair_smem(int groups, int L, int D) {
+  return (size_t)kPairSamples * groups * L * D * sizeof(float);
+}
+
+inline long pair_n_tiles(long B, int groups) {
+  const long tile = (long)kPairSamples * groups;
+  return (B + tile - 1) / tile;
+}
+
+// fn(F, D) with both as std::integral_constant, for the F (1, 2, 4, 8) and
+// D (1-4) that K7 and K8 are built for; `bad` for any other.
+template <class Fn>
+inline int with_f_d(int F, int D, int bad, Fn&& fn) {
+  using std::integral_constant;
+  auto dims = [&](auto f) {
+    switch (D) {
+      case 1: return fn(f, integral_constant<int, 1>{});
+      case 2: return fn(f, integral_constant<int, 2>{});
+      case 3: return fn(f, integral_constant<int, 3>{});
+      case 4: return fn(f, integral_constant<int, 4>{});
+      default: return bad;
+    }
+  };
+  switch (F) {
+    case 1: return dims(integral_constant<int, 1>{});
+    case 2: return dims(integral_constant<int, 2>{});
+    case 4: return dims(integral_constant<int, 4>{});
+    case 8: return dims(integral_constant<int, 8>{});
+    default: return bad;
+  }
 }
 
 }  // namespace tcnn

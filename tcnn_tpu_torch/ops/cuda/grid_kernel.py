@@ -18,11 +18,13 @@ table gradients with f32 atomics: K4 (and K6, ``train_kernel``) sum the
 leading dense levels in shared memory (`private_levels`) and add the rest
 with one vector atomic per corner. K1 pairs the lanes of two levels of a
 sample, so that the two rows of each x-pair of corners go out in one load
-instruction and share a sector fetch (``grid_level_pair``). Only the bf16
-rounding carries over from the TPU layout; the public column order is the
-JAX package's (level-major, feature-minor). Every kernel and twin visits
-the corners in one order (`_corners` here, ``grid_corners`` and K1's
-``grid_level_pair`` in ``csrc/grid_common.cuh``).
+instruction and share a sector fetch (``grid_level_pair``); K7 and K8 walk
+the same pairs with derivatives (``pair_levels``), each lane adding the
+contributions of the corners it loaded with one vector atomic a corner.
+Only the bf16 rounding carries over from the TPU layout; the public column
+order is the JAX package's (level-major, feature-minor). Every kernel and
+twin visits the corners in one order (`_corners` here, ``grid_corners``
+and K1's ``grid_level_pair`` in ``csrc/grid_common.cuh``).
 
 Two options ride on the plan. Under `HashType.Rng` the hashed levels index
 through the PCG32-advance hash (`pcg32.rng_hash`; in the kernels the device
@@ -615,10 +617,35 @@ def _check_ig(plan: GridPlan, table, x, gy) -> int:
     return B
 
 
+#: K7's and K8's blocks: at most this many warps, each serving one pair of
+#: levels for 16 samples (csrc/grid_common.cuh:pair_tiles).
+IG_WARPS = 16
+
+
+def ig_layout(n_levels: int) -> tuple:
+    """(groups, warps) of a K7 / K8 block: ceil(L / 2) level pairs, each a
+    warp's task for 16 samples; `groups` groups of 16 samples a tile, so
+    that groups x pairs fills IG_WARPS warps (L = 12: 2 groups, 12 warps a
+    block of 32 samples); past IG_WARPS pairs the warps loop over them."""
+    pairs = (n_levels + 1) // 2
+    groups = max(1, IG_WARPS // pairs)
+    return groups, min(IG_WARPS, groups * pairs)
+
+
+def _cut_to_levels(plan: GridPlan, gy):
+    """gy [B, w] cut to its leading L*F columns where w is not a multiple
+    of F: K4, K7 and K8 read F columns a load, and only those columns."""
+    L, F = plan.n_levels, plan.f
+    if gy.dim() == 2 and gy.shape[1] % F and gy.shape[1] >= L * F:
+        return gy[:, : L * F].contiguous()
+    return gy
+
+
 def grid_backward_ig(plan: GridPlan, table, x, gy):
     """(table gradient f32 [total_rows, F], dL/dx f32 [B, D]) of the
     encoding at `x` for the cotangent `gy` [B, >= L*F] (K7; every level
     active). `table` is the bf16 [total_rows, F] feature table."""
+    gy = _cut_to_levels(plan, gy)
     B = _check_ig(plan, table, x, gy)
     if x.device.type == "cpu":
         return _grid_backward_ig_plain(plan, table, x, gy)
@@ -628,6 +655,9 @@ def grid_backward_ig(plan: GridPlan, table, x, gy):
     gx = torch.empty((B, plan.d), dtype=torch.float32, device=dev)
     if B == 0:
         return gtable, gx
+    groups, warps = ig_layout(plan.n_levels)
+    grid = persistent_grid("tcnn_grid_bwd_ig_grid",
+                           (B, plan.d, plan.f, plan.n_levels, groups, warps), dev)
     level_i32, level_f32 = plan.device_consts(dev)
     fn = _build.function("tcnn_grid_bwd_ig", _GRID_BWD_IG_ARGS)
     _build.check(
@@ -635,7 +665,7 @@ def grid_backward_ig(plan: GridPlan, table, x, gy):
             x.data_ptr(), gy.data_ptr(), table.data_ptr(), level_i32.data_ptr(),
             level_f32.data_ptr(), gtable.data_ptr(), gx.data_ptr(), B, plan.d, plan.f,
             plan.n_levels, INTERP_CODES[plan.interpolation], *plan.c_hash(), gy.shape[1],
-            dev.index, torch.cuda.current_stream(dev).cuda_stream,
+            groups, warps, grid, dev.index, torch.cuda.current_stream(dev).cuda_stream,
         ),
         "tcnn_grid_bwd_ig",
     )
@@ -647,7 +677,8 @@ _GRID_BWD_IG_ARGS = (
     [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 5
     + HASH_ARGS
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 5
+    + [ctypes.c_void_p]
 )
 
 
@@ -656,7 +687,20 @@ def grid_backward_bwd(plan: GridPlan, table, ct_table, x, gy, z):
     [B, D]): the vjp of `grid_backward_ig` at (table, x, gy) for the
     cotangents ct_table (bf16 [total_rows, F] or None) of its table gradient
     and z (f32 [B, D] or None) of its dL/dx (K8). A None cotangent skips
-    its terms, and with it K8's second gather."""
+    its terms, and with it K8's second gather. A gy whose width is not a
+    multiple of F is cut to its L*F columns and ct_gy padded back with
+    zeros."""
+    cut = _cut_to_levels(plan, gy)
+    ct_gy, gtable2, ct_x = _grid_backward_bwd(plan, table, ct_table, x, cut, z)
+    if cut is not gy:
+        ct_gy = torch.nn.functional.pad(ct_gy, (0, gy.shape[1] - cut.shape[1]))
+    return ct_gy, gtable2, ct_x
+
+
+def _grid_backward_bwd(plan: GridPlan, table, ct_table, x, gy, z):
+    """grid_backward_bwd at a gy of whole F-column groups. The kernel
+    writes ct_gy (its padding columns too) and ct_x whole; only gtable2 is
+    zeroed."""
     B = _check_ig(plan, table, x, gy)
     dev = x.device
     if ct_table is not None and (ct_table.dtype != torch.bfloat16 or ct_table.shape != table.shape
@@ -671,20 +715,24 @@ def grid_backward_bwd(plan: GridPlan, table, ct_table, x, gy, z):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError("ct_table and z must be contiguous and 16-byte aligned")
     global BWDBWD_LAUNCHES
-    ct_gy = torch.zeros((B, gy.shape[1]), dtype=torch.float32, device=dev)
     gtable2 = torch.zeros((plan.total_rows, plan.f), dtype=torch.float32, device=dev)
-    ct_x = torch.zeros((B, plan.d), dtype=torch.float32, device=dev)
     if B == 0 or (ct_table is None and z is None):
-        return ct_gy, gtable2, ct_x
+        return (torch.zeros((B, gy.shape[1]), dtype=torch.float32, device=dev), gtable2,
+                torch.zeros((B, plan.d), dtype=torch.float32, device=dev))
+    ct_gy = torch.empty((B, gy.shape[1]), dtype=torch.float32, device=dev)
+    ct_x = torch.empty((B, plan.d), dtype=torch.float32, device=dev)
+    groups, warps = ig_layout(plan.n_levels)
+    grid = persistent_grid("tcnn_grid_bwd_bwd_grid",
+                           (B, plan.d, plan.f, plan.n_levels, groups, warps), dev)
     level_i32, level_f32 = plan.device_consts(dev)
     fn = _build.function("tcnn_grid_bwd_bwd", _GRID_BWD_BWD_ARGS)
     _build.check(
         fn(
             x.data_ptr(), gy.data_ptr(), 0 if z is None else z.data_ptr(), table.data_ptr(),
             0 if ct_table is None else ct_table.data_ptr(), level_i32.data_ptr(),
-            level_f32.data_ptr(), ct_gy.data_ptr(), gtable2.data_ptr(), ct_x.data_ptr(),
-            B, plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation],
-            *plan.c_hash(), gy.shape[1], dev.index,
+            level_f32.data_ptr(), ct_gy.data_ptr(), gtable2.data_ptr(), ct_x.data_ptr(), B,
+            plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation], *plan.c_hash(),
+            gy.shape[1], groups, warps, grid, dev.index,
             torch.cuda.current_stream(dev).cuda_stream,
         ),
         "tcnn_grid_bwd_bwd",
@@ -697,7 +745,8 @@ _GRID_BWD_BWD_ARGS = (
     [ctypes.c_void_p] * 10
     + [ctypes.c_int] * 5
     + HASH_ARGS
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 5
+    + [ctypes.c_void_p]
 )
 
 
@@ -711,12 +760,9 @@ _GRID_BWD_ARGS = (
 
 
 def _level_columns(plan: GridPlan, gy):
-    """The encoding cotangent as K4, K7 and K8 read it: bf16, contiguous,
-    cut to its leading L*F columns where its width is not a multiple of F
-    (they read F columns a load, and only those columns)."""
-    if gy.shape[1] % plan.f:
-        gy = gy[:, : plan.n_levels * plan.f]
-    return gy.to(torch.bfloat16).contiguous()
+    """The encoding cotangent as K4 reads it: bf16, contiguous, cut to its
+    leading L*F columns where its width is not a multiple of F."""
+    return _cut_to_levels(plan, gy).to(torch.bfloat16).contiguous()
 
 
 class GridEncodeFn(torch.autograd.Function):
@@ -775,10 +821,10 @@ class GridIgBackwardFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, params, x, gy, plan):
         table = params.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
-        gyb = _level_columns(plan, gy)
+        gyb = gy.to(torch.bfloat16).contiguous()
         gtable, gx = grid_backward_ig(plan, table, x, gyb)
         ctx.save_for_backward(params, x, gyb)
-        ctx.plan, ctx.gy_width = plan, gy.shape[1]
+        ctx.plan = plan
         ctx.set_materialize_grads(False)
         return gtable.reshape(-1), gx
 
@@ -793,8 +839,6 @@ class GridIgBackwardFn(torch.autograd.Function):
                     ct_gparams.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous())
         zz = None if z is None else z.float().contiguous()
         ct_gy, gtable2, ct_x = grid_backward_bwd(plan, table, ct_table, x, gyb, zz)
-        if ct_gy.shape[1] != ctx.gy_width:
-            ct_gy = torch.nn.functional.pad(ct_gy, (0, ctx.gy_width - ct_gy.shape[1]))
         return no_third_order(gtable2.reshape(-1), ct_x, ct_gy) + (None,)
 
 

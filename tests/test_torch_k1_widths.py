@@ -6,7 +6,7 @@ K1 stores F columns at a time into rows whose width is a multiple of F, so
 `grid_kernel.grid_encode` encodes such a width into the next multiple of F
 and copies out its leading columns, and the backward kernels (K4, K7, K8),
 which read F columns a load, get the cotangent's leading L*F columns
-(`grid_kernel._level_columns`). These hold the port against the JAX
+(`grid_kernel._cut_to_levels`). These hold the port against the JAX
 package's Pallas forward (interpret mode) within one bf16 ulp, as
 tests/test_torch_grid.py does at aligned widths, and its gradients at the
 odd width against the same encoding's at its unpadded width, bit for bit.
