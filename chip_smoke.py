@@ -75,7 +75,11 @@ Phases, each printing JSON lines:
      dots halves), each beside a control its bound must reject; K2 and K5
      at the sample models' MLP input widths (48 and 16); times of each
      kernel, its twin and its one-call PyTorch yardstick at the defaults
-     and at the sample's configs;
+     and at the sample's configs; on a hot-row input (every sample at one
+     point) K11 or K13, and K12; K12 also at the eikonal term's 1024
+     points (timed, "times k12"), a ragged batch, C = 3 and an idx 4 bytes
+     off an 8-byte boundary, each bit-equal beside its bf16 corner-sum
+     control;
  11. the PPNG SDF slice: samples/learn_a_sdf.py's PPNG1, PPNG2 and PPNG3
      configs train SDF_STEPS eikonal steps each (counters: K10 K11 for
      PPNG1/2, K12 K13 for PPNG3, K2 K5 for the data term, no grid kernel),
@@ -1136,15 +1140,7 @@ def check_ppng_variant(tag, net, params, x, errs, timed=False):
         return ms, bounds
     cw, gy = inp["cw"], inp["gy"]
     NL = spec.n_levels
-    y = ek.ext_lookup(tbl, idx, cw, NL)
-    want = ek._ext_lookup_plain(tbl, idx, cw, NL)
-    errs["K12"] = max(errs["K12"], compare(f"K12 ext_lookup {tag}", y, want, rel_ulp=0.0))
-    picks = tbl[idx.long()].float().reshape(B, -1, NL, F)
-    wc = cw.reshape(B, -1, NL, 1)
-    acc = torch.zeros_like(picks[:, 0])
-    for c in range(picks.shape[1]):
-        acc = (acc + wc[:, c] * picks[:, c]).to(torch.bfloat16).float()
-    control_exact(f"K12 {tag}, corner sum in bf16", acc.reshape(B, -1).to(torch.bfloat16), want)
+    y = check_k12(tag, tbl, idx, cw, NL, errs)
     dT, dcw = ek.ext_lookup_bwd(tbl, idx, cw, gy, spec.n_rows, NL)
     wT, wcw = ek._ext_lookup_bwd_plain(tbl, idx, cw, gy, spec.n_rows, NL, True, True)
     errs["K13"] = max(errs["K13"],
@@ -1180,10 +1176,83 @@ def check_ppng_variant(tag, net, params, x, errs, timed=False):
             lambda: ek.ext_lookup_bwd(None, idx, cw, gy, spec.n_rows, NL, want_dots=False),
             lambda: ek._ext_lookup_bwd_plain(None, idx, cw, gy, spec.n_rows, NL, True, False),
             lambda: out.zero_().index_add_(0, rows, contrib))
-        bounds["K12"] = kernel_bound(bytes_of(idx, cw, tbl, y), f32=2 * P * F)
+        bounds["K12"] = k12_bound(tbl, idx, cw, y)
         bounds["K13 both"] = kernel_bound(bytes_of(idx, cw, gy, tbl, dT, dcw), f32=4 * P * F)
         bounds["K13"] = kernel_bound(bytes_of(idx, cw, gy, dT), f32=2 * P * F)
     return ms, bounds
+
+
+def check_k12(tag, tbl, idx, cw, NL, errs):
+    """K12 against its twin bit for bit (rel_ulp 0), beside the control
+    that keeps the twin's corner sum in bf16. Adds to `errs`; returns K12's
+    output."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import ext_kernel as ek
+
+    B, F = idx.shape[0], tbl.shape[1]
+    y = ek.ext_lookup(tbl, idx, cw, NL)
+    want = ek._ext_lookup_plain(tbl, idx, cw, NL)
+    errs["K12"] = max(errs["K12"], compare(f"K12 ext_lookup {tag}", y, want, rel_ulp=0.0))
+    picks = tbl[idx.long()].float().reshape(B, -1, NL, F)
+    wc = cw.reshape(B, -1, NL, 1)
+    acc = torch.zeros_like(picks[:, 0])
+    for c in range(picks.shape[1]):
+        acc = (acc + wc[:, c] * picks[:, c]).to(torch.bfloat16).float()
+    control_exact(f"K12 {tag}, corner sum in bf16", acc.reshape(B, -1).to(torch.bfloat16), want)
+    return y
+
+
+def k12_bound(tbl, idx, cw, y):
+    """(bound ms, bound_by) of K12: idx and cw read once, y written once,
+    each distinct table row this input picks read once; 2 f32 operations a
+    pick and feature."""
+    import torch
+
+    rows = torch.unique(idx).numel() * tbl.shape[1] * tbl.element_size()
+    return kernel_bound(bytes_of(idx, cw, y) + rows, f32=2 * idx.numel() * tbl.shape[1])
+
+
+def check_k12_shapes(dev, smi, errs):
+    """Phase 10's K12 at the other shapes of its path, PPNG3's sample
+    config (its own generator, so later inputs are those they were): the
+    eikonal term's N_EIKONAL points (timed, beside its bound and
+    `embedding_bag`), a ragged batch (B_SDF - 37) and, at that batch, the
+    first three corners of every level (C = 3) and an idx view 4 bytes off
+    an 8-byte boundary (both the first-slice kernel, which every C but 8,
+    an odd NL and an unaligned idx take), each bit for bit against the
+    twin beside the control of check_k12. Adds to `errs`."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import ext_kernel as ek
+    from tcnn_tpu_torch.ops.encodings import ppng
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    k12_gen = torch.Generator().manual_seed(SEED + 17)
+    enc = ppng.PPNG3Encoding(3, **{k: v for k, v in sdf.ENCODINGS["PPNG3"].items()
+                                   if k != "otype"})
+    spec, NL = enc.spec, enc.spec.n_levels
+    tbl = (torch.rand(spec.n_rows, spec.f, generator=k12_gen) * 2 - 1).to(torch.bfloat16).to(dev)
+    times = {}
+    for B in (sdf.N_EIKONAL, B_SDF - 37):
+        idx, cw = enc.indices(torch.rand(B, 3, generator=k12_gen).to(dev))
+        y = check_k12(f"PPNG3 sample B={B}", tbl, idx, cw, NL, errs)
+        if B == sdf.N_EIKONAL:
+            bag_idx = idx.reshape(B, -1, NL).transpose(1, 2).reshape(B * NL, -1)
+            bag_w = cw.reshape(B, -1, NL).transpose(1, 2).reshape(B * NL, -1)
+            tbl32 = tbl.float()
+            t = time_pair(lambda: ek.ext_lookup(tbl, idx, cw, NL),
+                          lambda: ek._ext_lookup_plain(tbl, idx, cw, NL),
+                          lambda: torch.nn.functional.embedding_bag(
+                              bag_idx, tbl32, mode="sum", per_sample_weights=bag_w))
+            times[f"K12 PPNG3 sample B={B}"] = {"kernel": t[0], "plain": t[1], "library": t[2],
+                                                "bound": k12_bound(tbl, idx, cw, y)[0]}
+    C3 = 3 * NL
+    check_k12(f"PPNG3 sample B={B_SDF - 37} C=3", tbl, idx[:, :C3].contiguous(),
+              cw[:, :C3].contiguous(), NL, errs)
+    buf = torch.empty(idx.numel() + 1, dtype=torch.int32, device=dev)
+    buf[1:] = idx.reshape(-1)
+    check_k12(f"PPNG3 sample B={B_SDF - 37} idx at a 4-byte offset", tbl,
+              buf[1:].view(idx.shape), cw, NL, errs)
+    emit({"phase": "times k12", "card": smi, "ms": times})
 
 
 def check_ppng_hot(variant, enc, dev, errs):
@@ -1191,8 +1260,12 @@ def check_ppng_hot(variant, enc, dev, errs):
     (PPNG1/2, on the route its plan takes) or K13 (PPNG3: both halves and
     the table half alone), each against the float64 sum of the twin's
     contributions under EXT_SCATTER_REL (K13's dots against the twin's,
-    EXT_DOTS_REL), beside a control of lower precision. Its own generator,
-    so later inputs are those they were. Adds to `errs`."""
+    EXT_DOTS_REL), beside a control of lower precision; and for PPNG3 K12
+    bit for bit, on the encoding's weights and on seeded random ones (at
+    one point the encoding's give 16 distinct outputs, too few for the
+    bf16 control to break: check_k12's control is held on the random
+    ones). Its own generator, so later inputs are those they were. Adds to
+    `errs`."""
     import torch
     from tcnn_tpu_torch.ops.cuda import ext_kernel as ek
 
@@ -1236,6 +1309,11 @@ def check_ppng_hot(variant, enc, dev, errs):
     emit({"phase": "hot twin", "name": f"K13 twin {tag} vs float64", "norm_rel_err": rel})
     unrounded = torch.zeros_like(wT).index_add_(0, rows, prod.reshape(-1, F))
     control(f"K13 table {tag}, unrounded", unrounded, want, EXT_SCATTER_REL)
+    y = ek.ext_lookup(tbl, idx, cw, NL)
+    errs["K12"] = max(errs["K12"], compare(f"K12 ext_lookup {tag}", y,
+                                           ek._ext_lookup_plain(tbl, idx, cw, NL), rel_ulp=0.0))
+    cw_rand = torch.rand(cw.shape, generator=hot_gen).to(dev)
+    check_k12(f"{tag}, random weights", tbl, idx, cw_rand, NL, errs)
 
 
 def check_ppng_kernels(gen, dev, smi, errs):
@@ -1244,7 +1322,8 @@ def check_ppng_kernels(gen, dev, smi, errs):
     config (B_SDF), whose kernel instantiations phase 11 launches, and on
     the hot-row input (check_ppng_hot), with K2 and K5 at its MLP input
     width; each timed (K13 with both halves, and its table half beside
-    `index_add_`). Adds to `errs`; returns
+    `index_add_`); then K12 at its path's other shapes (check_k12_shapes).
+    Adds to `errs`; returns
     ({(kernel, variant): (ms, twin ms, yardstick ms)}, {(kernel, variant):
     (bound ms, bound_by)})."""
     import torch
@@ -1282,6 +1361,7 @@ def check_ppng_kernels(gen, dev, smi, errs):
         errs["K5"] = max(errs["K5"], check_mlp_bwd(
             f"K5 mlp_bwd {variant} in_w={pdims.in_w}", pdims, weights, enc_out, gout,
             K5_REL["config_hash"], control_too=True))
+    check_k12_shapes(dev, smi, errs)
     emit({"phase": "times ppng", "card": smi, "B": B_PPNG,
           "ms": {f"{k} {v}": {"kernel": t[0], "plain": t[1], "library": t[2],
                              "bound": ppng_bounds[(k, v)][0]}
@@ -2843,9 +2923,10 @@ def main() -> int:
     # mma.sync layers in registers, persistent blocks, the weight gradient
     # in registers across tiles; K7, K8: K1's lane pairs, one vector RED a
     # corner; K11: private levels summed by warps that
-    # own them, vector REDs; K13: warp sums of the lanes on one row, vector
-    # REDs)
-    redesigned = dict.fromkeys(("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9", "K11"),
+    # own them, vector REDs; K12: corners at compile time, every idx and cw
+    # load before the rows, lane pairs on each x-pair; K13: warp sums of
+    # the lanes on one row, vector REDs)
+    redesigned = dict.fromkeys(("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9", "K11", "K12"),
                                "redesigned for Hopper")
     redesigned["K13"] = "redesigned for Hopper; its table half timed"
     entries = [(key, (name[:-1] + "; " + redesigned[key.split()[0]] + ")" if name.endswith(")")

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the PPNG scatters' time goes: K11 (``ext_scatter``) and K13
-(``ext_lookup_bwd``) of ``csrc/ext_scatter.cu`` timed through copies of
-that source, each with one part removed, on one CUDA GPU:
+"""Where the PPNG table kernels' time goes: K12 (``ext_lookup``) of
+``csrc/ext_gather.cu``, K11 (``ext_scatter``) and K13 (``ext_lookup_bwd``)
+of ``csrc/ext_scatter.cu`` timed through copies of those sources, each
+with one part removed, on one CUDA GPU:
 
     python3 scripts/ablate_ext_kernels.py [--checkout DIR] [VARIANT ...]
 
-Variants, each built from the checkout's ``ext_scatter.cu`` (DIR, default
-the checkout holding this script, for example a parent commit unpacked
-with `git archive`) with text edits made in a temporary directory (the
-package's own sources and library are not touched):
+Variants, each built from the checkout's ``ext_gather.cu`` and
+``ext_scatter.cu`` (DIR, default the checkout holding this script, for
+example a parent commit unpacked with `git archive`) with text edits made
+in a temporary directory (the package's own sources and library are not
+touched); each edit applies to whichever of the two files it matches:
   full          the kernels as they are;
   noatomic      every global atomic add replaced by a store that never
                 happens (a compare against 12345): loads and arithmetic
@@ -34,17 +36,32 @@ ones:
                 loads;
   p-noatomic    K11's global route and K13's table half without their
                 global atomics (a store that never happens).
+The k12-* variants edit the first-slice K12 (a thread a (sample, level),
+its corners in a run-time loop; since the redesign the kernel of C != 8,
+an odd NL or an unaligned idx only, so they need a parent checkout to say
+anything), the k12p-* ones the redesigned ext_lookup8_kernel:
+  k12-norows, k12p-norows   no table-row loads (the row index's low bits
+                as the row's values; idx and cw are still read);
+  k12-synth, k12p-synth     idx and cw not read: each pick's row made from
+                a hash of (sample, level) plus the corner's x, y, z bits
+                at strides 1, 32, 1024 within 32,768 rows a level (the
+                sample config's Q^3: the x-pairs as they are, 1/8 of a
+                factory-default level), every weight 0.125.
 A variant whose edits do not match the checkout raises. Naming variants
 runs those and "full". Timed with CUDA
-events (50 launches, best of two turns, variants in turns) through the
+events (50 launches, best of two turns, variants in turns; `ms`) and by
+the sum of the call's CUDA kernels under torch.profiler (10 launches,
+best of the two turns; `device_ms`: events read host time where a launch
+takes less than its host call) through the
 checkout's wrappers at phase 10's shapes of chip_smoke.py, random
 cotangents from one seed, the rows from each encoding's own `indices`
 at uniform points: K11 at PPNG1 (the sample's config is the factory
 default; B = 2^16, and 2^17 as phase 10 times the defaults), PPNG2's
-sample config (B = 2^16) and its defaults (B = 2^17); K13 at PPNG3's
-sample config (B = 2^16) and defaults (B = 2^17), both halves, the table
-half alone and the dots alone. Prints one JSON line with the card's
-nvidia-smi name and power limit.
+sample config (B = 2^16) and its defaults (B = 2^17); K12 and K13 at
+PPNG3's sample config (B = 2^16 and the eikonal term's 1024 points) and
+defaults (B = 2^17), K13 with both halves, the table half alone and the
+dots alone. Prints one JSON line with the card's nvidia-smi name and
+power limit.
 """
 
 from __future__ import annotations
@@ -73,7 +90,16 @@ _K13_ADD = (r"atomicAdd\(gtable \+ row \* F \+ f, round_bf16\(__fmul_rn\(w, g\[f
 #: The redesigned K11's private add: lanes that clash summed first.
 _PRIVATE_ADD = (r"if \(\(!__any_sync\(0xffffffffu, clash\) \|\| warp_sum<V>\(key\[u\], "
                 r"v\[u\]\)\) && key\[u\] != kNoRow\) \{")
-#: (name, [(pattern, replacement)]): every pattern must match exactly once.
+#: The first-slice K12's row load, and the redesign's.
+_K12_ROW = r"load_bf16<F>\(table \+ \(long\)idx\[k\] \* F, v\);"
+_K12P_ROW = (r"raw\[j\]\[v\] = \*reinterpret_cast<const Raw\*>"
+             r"\(table \+ \(long\)row\[j\]\[v\] \* F\);")
+#: A synthesized row of corner C_ at level L_ of sample b (see k12-synth).
+_SYNTH_ROW = ("((L_) * 32768 + (int)(((unsigned)b * 2654435761u + (unsigned)(L_) * 40503u "
+              "+ (unsigned)(((C_) & 1) + (((C_) >> 1) & 1) * 32 + ((C_) >> 2) * 1024)) "
+              "& 32767u))")
+#: (name, [(pattern, replacement)]): every pattern must match exactly once
+#: in the two sources.
 VARIANTS = (
     ("full", []),
     ("noatomic", [
@@ -106,20 +132,35 @@ VARIANTS = (
                      "if (acc[0] == 12345.f) gtable[row[u]] = acc[0];"),
                     (r"atomic_add_row<V>\(gtable \+ \(long\)idx\[p\] \* F \+ w\.s \* V, v\);",
                      "if (v[0] == 12345.f) gtable[idx[p]] = v[0];")]),
+    # K12, first-slice (the kernel of C != 8 since the redesign) and redesigned
+    ("k12-norows", [(_K12_ROW, "for (int f_ = 0; f_ < F; ++f_) v[f_] = (float)(idx[k] & 15);")]),
+    ("k12-synth", [(r"const float w = cw\[k\];", "const float w = 0.125f;"),
+                   (_K12_ROW, "load_bf16<F>(table + (long)"
+                    + _SYNTH_ROW.replace("L_", "l").replace("C_", "c") + " * F, v);")]),
+    ("k12p-norows", [(_K12P_ROW, "{ Raw r_{}; reinterpret_cast<unsigned short*>(&r_)[0] = "
+                                 "(unsigned short)(0x3f80 | (row[j][v] & 15)); "
+                                 "raw[j][v] = r_; }")]),
+    ("k12p-synth", [
+        (r"load_vec<2>\(idx \+ base \+ \(long\)\(j \* 2 \+ q\) \* NL, row\[j\]\);",
+         "for (int v_ = 0; v_ < 2; ++v_) row[j][v_] = "
+         + _SYNTH_ROW.replace("L_", "l0 + v_").replace("C_", "j * 2 + q") + ";"),
+        (r"w\[c\] = cw\[base \+ \(long\)c \* NL \+ q\];", "w[c] = 0.125f;")]),
 )
+#: The sources the variants edit and build.
+SOURCES = ("ext_gather.cu", "ext_scatter.cu")
 
 
 def chosen_variants():
-    names = {"full", *CHOSEN} if CHOSEN else {n for n, _ in VARIANTS}
-    unknown = names - {n for n, _ in VARIANTS}
+    names = {"full", *CHOSEN} if CHOSEN else {v[0] for v in VARIANTS}
+    unknown = names - {v[0] for v in VARIANTS}
     if unknown:
         raise SystemExit(f"unknown variants {sorted(unknown)}")
     return [v for v in VARIANTS if v[0] in names]
 
 
 def build_variants(tmp: pathlib.Path, variants) -> dict:
-    """{variant: its library}: each variant's ext_scatter.cu compiled into
-    its own library, all at once."""
+    """{variant: its library}: each variant's ext_gather.cu and
+    ext_scatter.cu compiled into its own library, all at once."""
     from tcnn_tpu_torch.ops.cuda import _build
 
     nvcc = _build._nvcc()
@@ -127,15 +168,19 @@ def build_variants(tmp: pathlib.Path, variants) -> dict:
     for name, subs in variants:
         vdir = tmp / name
         shutil.copytree(_build.CSRC, vdir)
-        text = (vdir / "ext_scatter.cu").read_text()
+        texts = {src: (vdir / src).read_text() for src in SOURCES}
         for pattern, repl in subs:
-            text, n = re.subn(pattern, lambda _m, r=repl: r, text)
-            if n != 1:
-                raise RuntimeError(f"{name}: {pattern!r} matched {n} times")
-        (vdir / "ext_scatter.cu").write_text(text)
+            total = 0
+            for src in SOURCES:
+                texts[src], n = re.subn(pattern, lambda _m, r=repl: r, texts[src])
+                total += n
+            if total != 1:
+                raise RuntimeError(f"{name}: {pattern!r} matched {total} times")
+        for src, text in texts.items():
+            (vdir / src).write_text(text)
         libs[name] = vdir / "lib.so"
         cmds.append([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(libs[name]),
-                     str(vdir / "ext_scatter.cu")])
+                     *(str(vdir / src) for src in SOURCES)])
     _build._run_all(cmds)
     return {name: ctypes.CDLL(str(path)) for name, path in libs.items()}
 
@@ -154,6 +199,7 @@ def shapes(dev, gen):
         return cls(3, **kw)
 
     takes_levels = "n_levels" in inspect.signature(ek.ext_scatter).parameters
+    eik_gen = torch.Generator().manual_seed(SEED + 1)
     out = {}
     for otype, tag, B in (("PPNG1", "sample", 1 << 16), ("PPNG1", "defaults", 1 << 17),
                           ("PPNG2", "sample", 1 << 16),
@@ -173,6 +219,13 @@ def shapes(dev, gen):
         tbl = (torch.rand(spec.n_rows, spec.f, generator=gen) * 2 - 1).to(torch.bfloat16).to(dev)
         gy = torch.randn(B, NL * spec.f, generator=gen).to(torch.bfloat16).float().to(dev)
         cw = w.contiguous()
+        looks = [(B, idx, cw)]
+        if tag == "sample":  # the eikonal term's points, from their own generator
+            ie, we = enc.indices(torch.rand(sdf.N_EIKONAL, 3, generator=eik_gen).to(dev))
+            looks.append((sdf.N_EIKONAL, ie, we.contiguous()))
+        for n, li, lw in looks:
+            out[f"K12 {otype} {tag} B={n}"] = (
+                lambda li=li, lw=lw, tbl=tbl, NL=NL: ek.ext_lookup(tbl, li, lw, NL))
         for half, kw in (("both", {}), ("table", dict(want_dots=False)),
                          ("dots", dict(want_table=False))):
             out[f"K13 {otype} {tag} {half}"] = (
@@ -196,6 +249,25 @@ def cuda_ms(fn):
     return start.elapsed_time(end) / ITERS
 
 
+def device_ms(fn, iters=10):
+    """Device ms a call: the sum of its CUDA kernels' times under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        total += ev.self_cuda_time_total if t is None else t
+    return total / 1e3 / iters
+
+
 def main() -> int:
     import torch
 
@@ -203,23 +275,29 @@ def main() -> int:
         print("ablate_ext_kernels: no CUDA device available", file=sys.stderr)
         return 1
     from tcnn_tpu_torch.ops.cuda import _build
+    from tcnn_tpu_torch.ops.cuda import ext_kernel as ek
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(pathlib.Path(tmp), chosen_variants())
+        variants = chosen_variants()
+        libs = build_variants(pathlib.Path(tmp), variants)
         fns = shapes(dev, gen)
         ms = {k: {name: [] for name in libs} for k in fns}
+        dev_ms = {k: {name: [] for name in libs} for k in fns}
         for _ in range(2):
             for name, lib in libs.items():
                 _build._lib = lib
                 for k, fn in fns.items():
                     ms[k][name].append(cuda_ms(fn))
+                    dev_ms[k][name].append(device_ms(fn))
         _build._lib = None
     print(json.dumps({"card": smi, "checkout": str(ROOT), "iters": ITERS,
-                      "ms": {k: {n: min(v) for n, v in t.items()} for k, t in ms.items()},
+                      "ms": {k: {n: min(v) for n, v in t.items() if v} for k, t in ms.items()},
+                      "device_ms": {k: {n: min(v) for n, v in t.items() if v}
+                                    for k, t in dev_ms.items()},
                       "turns_ms": ms}), flush=True)
     return 0
 

@@ -3,7 +3,7 @@
 ``csrc/ext_scatter.cu``) at the shapes phase 10 of chip_smoke.py times, on
 one CUDA GPU, through the checkout's public wrappers:
 
-    python3 scripts/time_ext_kernels.py [CHECKOUT] [--budgets] [--ptxas]
+    python3 scripts/time_ext_kernels.py [CHECKOUT] [--budgets] [--plans] [--ptxas]
 
 CHECKOUT (default: the checkout holding this script) is the root of the
 checkout whose `tcnn_tpu_torch` is built and timed, so the same file times
@@ -22,12 +22,18 @@ lands on one row. K10 and K11 for PPNG1/2 (K11 with the checkout's plan
 where its wrapper takes the levels), K12 and K13 for PPNG3 (K13 with both
 halves, the table half alone and the dots alone); each output held against
 its plain twin (`err`: K10 and K12 max |diff|, K11 and K13 norm-relative,
-their dots max |diff|). Timed with CUDA events (50 launches, best of two
+their dots max |diff|); K12 also on the hot input. Timed with CUDA events (50 launches, best of two
 turns; the wrapper's call, its output's zeroing included), and again under
 torch.profiler for each call's device time by kernel (10 launches). With
 --budgets, K11 also under each shared-memory budget of BUDGETS, set as
-ext_kernel.K11_PRIVATE_BYTES (0: every level global). With --ptxas, `nvcc -Xptxas -v` of the checkout's
-ext_gather.cu and ext_scatter.cu at the build's flags: each kernel's
+ext_kernel.K11_PRIVATE_BYTES (0: every level global). With --plans, K12
+at PPNG3's shapes in each block size of PLAN_THREADS (set in place of
+ext_kernel.lookup_threads), each held bit for bit against the twin
+(`plans_equal`) and timed PLAN_TURNS times, the sizes in turns
+(`plans_device_ms`: each turn's profiler device ms, 0 where the
+profiler recorded no kernel). With --ptxas,
+`nvcc -Xptxas -v` of the checkout's ext_gather.cu and ext_scatter.cu at
+the build's flags: each kernel's
 registers, shared memory and spills. Prints one JSON line with the card's
 `nvidia-smi` name and power limit. Exits non-zero without a CUDA device.
 """
@@ -54,6 +60,9 @@ ITERS = 50
 SOURCES = ("ext_gather.cu", "ext_scatter.cu", "grid_fwd.cu")
 #: K11's shared-memory budgets under --budgets (bytes a block).
 BUDGETS = (0, 34_816, 115_712, 232_448)
+#: K12's block sizes under --plans, and the turns each is timed in.
+PLAN_THREADS = (64, 128, 256)
+PLAN_TURNS = 5
 
 
 def cuda_ms(fn):
@@ -140,7 +149,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
     takes_levels = "n_levels" in inspect.signature(ek.ext_scatter).parameters
-    ms, dev_ms, err = {}, {}, {}
+    ms, dev_ms, err, plans_equal, plans_dev_ms, k12_threads = {}, {}, {}, {}, {}, {}
 
     def timed(key, fn):
         ms[key] = cuda_ms(fn)
@@ -189,14 +198,31 @@ def main() -> int:
         wT, wcw = ek._ext_lookup_bwd_plain(tbl, idx, cw, gy, spec.n_rows, NL, True, True)
         err[f"K13 {name} table"] = norm_rel(dT, wT)
         err[f"K13 {name} dots"] = float((dcw - wcw).abs().max())
-        if tag != "hot":
-            timed(f"K12 {name}", lambda: ek.ext_lookup(tbl, idx, cw, NL))
+        timed(f"K12 {name}", lambda: ek.ext_lookup(tbl, idx, cw, NL))
+        if hasattr(ek, "lookup_threads"):
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            k12_threads[name] = ek.lookup_threads(B * NL, n_sm)
+        if "--plans" in sys.argv and hasattr(ek, "lookup_threads"):
+            default = ek.lookup_threads
+            want = ek._ext_lookup_plain(tbl, idx, cw, NL).view(torch.int16)
+            for turn in range(PLAN_TURNS):
+                for threads in PLAN_THREADS:
+                    ek.lookup_threads = lambda *_a, t=threads: t
+                    key = f"K12 {name} threads={threads}"
+                    if turn == 0:
+                        plans_equal[key] = bool(torch.equal(
+                            ek.ext_lookup(tbl, idx, cw, NL).view(torch.int16), want))
+                    plans_dev_ms.setdefault(key, []).append(
+                        device_ms(lambda: ek.ext_lookup(tbl, idx, cw, NL))[0])
+            ek.lookup_threads = default
         for half, kw in (("", {}), (" table", dict(want_dots=False)),
                          (" dots", dict(want_table=False))):
             timed(f"K13 {name}{half}",
                   lambda kw=kw: ek.ext_lookup_bwd(tbl, idx, cw, gy, spec.n_rows, NL, **kw))
     print(json.dumps({"checkout": str(ROOT), "card": smi, "ms": ms, "device_ms": dev_ms,
-                      "err": err, "build_s": _build.build_seconds,
+                      "err": err, "k12_threads": k12_threads, "plans_equal": plans_equal,
+                      "plans_device_ms": plans_dev_ms,
+                      "build_s": _build.build_seconds,
                       "ptxas": ptxas_readings() if "--ptxas" in sys.argv else None}),
           flush=True)
     return 0

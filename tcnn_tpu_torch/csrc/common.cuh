@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels: bf16 row loads/stores of F
-// features (and the f32 values of a row's raw bits), a row's vector atomic
-// add, and the fixed-order sum of per-block partials.
+// features (and the f32 values of a row's raw bits), a raw row swapped
+// between the lanes of a pair, a row's vector atomic add, and the
+// fixed-order sum of per-block partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,20 @@ __device__ __forceinline__ void store_bf16(bf16* p, const float* v) {
 #pragma unroll
   for (int f = 0; f < F; ++f) u.h[f] = __bfloat16_as_ushort(__float2bfloat16_rn(v[f]));
   *reinterpret_cast<typename BfVec<F>::T*>(p) = u.raw;
+}
+
+// A raw row from lane ^ 1 of the warp (every lane of the warp calls it).
+__device__ __forceinline__ unsigned short shfl_pair(unsigned short v) {
+  return (unsigned short)__shfl_xor_sync(0xffffffffu, (unsigned)v, 1);
+}
+__device__ __forceinline__ unsigned shfl_pair(unsigned v) {
+  return __shfl_xor_sync(0xffffffffu, v, 1);
+}
+__device__ __forceinline__ uint2 shfl_pair(uint2 v) {
+  return make_uint2(shfl_pair(v.x), shfl_pair(v.y));
+}
+__device__ __forceinline__ uint4 shfl_pair(uint4 v) {
+  return make_uint4(shfl_pair(v.x), shfl_pair(v.y), shfl_pair(v.z), shfl_pair(v.w));
 }
 
 // dst[0..F) += v[0..F) in global memory, one vector atomic per 2 or 4

@@ -13,7 +13,8 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// V values (1, 2 or 4) from p, V-element aligned, as f32: one load.
+// V values (1, 2 or 4; int32: 1 or 2) from p, V-element aligned: one load
+// (bf16 as f32).
 template <int V>
 __device__ __forceinline__ void load_vec(const float* p, float* v) {
   if constexpr (V == 4) {
@@ -24,6 +25,18 @@ __device__ __forceinline__ void load_vec(const float* p, float* v) {
     v[3] = q.w;
   } else if constexpr (V == 2) {
     const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const int* p, int* v) {
+  static_assert(V == 1 || V == 2, "int32 loads of 1 or 2 values");
+  if constexpr (V == 2) {
+    const int2 q = *reinterpret_cast<const int2*>(p);
     v[0] = q.x;
     v[1] = q.y;
   } else {

@@ -332,20 +332,6 @@ __device__ __forceinline__ unsigned corner_row(const GridArgs& g, const LevelCon
   return k.offset + idx;
 }
 
-// A raw row from lane ^ 1 of the warp (every lane of the warp calls it).
-__device__ __forceinline__ unsigned short shfl_pair(unsigned short v) {
-  return (unsigned short)__shfl_xor_sync(0xffffffffu, (unsigned)v, 1);
-}
-__device__ __forceinline__ unsigned shfl_pair(unsigned v) {
-  return __shfl_xor_sync(0xffffffffu, v, 1);
-}
-__device__ __forceinline__ uint2 shfl_pair(uint2 v) {
-  return make_uint2(shfl_pair(v.x), shfl_pair(v.y));
-}
-__device__ __forceinline__ uint4 shfl_pair(uint4 v) {
-  return make_uint4(shfl_pair(v.x), shfl_pair(v.y), shfl_pair(v.z), shfl_pair(v.w));
-}
-
 // K1's walker: two lanes of a warp, 2i and 2i + 1, serve levels 2i and
 // 2i + 1 of one sample (items 0 and 1), lane 2i + q owning item q, with D
 // fixed at compile time. For both items, the lane whose x bit (lane & 1)

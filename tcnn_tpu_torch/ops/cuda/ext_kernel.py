@@ -20,6 +20,7 @@ kernels (which carry level-local rows as f32).
   - K12 replaces the ext_iw forward of ``binned_kernel.py``
     (``binned_ext_lookup``) and PPNG3's dense-ext gather plus weighted sum:
     y [B, NL * F] bf16 = sum over corners c of cw * T[idx], in f32.
+    `lookup_threads` sizes its blocks.
   - K13 replaces ``binned_kernel.py:_combine_extg_kernel`` with the ext_iw
     place/scatter: dT += bf16(cw * gy) and dcw = sum_f T[idx] * gy, its
     levels in blocks of `lookup_chunk`.
@@ -55,6 +56,8 @@ LOOKUP_BWD_LAUNCHES = 0
 
 #: Row widths K12 and K13 take (PPNG3's n_features).
 LOOKUP_WIDTHS = (1, 2, 4, 8)
+#: Threads of a K12 block at most (csrc/ext_gather.cu: __launch_bounds__).
+LOOKUP_THREADS = 256
 #: Columns (corners x levels) and cotangents a sample of a K13 block's
 #: staged chunk (csrc/ext_scatter.cu:kTileCols); so also the most corners a
 #: level K13 takes.
@@ -122,6 +125,19 @@ def scatter_plan(n_levels: int, rows_per_level: int, f: int, corners: int, batch
     if blocks == 0 or batch * corners < K11_MIN_ADDS * rows_per_level * blocks:
         return ScatterPlan()
     return ScatterPlan(n_levels, g, warps, blocks)
+
+
+def lookup_threads(n_lanes: int, n_sm: int) -> int:
+    """K12's block size for `n_lanes` lanes, a lane a (sample, level), on a
+    card of `n_sm` SMs: LOOKUP_THREADS, halved down to 64 while the lanes
+    leave fewer blocks than SMs (the eikonal term's 1024 points at PPNG3's
+    sample config: 128 blocks of 64). Chosen by
+    scripts/time_ext_kernels.py --plans (H100 80GB HBM3, 700 W; PERF.md
+    §6)."""
+    threads = LOOKUP_THREADS
+    while threads > 64 and -(-n_lanes // threads) < n_sm:
+        threads //= 2
+    return threads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,19 +352,22 @@ def ext_lookup(table, idx, cw, n_levels: int):
     if idx.device.type == "cpu":
         return _ext_lookup_plain(table, idx, cw, n_levels)
     global LOOKUP_LAUNCHES
+    dev = idx.device
     B, CNL = idx.shape
-    y = torch.empty((B, n_levels * F), dtype=torch.bfloat16, device=idx.device)
+    y = torch.empty((B, n_levels * F), dtype=torch.bfloat16, device=dev)
     if B == 0:
         return y
+    threads = lookup_threads(B * n_levels,
+                             torch.cuda.get_device_properties(dev).multi_processor_count)
     fn = _build.function("tcnn_ext_lookup", _EXT_LOOKUP_ARGS)
     _build.check(fn(table.data_ptr(), idx.data_ptr(), cw.data_ptr(), y.data_ptr(), B, n_levels,
-                    CNL // n_levels, F, idx.device.index, _stream(idx.device)),
+                    CNL // n_levels, F, threads, dev.index, _stream(dev)),
                  "tcnn_ext_lookup")
     LOOKUP_LAUNCHES += 1
     return y
 
 
-_EXT_LOOKUP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_EXT_LOOKUP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def lookup_chunk(n_levels: int, corners: int, f: int, batch: int, n_sm: int) -> int:
