@@ -118,7 +118,25 @@ Phases, each printing JSON lines:
  15. the SDF sample at T=2^19 (3,471,664 rows): K7, K8 and K9 against
      their twins with controls, SDF_STEPS eikonal steps (counters as phase
      8) under SDF19_LIMITS, the fused eikonal gradient against the
-     composed one, and times (K7-K9 at 2^16, 2^18 and 1024 points).
+     composed one, and times (K7-K9 at 2^16, 2^18 and 1024 points);
+ 16. fixed encodings, composite and modules: OneBlob, Frequency,
+     TriangleWave and SH (degrees 1-8) on the card against the CPU in f32
+     (B = 2^18); (a) data/config_oneblob.json (OneBlob 64 bins, 128 x 5)
+     trains through the image sample at B = 2^18 (counters: K2 and K5 once
+     a step, nothing else), loss fall and holdout PSNR under ONEBLOB_LIMITS,
+     `trainer.inference` equal to `model.apply`, a save/load; K2 and K5 at
+     its shape (input 128; K5's 16-row tile) against their twins at 2^18,
+     2^18 - 37 and 1 beside their controls; the step, K2's and K5's device
+     time in it and the CutlassMLP step; (b) the module-API sample on
+     config_hash (`tt.NetworkWithInputEncoding`, torch.optim.Adam, B =
+     2^16): its fwd/bwd demo (K3, K9), steps (K1 K2 K5 K4 once each), render
+     (K1 K2), limits MODULES_LIMITS, and `bwd` in each GradientMode against
+     a CPU copy of the module; (c) an SH + HashGrid Composite (T = 2^19, the
+     grid at 39 columns) on 6-D points: its forward bit for bit against the
+     CPU model, K2, K5, K4, K7 and K8 on its inputs against their twins
+     beside controls, the step's and an eikonal term's gradients against
+     the CPU model, and training steps and eikonal gradients by the
+     counters.
 Then a line with every kernel and option (its launches on the main path,
 error against its twin, time, twin's time, bound, what bounds it and its
 yardstick's time; K1's, K2's, K3's, K5's, K6's and K9's entries,
@@ -381,6 +399,69 @@ SAMPLE_LIMITS = (1000.0, 26.0)
 #: (scripts/rehearse_reference_default.py sdf 200: 0.0384 -> 3.62e-4, 106x;
 #: slice error 0.00441, as at T=2^17), with phase 8's room.
 SDF19_LIMITS = (30.0, 0.015)
+
+#: Phase 16: the fixed encodings (plain torch on every device) on the card
+#: against the same functions on the CPU, in f32, at B = 2^18: OneBlob at
+#: config_oneblob's 64 bins, Frequency and TriangleWave at 12 frequencies,
+#: SH at degrees 1-8 (on unit directions). Both devices run the same torch
+#: ops in the same order, each rounding once (the card divides by a scalar
+#: as a multiply by its reciprocal, one rounding more in SH's recurrence
+#: from degree 4): FIXED_ABS absolute. Frequency's argument 2^k pi x
+#: reaches 2^11 pi, where one f32 ulp is 2^-11; both devices form it in the
+#: same two roundings, but the card's sinf/cosf and the CPU's reduce it by
+#: their own methods, and a reduction that loses the argument's last bit
+#: moves the value by up to that ulp: FREQUENCY_ABS.
+FIXED_CASES = (("OneBlob", 2, {"n_bins": 64}), ("Frequency", 3, {"n_frequencies": 12}),
+               ("TriangleWave", 3, {"n_frequencies": 12}),
+               *(("SphericalHarmonics", 3, {"degree": d}) for d in range(1, 9)))
+FIXED_ABS = 1e-5
+FREQUENCY_ABS = 2.0**-11
+#: Path (a): data/config_oneblob.json trains N_ONEBLOB_STEPS steps at
+#: B = 2^18 through the image sample's `train` on the synthetic 1024^2
+#: image (the composed route: OneBlob in torch, K2, K5, Adam); (least loss
+#: fall, first step over the mean of the last ten; least holdout PSNR in dB
+#: of `trainer.inference` on 2^16 points). Set before the first run on the
+#: card from a CPU rehearsal on the twins at B = 2^14
+#: (scripts/rehearse_modules_slice.py oneblob 200 14: 26.98 -> 0.0985,
+#: 274x; 17.46 dB), with room for another batch size and generator.
+N_ONEBLOB_STEPS = 200
+ONEBLOB_LIMITS = (100.0, 15.0)
+#: Path (b): the module-API sample (tcnn_tpu_torch.samples.
+#: mlp_learning_an_image_modules) on data/config_hash.json,
+#: N_MODULES_STEPS steps of torch.optim.Adam at B = 2^16; (least loss fall;
+#: least PSNR of its render over every pixel). Set the same way
+#: (rehearse_modules_slice.py modules 200 16: 27.01 -> 0.00497, 5432x;
+#: 31.82 dB); the first PSNR limit, 28 dB, came from that one draw and the
+#: card read 27.49 dB (H100 80GB HBM3, 700 W) on its first run. Four other
+#: draws on the CPU twins (the script's SEED 1-4) read 27.43-31.74 dB and
+#: 3495-5399x, so the render's PSNR after 200 steps spreads 4 dB between
+#: draws: 26 dB is below that spread.
+N_MODULES_STEPS = 200
+MODULES_LIMITS = (1000.0, 26.0)
+#: The module's `bwd` hands K9 the sample's L2 loss cotangent, which varies
+#: in size and sign across a row's outputs, where the eikonal step (K9_REL)
+#: hands it a column of ones. K9 carries g as bf16 hi + lo, 16 significant
+#: bits (2^-17 relative a term), so a row whose dL/dx cancels k-fold reads
+#: about k 2^-17: the first card reading (H100 80GB HBM3, 700 W) was 6.45e-5
+#: at the 0.99 quantile (median 4.6e-6, no row over 1e-3), past K9_REL's
+#: 6e-5. MODULES_GX_REL = 2.5e-4 allows 32-fold cancellation in 99% of the
+#: rows; the control, dL/dx in bf16, reads about 3e-3.
+MODULES_GX_REL = 2.5e-4
+#: Path (c): a radiance-field shape, SH of degree 3 on the direction (dims
+#: 3-5, 9 columns) concatenated with a 3-D HashGrid on the position (dims
+#: 0-2; 16 levels, F = 2, T = 2^19, base 16, scale 1.5: 32 columns), 41
+#: padded to the MLP's 48, so the grid is padded to 39 columns, not a
+#: multiple of F; a 64 x 2 FullyFusedMLP with 4 outputs on top.
+COMPOSITE_ENCODING = {"otype": "Composite", "nested": [
+    {"otype": "SphericalHarmonics", "degree": 3, "n_dims_to_encode": 3, "dims_to_encode_begin": 3},
+    {"otype": "HashGrid", "n_dims_to_encode": 3, "dims_to_encode_begin": 0, "n_levels": 16,
+     "n_features_per_level": 2, "log2_hashmap_size": 19, "base_resolution": 16,
+     "per_level_scale": 1.5}]}
+COMPOSITE_CONFIG = {"loss": {"otype": "L2"},
+                    "optimizer": {"otype": "Adam", "learning_rate": 1e-2},
+                    "encoding": COMPOSITE_ENCODING,
+                    "network": {"otype": "FullyFusedMLP", "n_neurons": 64, "n_hidden_layers": 2}}
+N_COMPOSITE_STEPS = 20
 
 
 def emit(obj) -> None:
@@ -834,16 +915,15 @@ def eikonal_inputs(net, params, x):
     return table, gy_out, gy_enc.to(torch.bfloat16).contiguous(), z.contiguous()
 
 
-def check_ig_kernels(tag, net, params, x, gen, control_too=True, bounds=None):
-    """K7, K8 (without and with a table cotangent) and K9 against their
-    twins on the eikonal step's inputs at x; each part under its bound, and
-    with `control_too` a lower-precision twin that must break it. Returns
-    the max abs errors {K7, K8, K9}."""
+def check_k7_k8(tag, plan, table, x, gy_enc, z, gen, control_too=True, bounds=None):
+    """K7 and K8 (without and with a table cotangent drawn from `gen`)
+    against their twins on the cotangents gy_enc (bf16, any width of at
+    least L*F columns) and z at x; each part under its bound (`bounds`, else
+    K7_REL and K8_REL), and with `control_too` a lower-precision twin that
+    must break it. Returns the max abs errors {K7, K8}."""
     import torch
-    from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
+    from tcnn_tpu_torch.ops.cuda import grid_kernel
 
-    plan = net.encoding.plan
-    table, gy_out, gy_enc, z = eikonal_inputs(net, params, x)
     errs = {}
     b7 = bounds or K7_REL
     kt, kx = grid_kernel.grid_backward_ig(plan, table, x, gy_enc)
@@ -867,6 +947,20 @@ def check_ig_kernels(tag, net, params, x, gen, control_too=True, bounds=None):
             control(f"K8 ct_x in bf16{label} {tag}", to_bf16(q[2]), q[2], b8["ct_x"])
             control(f"K8 gtable2 unrounded{label} {tag}",
                     scatter_f32(plan, x, gy_enc, z), q[1], b8["gtable2"])
+    return errs
+
+
+def check_ig_kernels(tag, net, params, x, gen, control_too=True, bounds=None):
+    """K7, K8 (without and with a table cotangent) and K9 against their
+    twins on the eikonal step's inputs at x; each part under its bound, and
+    with `control_too` a lower-precision twin that must break it. Returns
+    the max abs errors {K7, K8, K9}."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel, train_kernel
+
+    plan = net.encoding.plan
+    table, gy_out, gy_enc, z = eikonal_inputs(net, params, x)
+    errs = check_k7_k8(tag, plan, table, x, gy_enc, z, gen, control_too, bounds)
     if bounds is not None:
         return errs
     prep = train_kernel.prepare_forward(net, params)
@@ -2406,6 +2500,401 @@ def reference_sdf_slice(gen, dev, smi):
     return errs, launches, ms[B_MAIN], bounds[B_MAIN]
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the fixed encodings, the Composite and the module API
+# ---------------------------------------------------------------------------
+
+
+def check_fixed_encodings(dev):
+    """Each FIXED_CASES encoding's f32 function on the card against the same
+    function on the CPU, B = 2^18, inputs from its own generator (SH: unit
+    directions, whose values are at most about 1, so the bound is absolute
+    as for the rest)."""
+    import torch
+    import tcnn_tpu_torch as tt
+
+    fgen = torch.Generator().manual_seed(SEED + 40)
+    for otype, d, kw in FIXED_CASES:
+        enc = tt.create_encoding(d, {"otype": otype, **kw})
+        if otype == "SphericalHarmonics":  # unit directions v, stored as (v + 1) / 2
+            v = torch.randn(B_MAIN, d, generator=fgen)
+            x = (v / torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1.0) * 0.5
+        else:
+            x = torch.rand(B_MAIN, d, generator=fgen)
+        limit = FREQUENCY_ABS if otype == "Frequency" else FIXED_ABS
+        compare(f"{otype} {kw} f32, card vs CPU", enc.encode_f32(x.to(dev)).cpu(),
+                enc.encode_f32(x), rel_max=limit)
+
+
+def oneblob_slice(dev, smi):
+    """Path (a): data/config_oneblob.json trains N_ONEBLOB_STEPS steps at
+    B = 2^18 through the image sample's `train` (K2 and K5 once a step, by
+    the counters; no grid kernel); loss fall and holdout PSNR under
+    ONEBLOB_LIMITS; `trainer.inference` equal to `model.apply`; a save/load
+    of the trained state. Then K2 and K5 against their twins on the trained
+    weights at B = 2^18, 2^18 - 37 and 1, each beside its control, and the
+    times: K2 and K5 and their twins, the step (CUDA events), K2's and K5's
+    device time inside it (torch.profiler) and the same model's step with
+    CutlassMLP (the torch.matmul chain). Returns (launches {K2, K5}, errs
+    {K2, K5})."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.ops.cuda import _build, mlp_kernel
+    from tcnn_tpu_torch.samples import mlp_learning_an_image as image_sample
+    from tcnn_tpu_torch.utils.image import psnr, sample_image, synthetic_image
+
+    ogen = torch.Generator().manual_seed(SEED + 41)
+    cfg = tt.load_config(str(ROOT / "data" / "config_oneblob.json"))
+    image = synthetic_image(1024, 1024, device=dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    model, losses = image_sample.train(cfg, image, N_ONEBLOB_STEPS, device=dev, log=None)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    trained = counters()
+    tr, net = model.trainer, model.network
+    check(bool(torch.isfinite(losses).all()), "config_oneblob loss not finite")
+    fall = float(losses[0] / losses[-10:].mean())
+    x_hold = torch.rand(1 << 16, 2, generator=ogen).to(dev)
+    y_hold = tr.inference(x_hold)
+    holdout_psnr = psnr(y_hold, sample_image(image, x_hold))
+    fall_min, psnr_min = ONEBLOB_LIMITS
+    emit({"phase": "oneblob slice", "steps": N_ONEBLOB_STEPS, "B": image_sample.BATCH,
+          "mlp": [net.network.dims.in_w, net.network.dims.width, net.network.dims.n_hidden],
+          "launches": trained,
+          "loss_first": float(losses[0]), "loss_last10_mean": float(losses[-10:].mean()),
+          "loss_at": {str(i): float(losses[i]) for i in sorted(
+              {0, N_ONEBLOB_STEPS // 10, N_ONEBLOB_STEPS // 2, N_ONEBLOB_STEPS - 1})},
+          "loss_fall": fall, "loss_fall_min": fall_min, "holdout_psnr_db": holdout_psnr,
+          "psnr_min_db": psnr_min, "loop_seconds": loop_s})
+    check(all(v == (N_ONEBLOB_STEPS if k in ("K2", "K5") else 0) for k, v in trained.items()),
+          f"config_oneblob's steps did not run K2 and K5 once each a step, and nothing else: "
+          f"{trained}")
+    check(fall >= fall_min, f"config_oneblob loss fell only {fall}x")
+    check(holdout_psnr >= psnr_min, f"config_oneblob holdout PSNR {holdout_psnr} dB")
+    compare_exact("config_oneblob trainer.inference vs model.apply", y_hold,
+                  net.apply(tr.params, x_hold)[:, :3].float())
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "oneblob.json")
+        tr.save(path)
+        copied = tt.create_from_config(2, 3, cfg, seed=SEED + 42, device=dev)
+        copied.trainer.load(path)
+    check(torch.equal(copied.trainer.inference(x_hold), y_hold),
+          "config_oneblob save/load changed predictions")
+    for k, v in tr.state["opt"].items():
+        check(torch.equal(copied.trainer.state["opt"][k], v), f"config_oneblob optimizer {k}")
+
+    # K2 and K5 at config_oneblob's shape (input 128, 128 x 5), on the
+    # trained weights and OneBlob encodings of seeded points
+    dims = net.network.dims
+    weights = net.split_params(tr.params)[0].to(torch.bfloat16).contiguous()
+    errs = {"K2": 0.0, "K5": 0.0}
+    for B in BATCHES:
+        x = torch.rand(B, 2, generator=ogen).to(dev)
+        enc = net.encoding.apply(None, x)
+        want = mlp_kernel._mlp_forward_plain(dims, weights, enc)
+        errs["K2"] = max(errs["K2"], compare(
+            f"K2 mlp_fwd config_oneblob B={B}", mlp_kernel.mlp_forward(dims, weights, enc), want,
+            rel_max=MLP_REL))
+        if B > 1:
+            control_max(f"K2 config_oneblob B={B}, its input's last k16 slab dropped",
+                        mlp_kernel._mlp_forward_plain(dims, weights, drop_last_slab(enc)), want,
+                        MLP_REL)
+        gout = loss_cotangent(dims, weights, enc, tr.loss_fn, sample_image(image, x),
+                              tr.loss_scale)
+        errs["K5"] = max(errs["K5"], check_mlp_bwd(
+            f"K5 mlp_bwd config_oneblob B={B}", dims, weights, enc, gout, K5_REL["128x5"],
+            control_too=True))
+    tile = mlp_kernel.mlp_bwd_tile(dims)
+    emit({"phase": "oneblob tiles", "dims": [dims.in_w, dims.width, dims.n_hidden, dims.out_w],
+          "K5_tile_rows": tile,
+          "K5_smem_bytes": mlp_kernel.mlp_bwd_smem_bytes(dims, tile),
+          "K2_tile_rows": mlp_kernel.tile_rows(dims, weights.device)})
+    check(tile == 16, f"K5 at config_oneblob's shape takes {tile}-row tiles, not 16")
+
+    # times at B = 2^18
+    x = torch.rand(B_MAIN, 2, generator=ogen).to(dev)
+    t = sample_image(image, x)
+    enc = net.encoding.apply(None, x)
+    gy = loss_cotangent(dims, weights, enc, tr.loss_fn, t, tr.loss_scale)
+    ms = {"K2": time_pair(lambda: mlp_kernel.mlp_forward(dims, weights, enc),
+                          lambda: mlp_kernel._mlp_forward_plain(dims, weights, enc)),
+          "K5": time_pair(lambda: mlp_kernel.mlp_backward(dims, weights, enc, gy),
+                          lambda: mlp_kernel._mlp_backward_plain(dims, weights, enc, gy))}
+    bounds = {"K2": kernel_bound(bytes_of(enc, weights) + B_MAIN * dims.out_w * 2,
+                                 bf16=2 * B_MAIN * dims.n_weights),
+              "K5": k5_bound(dims, weights, enc, gy)}
+    step = lambda: tr.training_step(x, t)  # noqa: E731
+    step_ms = cuda_ms(step, 30)
+    k5_dev, step_dev = kernel_device_ms(step, "mlp_bwd_kernel")
+    k2_dev, _ = kernel_device_ms(step, "mlp_fwd_kernel")
+    ccfg = json.loads(json.dumps(cfg))
+    ccfg["network"]["otype"] = "CutlassMLP"
+    ctr = tt.create_from_config(2, 3, ccfg, seed=SEED + 43, device=dev).trainer
+    ctr.set_params(tr.params)
+    cstep = lambda: ctr.training_step(x, t)  # noqa: E731
+    cutlass_ms = cuda_ms(cstep, 30)
+    _, cutlass_dev = kernel_device_ms(cstep, "gemm")
+    emit({"phase": "times oneblob", "card": smi, "B": B_MAIN,
+          "ms": {k: {"kernel": v[0], "plain": v[1], "bound": bounds[k][0],
+                     "bound_by": bounds[k][1]} for k, v in ms.items()},
+          "training_step_ms": step_ms, "training_steps_per_s": 1e3 / step_ms,
+          "step_device_ms": step_dev, "K5_device_ms_in_step": k5_dev,
+          "K2_device_ms_in_step": k2_dev, "K5_share_of_step_device": k5_dev / step_dev,
+          "cutlass_training_step_ms": cutlass_ms, "cutlass_step_device_ms": cutlass_dev})
+    return {k: trained[k] for k in ("K2", "K5")}, errs
+
+
+def modules_slice(dev):
+    """Path (b): the module-API sample on data/config_hash.json: its
+    `fwd` / `bwd` demo (K3 and K9 once each, by the counters), N_MODULES_STEPS
+    steps of torch.optim.Adam at B = 2^16 (K1, K2, K5 and K4 once each a
+    step) and its render (K1 and K2 once a 2^20-pixel chunk); loss fall and
+    render PSNR under MODULES_LIMITS. Then the module's `fwd` and its `bwd`
+    in each GradientMode against the same calls on a CPU copy of the module
+    (the twins of K3 and K9), under K9's bounds (dL/dx: MODULES_GX_REL),
+    beside controls. Returns
+    (the demo's launches, the training's launches)."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.samples import mlp_learning_an_image_modules as msample
+    from tcnn_tpu_torch.utils.image import psnr, sample_image, synthetic_image
+
+    cfg = tt.load_config(str(ROOT / "data" / "config_hash.json"))
+    module = msample.create_module(cfg, device=dev)
+    image = synthetic_image(1024, 1024, device=dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    dparams, dx = msample.demo(module, image)
+    torch.cuda.synchronize()
+    demo = counters()
+    check(bool(torch.isfinite(dparams).all() and torch.isfinite(dx).all()),
+          "the modules demo's gradients are not finite")
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = msample.train(module, image, N_MODULES_STEPS, log=None)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    trained = counters()
+    reset_counters()
+    pred = msample.render(module, 1024, 1024)
+    torch.cuda.synchronize()
+    rendered = counters()
+    check(bool(torch.isfinite(losses).all()), "the modules sample's loss is not finite")
+    fall = float(losses[0] / losses[-10:].mean())
+    render_psnr = psnr(pred, image)
+    fall_min, psnr_min = MODULES_LIMITS
+    chunks = -(-1024 * 1024 // msample.RENDER_CHUNK)
+    emit({"phase": "modules slice", "steps": N_MODULES_STEPS, "B": msample.BATCH,
+          "demo_launches": demo, "launches": trained, "render_launches": rendered,
+          "loss_first": float(losses[0]), "loss_last10_mean": float(losses[-10:].mean()),
+          "loss_fall": fall, "loss_fall_min": fall_min, "render_psnr_db": render_psnr,
+          "psnr_min_db": psnr_min, "loop_seconds": loop_s,
+          "steps_per_s": N_MODULES_STEPS / loop_s})
+    check(all(v == (1 if k in ("K3", "K9") else 0) for k, v in demo.items()),
+          f"the modules demo did not run K3 and K9 once each: {demo}")
+    per_step = ("K1", "K2", "K4", "K5")
+    check(all(v == (N_MODULES_STEPS if k in per_step else 0) for k, v in trained.items()),
+          f"the modules sample's steps did not run K1, K2, K5 and K4 once a step: {trained}")
+    check(all(v == (chunks if k in ("K1", "K2") else 0) for k, v in rendered.items()),
+          f"the modules sample's render did not run K1 and K2 once a chunk: {rendered}")
+    check(fall >= fall_min, f"the modules sample's loss fell only {fall}x")
+    check(render_psnr >= psnr_min, f"the modules sample's render PSNR {render_psnr} dB")
+
+    # fwd / bwd on the card against a CPU copy of the trained module
+    cpu = msample.create_module(cfg, device="cpu")
+    with torch.no_grad():
+        cpu.params.copy_(module.params.detach().cpu())
+    bgen = torch.Generator().manual_seed(SEED + 44)
+    x = torch.rand(msample.N_DEMO, 2, generator=bgen)
+    y_card, ctx_card = module.fwd(x.to(dev))
+    y_cpu, ctx_cpu = cpu.fwd(x)
+    compare("module fwd (K3) vs the CPU module", y_card.cpu(), y_cpu, rel_max=MLP_REL)
+    dl = 2.0 * (y_cpu - sample_image(image.cpu(), x)) / y_cpu.numel()
+    split = module.model.network.n_params
+    bounds = {"weights": K9_REL["weights"], "table": K9_REL["table"]}
+    acc = None
+    for mode in (tt.GradientMode.Overwrite, tt.GradientMode.Accumulate, tt.GradientMode.Ignore):
+        gp, gx = module.bwd(ctx_card, dl.to(dev), mode, None if acc is None else acc.to(dev))
+        wp, wx = cpu.bwd(ctx_cpu, dl, mode, acc)
+        if mode == tt.GradientMode.Ignore:
+            check(gp is None and wp is None, "GradientMode.Ignore returned parameter gradients")
+        else:
+            compare_norm(f"module bwd {mode.value} dL/dparams (K9) vs the CPU module", gp.cpu(),
+                         wp, bounds, split)
+        compare_rows(f"module bwd {mode.value} dL/dx (K9) vs the CPU module", gx.cpu(), wx,
+                     K9_GX_Q, MODULES_GX_REL)
+        if mode == tt.GradientMode.Overwrite:
+            control("module bwd dL/dparams in bf16", to_bf16(wp), wp, bounds, split)
+            control_rows("module bwd dL/dx in bf16", to_bf16(wx), wx, K9_GX_Q, MODULES_GX_REL)
+            acc = wp  # Accumulate adds the next gradient to an accumulated one
+    return demo, trained
+
+
+def composite_inputs(net, params, x):
+    """Path (c)'s composed route on the twins at x: the bf16 table, the
+    Composite's encoding (SH, then the grid's twin at its padded width), the
+    cotangent the MLP chain hands the grid's columns for sum(out[:, 0]) (bf16,
+    39 wide: K7's gy) and z = d eik / d dL/dpos for an eikonal term on the
+    position's gradient (K8's)."""
+    import torch
+    from tcnn_tpu_torch.ops.cuda import grid_kernel
+
+    sh, grid = net.encoding.nested
+    plan, w = grid.plan, grid.padded_output_width
+    net_p, enc_p = net.split_params(params)
+    table = enc_p.reshape(plan.total_rows, plan.f).to(torch.bfloat16).contiguous()
+    pos = x[:, :3].contiguous()
+    enc = torch.cat([sh.apply(enc_p[:0], x[:, 3:].contiguous()),
+                     grid_kernel._grid_encode_plain(plan, table, pos, w, plan.n_levels)], -1)
+    enc = enc.requires_grad_(True)
+    with torch.enable_grad():
+        out = net.network.apply(net_p, enc, second_order=True)
+        (gy_enc,) = torch.autograd.grad(out[:, 0].float().sum(), enc)
+    gy = gy_enc[:, sh.padded_output_width:].to(torch.bfloat16).contiguous()
+    gx = grid_kernel._grid_input_grad_plain(plan, table, pos, gy).requires_grad_(True)
+    with torch.enable_grad():
+        eik = 0.01 * torch.mean((torch.linalg.vector_norm(gx, dim=-1) - 1.0) ** 2)
+        (z,) = torch.autograd.grad(eik, gx)
+    return table, enc.detach(), pos, gy, z.contiguous()
+
+
+def composite_points(B, gen, device):
+    """B seeded 6-D points: a position in the unit cube, then a unit
+    direction v stored as (v + 1) / 2."""
+    import torch
+
+    pos = torch.rand(B, 3, generator=gen, device=device)
+    v = torch.randn(B, 3, generator=gen, device=device)
+    v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return torch.cat([pos, (v + 1.0) * 0.5], -1)
+
+
+def radiance(x):
+    """Path (c)'s target: a density blob at the cube's center and a color
+    that varies with position and, less, with direction."""
+    import torch
+
+    pos, d = x[:, :3], x[:, 3:] * 2.0 - 1.0
+    sigma = torch.exp(-8.0 * ((pos - 0.5) ** 2).sum(-1, keepdim=True))
+    return torch.cat([sigma, 0.5 + 0.5 * torch.sin(6.0 * pos) * (0.75 + 0.25 * d[:, 2:3])], -1)
+
+
+def composite_slice(dev):
+    """Path (c): COMPOSITE_CONFIG at B = 2^18 and 2^18 - 37. The Composite's
+    forward (SH, K1 at the grid's 39 columns) against the CPU model's
+    encoding bit for bit; the composed step's kernels on the path's inputs
+    against their twins (K2 under MLP_REL, K5 under its config_hash bounds,
+    K4 on the grid's columns of K5's dL/dx under GRID_BWD_REL) and the
+    eikonal-style second order's (K7 and K8 on the grid's 39-column
+    cotangent under K7_REL and K8_REL), each beside its control; at 2^14
+    points the whole step's gradient against the CPU model's under
+    ROUTE_REL, and at 4096 points the eikonal term's parameter gradient under
+    SDF_ROUTE_REL. Then N_COMPOSITE_STEPS training steps (K1, K2, K5 and K4
+    once each a step) and N_COMPOSITE_STEPS eikonal gradients (K1, K7 and
+    K8 once each), by the counters. Returns (max abs errors, the training's
+    launches, the eikonal gradients' launches)."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.ops.cuda import grid_kernel, mlp_kernel
+
+    cgen = torch.Generator().manual_seed(SEED + 45)
+    model = tt.create_from_config(6, 4, COMPOSITE_CONFIG, seed=SEED + 45, device=dev)
+    tr, net = model.trainer, model.network
+    comp = net.encoding
+    sh, grid = comp.nested
+    plan = grid.plan
+    check(grid.padded_output_width == 39 and comp.padded_output_width == 48
+          and not tr.use_fused(), "path (c)'s Composite is not SH 9 + grid 39 on the composed route")
+    tr.set_params(random_params(tr, cgen))
+    cpu = tt.create_from_config(6, 4, COMPOSITE_CONFIG, seed=SEED + 45, device="cpu")
+    cpu.trainer.set_params(tr.params.cpu())
+    net_p, enc_p = net.split_params(tr.params)
+    cpu_enc_p = cpu.network.split_params(cpu.trainer.params)[1]
+    dims = net.network.dims
+    weights = net_p.to(torch.bfloat16).contiguous()
+    errs = dict.fromkeys(("K1", "K2", "K4", "K5", "K7", "K8"), 0.0)
+    for B in (B_MAIN, B_MAIN - 37):
+        xc = composite_points(B, cgen, "cpu")
+        x = xc.to(dev)
+        tag = f"Composite B={B}"
+        enc = comp.apply(enc_p, x)
+        errs["K1"] = max(errs["K1"], compare_exact(
+            f"{tag}: SH + K1 at width 39, card vs the CPU model", enc.cpu(),
+            cpu.network.encoding.apply(cpu_enc_p, xc)))
+        table, enc_twin, pos, gy, z = composite_inputs(net, tr.params, x)
+        compare_exact(f"{tag}: the encoding vs its twin", enc, enc_twin)
+        want = mlp_kernel._mlp_forward_plain(dims, weights, enc)
+        errs["K2"] = max(errs["K2"], compare(
+            f"K2 mlp_fwd {tag}", mlp_kernel.mlp_forward(dims, weights, enc), want, rel_max=MLP_REL))
+        control_max(f"K2 {tag}, its input's last k16 slab dropped",
+                    mlp_kernel._mlp_forward_plain(dims, weights, drop_last_slab(enc)), want,
+                    MLP_REL)
+        gout = loss_cotangent(dims, weights, enc, tr.loss_fn, radiance(x), tr.loss_scale)
+        errs["K5"] = max(errs["K5"], check_mlp_bwd(
+            f"K5 mlp_bwd {tag}", dims, weights, enc, gout, K5_REL["config_hash"],
+            control_too=True))
+        _, genc = mlp_kernel._mlp_backward_plain(dims, weights, enc, gout)
+        gyg = grid_kernel._level_columns(plan, genc[:, sh.padded_output_width:])
+        want = grid_kernel._grid_backward_plain(plan, pos, gyg, plan.n_levels)
+        errs["K4"] = max(errs["K4"], compare_norm(
+            f"K4 grid_bwd {tag}", grid_kernel.grid_backward(plan, pos, gyg, plan.n_levels), want,
+            GRID_BWD_REL))
+        control(f"K4 {tag}, contributions unrounded", scatter_f32(plan, pos, gyg), want,
+                GRID_BWD_REL)
+        for k, v in check_k7_k8(f"{tag} width 39", plan, table, pos, gy, z, cgen).items():
+            errs[k] = max(errs[k], v)
+
+    # the whole composed step and the eikonal term against the CPU model
+    xc = composite_points(1 << 14, cgen, "cpu")
+    cl, cg = tr.loss_and_grad_fn(tr.params, xc.to(dev), radiance(xc).to(dev))
+    pl, pg = cpu.trainer.loss_and_grad_fn(cpu.trainer.params, xc, radiance(xc))
+    compare_norm("Composite composed step gradient (K1 K2 K5 K4) vs the CPU model", cg.cpu(), pg,
+                 ROUTE_REL, net.network.n_params)
+    check(abs(float(cl) - float(pl)) <= TRAIN_LOSS_RTOL * abs(float(pl)), "Composite step loss")
+
+    def eikonal(m, params, x):
+        p = params.detach().requires_grad_(True)
+        xe = x.detach().requires_grad_(True)
+        out = m.network.apply(p, xe, prepare_input_gradients=True)
+        (g,) = torch.autograd.grad(out[:, 0].float().sum(), xe, create_graph=True)
+        eik = torch.mean((torch.linalg.vector_norm(g[:, :3], dim=-1) - 1.0) ** 2)
+        return torch.autograd.grad(eik, p)[0]
+
+    xc = composite_points(4096, cgen, "cpu")
+    compare_norm("Composite eikonal gradient (K1 K7 K8) vs the CPU model",
+                 eikonal(model, tr.params, xc.to(dev)).cpu(),
+                 eikonal(cpu, cpu.trainer.params, xc), SDF_ROUTE_REL)
+
+    # training steps and eikonal gradients, by the counters
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 46)
+    batches = [composite_points(B_MAIN, dgen, dev) for _ in range(N_COMPOSITE_STEPS)]
+    torch.cuda.synchronize()
+    reset_counters()
+    losses = torch.stack([tr.training_step(x, radiance(x)) for x in batches]).cpu()
+    torch.cuda.synchronize()
+    trained = counters()
+    reset_counters()
+    for x in batches:
+        eikonal(model, tr.params, x[:4096])
+    torch.cuda.synchronize()
+    eik_launches = counters()
+    emit({"phase": "composite slice", "steps": N_COMPOSITE_STEPS, "B": B_MAIN,
+          "widths": {"sh": sh.padded_output_width, "grid": grid.padded_output_width,
+                     "mlp_in": comp.padded_output_width},
+          "launches": trained, "eikonal_launches": eik_launches,
+          "loss_first": float(losses[0]), "loss_last": float(losses[-1])})
+    check(bool(torch.isfinite(losses).all()), "Composite training loss not finite")
+    check(all(v == (N_COMPOSITE_STEPS if k in ("K1", "K2", "K4", "K5") else 0)
+              for k, v in trained.items()),
+          f"the Composite's steps did not run K1, K2, K5 and K4 once a step: {trained}")
+    check(all(v == (N_COMPOSITE_STEPS if k in ("K1", "K7", "K8") else 0)
+              for k, v in eik_launches.items()),
+          f"the Composite's eikonal gradients did not run K1, K7 and K8 once each: {eik_launches}")
+    return errs, trained, eik_launches
+
+
 def main() -> int:
     import torch
 
@@ -2839,6 +3328,23 @@ def main() -> int:
     ref_launches.update(sdf19_launches)
     ref_ms.update(sdf19_ms)
     ref_bounds.update(sdf19_bounds)
+
+    # 16. fixed encodings, composite and modules: the fixed encodings on the
+    #     card against the CPU; (a) config_oneblob through the image sample,
+    #     K2 and K5 at its shape; (b) the module-API sample; (c) the SH +
+    #     HashGrid Composite, its grid at 39 columns
+    check_fixed_encodings(dev)
+    oneblob_launches, oneblob_errs = oneblob_slice(dev, smi)
+    modules_demo, modules_launches = modules_slice(dev)
+    comp_errs, comp_launches, comp_eik_launches = composite_slice(dev)
+    for part in (oneblob_errs, comp_errs):
+        for k, v in part.items():
+            errs[k] = max(errs[k], v)
+    emit({"phase": "modules launches", "oneblob_steps": oneblob_launches,
+          "modules_demo": {k: v for k, v in modules_demo.items() if v},
+          "modules_steps": {k: v for k, v in modules_launches.items() if v},
+          "composite_steps": {k: v for k, v in comp_launches.items() if v},
+          "composite_eikonal": {k: v for k, v in comp_eik_launches.items() if v}})
 
     sources = {
         "K1": ("grid_fwd", "tcnn_tpu_torch/csrc/grid_fwd.cu",

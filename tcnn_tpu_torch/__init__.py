@@ -2,11 +2,15 @@
 
 Imports `torch` and never `jax`. Uses the JAX package's JSON "otype"
 configs, flat parameter layout ([network | encoding]) and checkpoint format.
-So far it trains and serves grid + MLP and PPNG1/2/3 + MLP models with the
-nine losses and Adam, and differentiates them with respect to their inputs
-to second order (`model.apply(..., prepare_input_gradients=True)`, then
-`torch.autograd.grad(..., create_graph=True)`; the eikonal SDF sample,
-`python -m tcnn_tpu_torch.samples.learn_a_sdf [encoding_otype]`). Thirteen
+So far it trains and serves grid, PPNG1/2/3, fixed-function (Identity,
+Frequency, TriangleWave, OneBlob, SphericalHarmonics, Empty) and Composite
+encodings + MLP models with the nine losses and Adam, through the Trainer
+or the module API (`NetworkWithInputEncoding`, `Network`, `Encoding`:
+`torch.nn.Module`s with `fwd` / `bwd`), and differentiates them with
+respect to their inputs to second order (`model.apply(...,
+prepare_input_gradients=True)`, then `torch.autograd.grad(...,
+create_graph=True)`; the eikonal SDF sample, `python -m
+tcnn_tpu_torch.samples.learn_a_sdf [encoding_otype]`). Thirteen
 hand-written CUDA kernels for sm_90a under ``csrc/`` carry those paths:
 grid forward (K1), backward (K4), backward with input gradients (K7) and
 double backward (K8); fully fused MLP forward (K2) and backward (K5); fused
@@ -23,9 +27,11 @@ __version__ = "0.1.0"
 from .common import (  # noqa: F401
     Activation,
     BATCH_SIZE_GRANULARITY,
+    GradientMode,
     GridType,
     HashType,
     InterpolationType,
+    ReductionType,
 )
 from .config import (  # noqa: F401
     TrainableModel,
@@ -45,7 +51,7 @@ from .log import (  # noqa: F401
     set_verbose,
 )
 from .models.mlp import CutlassMLP, FullyFusedMLP  # noqa: F401
-from .models.network_with_input_encoding import NetworkWithInputEncoding  # noqa: F401
+from .modules import Encoding, Network, NetworkWithInputEncoding  # noqa: F401
 from .ops.encodings.grid import GridEncoding  # noqa: F401
 from .ops.encodings.ppng import (  # noqa: F401
     PPNG1Encoding,
@@ -67,3 +73,5 @@ from .registry import (  # noqa: F401
 )
 from .trainer import Trainer  # noqa: F401
 from .utils.serialization import opt_state_from_jax, params_from_jax  # noqa: F401
+
+batch_size_granularity = BATCH_SIZE_GRANULARITY  # the reference binding's name

@@ -8,12 +8,13 @@ case-insensitive parsers, the padding constants and the precision policy
 from __future__ import annotations
 
 import enum
+import math
 
 import torch
 
 #: Batch granularity of the reference (common.h:235 uses 256; the JAX
-#: package pads to 128). The port's kernels mask a ragged batch tail, so no
-#: caller has to pad; the constant is kept for API parity.
+#: package pads to 128). The port's kernels mask a ragged batch tail, so
+#: only the module API pads to it, as the JAX package's does.
 BATCH_SIZE_GRANULARITY = 128
 
 #: Loss scale of half-precision compute (common.h:229-233): multiplied into
@@ -29,6 +30,8 @@ OUTPUT_WIDTH_ALIGNMENT = 16
 
 #: Maximum number of grid levels (grid_interface.h:84-88).
 MAX_N_LEVELS = 128
+
+PI = math.pi
 
 #: Network compute precision (master parameters stay fp32); the kernels
 #: take bf16 operands.
@@ -66,6 +69,20 @@ class InterpolationType(enum.Enum):
     Smoothstep = "Smoothstep"
 
 
+class ReductionType(enum.Enum):
+    Concatenation = "Concatenation"
+    Sum = "Sum"
+    Product = "Product"
+
+
+class GradientMode(enum.Enum):
+    """How `Module.bwd` treats parameter gradients (object.h:115-119)."""
+
+    Ignore = "Ignore"
+    Overwrite = "Overwrite"
+    Accumulate = "Accumulate"
+
+
 def _parse_enum(enum_cls, value, what):
     if isinstance(value, enum_cls):
         return value
@@ -92,6 +109,10 @@ def parse_interpolation_type(value) -> InterpolationType:
     return _parse_enum(InterpolationType, value, "interpolation type")
 
 
+def parse_reduction_type(value) -> ReductionType:
+    return _parse_enum(ReductionType, value, "reduction type")
+
+
 def div_round_up(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -104,3 +125,20 @@ def smoothstep(v):
     """val^2 (3 - 2 val) - common_device.h:802-804, evaluated as
     (v*v) * (3 - 2*v) like the JAX package."""
     return v * v * (3.0 - 2.0 * v)
+
+
+def quartic_cdf(x, inv_radius):
+    """CDF of the quartic kernel (common_device.h:911-917), clamped to
+    [0, 1]: its gradient is zero where the clamp binds, as jnp.clip's is."""
+    u = x * inv_radius
+    u2 = u * u
+    u4 = u2 * u2
+    return torch.clamp(
+        (15.0 / 16.0) * u * (1.0 - (2.0 / 3.0) * u2 + (1.0 / 5.0) * u4) + 0.5, 0.0, 1.0)
+
+
+def quartic_cdf_deriv(x, inv_radius):
+    """The quartic kernel itself: d quartic_cdf / dx inside the support."""
+    u = x * inv_radius
+    tmp = torch.clamp(1.0 - u * u, min=0.0)
+    return (15.0 / 16.0) * tmp * tmp * inv_radius

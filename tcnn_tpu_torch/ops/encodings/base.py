@@ -26,6 +26,7 @@ class Encoding(abc.ABC):
     def __init__(self, n_dims_to_encode: int):
         self.n_dims_to_encode = int(n_dims_to_encode)
         self._alignment = 1
+        self._explicit_padded_width: int | None = None
 
     # -- shape contract ----------------------------------------------------
     @property
@@ -35,6 +36,8 @@ class Encoding(abc.ABC):
 
     @property
     def padded_output_width(self) -> int:
+        if self._explicit_padded_width is not None:
+            return self._explicit_padded_width
         return next_multiple(self.n_output_dims, self._alignment)
 
     @property
@@ -44,6 +47,16 @@ class Encoding(abc.ABC):
     def set_alignment(self, alignment: int) -> None:
         """Pad output width to a multiple of `alignment` (encoding.h:53-72)."""
         self._alignment = max(1, int(alignment))
+        self._explicit_padded_width = None
+
+    def set_padded_output_width(self, width: int) -> None:
+        """Pad output width to exactly `width` (encoding.h
+        set_padded_output_width); a Composite sets its last nested
+        encoding's this way, so the width need not be a multiple of
+        anything."""
+        if width < self.n_output_dims:
+            raise ValueError(f"padded width {width} < output width {self.n_output_dims}")
+        self._explicit_padded_width = int(width)
 
     # -- parameters ---------------------------------------------------------
     @property

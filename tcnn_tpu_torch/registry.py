@@ -3,9 +3,12 @@
 src/network.cu:70-130). Keys and otypes match case-insensitively like the
 reference's ci_hashmap (common_host.h:242-246).
 
-The port registers the Grid family and PPNG1/2/3 encodings, the MLP
-networks, the nine losses and the Adam optimizer so far; any other otype
-raises ValueError naming it as not ported yet.
+The port registers every encoding otype of the JAX package (the Grid
+family, PPNG1/2/3, Composite and its NRC / OneBlobFrequency preset, and
+the fixed-function Identity, Empty, Frequency, TriangleWave, OneBlob and
+SphericalHarmonics), the MLP networks, the nine losses and the Adam
+optimizer so far; any other otype raises ValueError naming it as not
+ported yet.
 """
 
 from __future__ import annotations
@@ -18,9 +21,19 @@ from .common import (
     parse_grid_type,
     parse_hash_type,
     parse_interpolation_type,
+    parse_reduction_type,
 )
 from .models.mlp import CutlassMLP, FullyFusedMLP
 from .ops.encodings.base import Encoding
+from .ops.encodings.composite import CompositeEncoding
+from .ops.encodings.fixed import (
+    EmptyEncoding,
+    FrequencyEncoding,
+    IdentityEncoding,
+    OneBlobEncoding,
+    SphericalHarmonicsEncoding,
+    TriangleWaveEncoding,
+)
 from .ops.encodings.grid import GridEncoding
 from .ops.encodings.ppng import PPNG1Encoding, PPNG2Encoding, PPNG3Encoding
 from .ops.losses import LOSSES, Loss
@@ -129,6 +142,65 @@ def _make_ppng(cls):
 register_encoding("PPNG1", _make_ppng(PPNG1Encoding))
 register_encoding("PPNG2", _make_ppng(PPNG2Encoding))
 register_encoding("PPNG3", _make_ppng(PPNG3Encoding))
+
+
+def _make_composite(n_dims, cfg):
+    """composite.h:147-188: each nested encoding takes `n_dims_to_encode`
+    dims from `dims_to_encode_begin` (else where the last one ended); with
+    no begin given anywhere, at most one nested encoding may leave its
+    count out and takes the remainder. Nested encodings of 0 dims drop."""
+    nested_cfgs = cfg_get(cfg, "nested")
+    if not isinstance(nested_cfgs, (list, tuple)) or not nested_cfgs:
+        raise ValueError("Must provide an array of nested encodings to Composite")
+    reduction = parse_reduction_type(cfg_get(cfg, "reduction", "Concatenation"))
+    unspecified = None
+    if not any(cfg_has(c, "dims_to_encode_begin") for c in nested_cfgs):
+        total = sum(int(cfg_get(c, "n_dims_to_encode", 0)) for c in nested_cfgs)
+        if total > n_dims:
+            raise ValueError(f"Composite: nested encodings encode more dims ({total}) "
+                             f"than available ({n_dims})")
+        unspecified = n_dims - total
+    nested, begins, offset = [], [], 0
+    for c in nested_cfgs:
+        if cfg_has(c, "n_dims_to_encode"):
+            if cfg_has(c, "dims_to_encode_begin"):
+                offset = int(cfg_get(c, "dims_to_encode_begin"))
+            nd = int(cfg_get(c, "n_dims_to_encode"))
+        else:
+            if unspecified is None:
+                raise ValueError("Composite: may only leave n_dims_to_encode unspecified "
+                                 "for a single nested encoding")
+            nd, unspecified = unspecified, None
+        if nd > 0:
+            nested.append(create_encoding(nd, c, 1))
+            begins.append(offset)
+        offset += nd
+    return CompositeEncoding(n_dims, nested, begins, reduction)
+
+
+def _make_nrc(n_dims, cfg):
+    """encoding.cu:96-118: the Neural Radiance Caching preset."""
+    return _make_composite(n_dims, {"otype": "Composite", "nested": [
+        {"n_dims_to_encode": 3, "otype": "TriangleWave",
+         "n_frequencies": cfg_get(cfg, "n_frequencies", 12)},
+        {"n_dims_to_encode": 5, "otype": "OneBlob", "n_bins": cfg_get(cfg, "n_bins", 4)},
+        {"otype": "Identity"},
+    ]})
+
+
+register_encoding("Composite", _make_composite)
+register_encoding("OneBlobFrequency", _make_nrc)
+register_encoding("NRC", _make_nrc)
+register_encoding("Empty", lambda n, c: EmptyEncoding(n))
+register_encoding("Identity", lambda n, c: IdentityEncoding(
+    n, float(cfg_get(c, "scale", 1.0)), float(cfg_get(c, "offset", 0.0))))
+register_encoding("Frequency", lambda n, c: FrequencyEncoding(
+    n, int(cfg_get(c, "n_frequencies", 12))))
+register_encoding("TriangleWave", lambda n, c: TriangleWaveEncoding(
+    n, int(cfg_get(c, "n_frequencies", 12))))
+register_encoding("OneBlob", lambda n, c: OneBlobEncoding(n, int(cfg_get(c, "n_bins", 16))))
+register_encoding("SphericalHarmonics", lambda n, c: SphericalHarmonicsEncoding(
+    n, int(cfg_get(c, "degree", 4))))
 
 # ---------------------------------------------------------------------------
 # Networks

@@ -98,6 +98,10 @@ class Trainer:
             )
         self.state["params"].copy_(params)
 
+    # the reference's fp32 setter (trainer.h:242-269); the master params
+    # are always fp32
+    set_params_full_precision = set_params
+
     # ------------------------------------------------------------------
     # Training (trainer.py:183-254, 318-344)
     # ------------------------------------------------------------------

@@ -22,6 +22,7 @@ import torch
 
 import tcnn_tpu as tc
 import tcnn_tpu_torch as tt
+from tcnn_tpu_torch.models.network_with_input_encoding import NetworkWithInputEncoding
 from tcnn_tpu_torch.ops.cuda import ext_kernel, grid_kernel, mlp_kernel, train_kernel
 
 G = np.load(pathlib.Path(__file__).parent / "golden" / "golden.npz")
@@ -127,6 +128,31 @@ def test_params_from_jax_give_the_same_model(otype, tmp_path):
 
 
 @pytest.mark.parametrize("otype", VARIANTS)
+def test_port_snapshot_loads_in_jax(otype, tmp_path):
+    """The reverse of test_params_from_jax_give_the_same_model: the port
+    trains two steps and saves with its optimizer block; tcnn_tpu's Trainer
+    loads it with the same params and Adam state and predicts what the
+    port predicts (its XLA route: within 2^-5 of the largest output)."""
+    cfg = _config(otype)
+    tm = tt.create_from_config(3, 1, cfg, seed=9, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    for _ in range(2):
+        x = torch.rand(256, 3, generator=gen)
+        tm.trainer.training_step(x, (x - 0.5).norm(dim=-1, keepdim=True) - 0.3)
+    path = str(tmp_path / "port.json")
+    tm.trainer.save(path)
+    jm = tc.create_from_config(3, 1, cfg)
+    jm.trainer.load(path)
+    np.testing.assert_array_equal(np.asarray(jm.trainer.params), tm.trainer.params.numpy())
+    for k, v in jm.trainer.state["opt"].items():
+        np.testing.assert_array_equal(np.asarray(v), tm.trainer.state["opt"][k].numpy())
+    x = np.random.default_rng(8).uniform(0, 1, (200, 3)).astype(np.float32)
+    want = np.asarray(jm.trainer.inference(jnp.asarray(x)), np.float32)
+    got = tm.trainer.inference(torch.from_numpy(x)).numpy()
+    assert np.abs(got - want).max() <= 2.0**-5 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("otype", VARIANTS)
 def test_trainer_takes_the_composed_route(otype):
     """No fused kernel takes a PPNG model: training and inference run
     model.apply (the encoding's gathers, then K2/K5's twins), and the loss
@@ -205,7 +231,7 @@ def test_input_gradients_of_an_encoding_without_needs_input_grad():
         def hyperparams(self):
             return {"otype": "Scale"}
 
-    net = tt.NetworkWithInputEncoding(
+    net = NetworkWithInputEncoding(
         Scale(3), lambda enc: tt.create_network(enc.padded_output_width, 1, {
             "otype": "FullyFusedMLP", "n_neurons": 16, "n_hidden_layers": 1}))
     assert tt.GridEncoding.supports_input_grad_opt

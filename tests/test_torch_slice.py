@@ -133,7 +133,8 @@ def test_forward_and_unported_entry_points():
     with pytest.raises(ValueError, match="targets or dL_doutput"):
         tm.trainer.training_step(torch.rand(9, 2))
     with pytest.raises(ValueError, match="not ported"):
-        tt.create_encoding(2, {"otype": "Frequency"})
+        tt.create_encoding(2, {"otype": "NoSuchEncoding"})
+    assert tt.create_encoding(2, {"otype": "Frequency"}).n_output_dims == 2 * 12 * 2
     with pytest.raises(ValueError, match="not ported"):
         tt.create_network(16, 3, {"otype": "NoSuchNet"})
 

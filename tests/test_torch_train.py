@@ -394,3 +394,47 @@ def test_no_kernel_counter_moves_on_cpu():
     tr.training_step(x, t)
     tr.inference(x)
     assert [getattr(m, n) for m, n in counters] == before
+
+
+# ---------------------------------------------------------------------------
+# data/config_oneblob.json: OneBlob (64 bins) into a FullyFusedMLP
+# ---------------------------------------------------------------------------
+
+
+def test_config_oneblob_loads_and_steps_with_jax(monkeypatch):
+    """The reference's second image config loads unchanged (a 128-wide
+    input into 128 x 5); at reduced width (64 x 2) one step on the composed
+    route (OneBlob in torch, K2 and K5's twins, Adam) matches tcnn_tpu's
+    Trainer step on its TPU route (`jax.default_backend` patched, its MLP
+    kernels in interpret mode) within this file's step tolerances."""
+    cfg = tt.load_config("data/config_oneblob.json")
+    full = tt.create_from_config(2, 3, cfg, device="cpu")
+    assert full.network.encoding.hyperparams() == {"otype": "OneBlob", "n_bins": 64}
+    assert full.network.network.dims == mlp_kernel.MlpDims(
+        128, 128, 5, 16, tt.Activation.ReLU, tt.Activation.NONE)
+    assert full.network.n_params == tc.create_from_config(2, 3, cfg).network.n_params
+    cfg["network"].update(n_neurons=64, n_hidden_layers=2)
+    jm = tc.create_from_config(2, 3, cfg)
+    tm = tt.create_from_config(2, 3, cfg, device="cpu")
+    tm.trainer.set_params(tt.params_from_jax(np.asarray(jm.trainer.params), tm.network.n_params))
+    assert not tm.trainer.use_fused()
+    x, t = _batch(40)
+    before = np.asarray(jm.trainer.params).copy()
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    with pltpu.force_tpu_interpret_mode():
+        jstate, jl = jm.trainer.train_step_fn(jm.trainer.state, jnp.asarray(x), jnp.asarray(t))
+    tl = tm.trainer.training_step(_t(x), _t(t))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-3)
+    _check_after_step(tm, jstate, before)
+
+
+def test_mlp_tiles_at_config_oneblob_shape():
+    """Input 128 into 128 x 5: K5 takes 16-row tiles (213,248 bytes of the
+    232,448 opt-in; 32 rows would take 248,064) and K2's block fits."""
+    dims = mlp_kernel.MlpDims(128, 128, 5, 16, tt.Activation.ReLU, tt.Activation.NONE)
+    assert mlp_kernel.mlp_bwd_tile(dims) == 16
+    assert mlp_kernel.mlp_bwd_smem_bytes(dims, 16) == 213_248 <= mlp_kernel.SMEM_OPTIN
+    assert mlp_kernel.mlp_bwd_smem_bytes(dims, 32) > mlp_kernel.SMEM_OPTIN
+    warps = mlp_kernel.frag_tile_warps(dims)
+    assert warps == 8
+    assert mlp_kernel.frag_tile_smem_bytes(dims, warps) <= mlp_kernel.SMEM_OPTIN
