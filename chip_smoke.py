@@ -136,7 +136,32 @@ Phases, each printing JSON lines:
      CPU model, K2, K5, K4, K7 and K8 on its inputs against their twins
      beside controls, the step's and an eikonal term's gradients against
      the CPU model, and training steps and eikonal gradients by the
-     counters.
+     counters;
+ 17. the optimizers, the grid's plain route and compute_dtype: (a)
+     config_hash under instant-ngp's NeRF optimizer (EMA of
+     ExponentialDecay of Adam, NERF_OPTIMIZER) trains N_CHAIN_STEPS steps
+     at B = 2^18 through K6 alone (counters), the loss falling;
+     `trainer.inference` (K3 on the EMA weights) against `model.apply` on
+     them; ten inference calls between two steps building K3's operands
+     once; the chain decaying from step 2 every 2 steps (FAST_DECAY) fires
+     twice in 6 steps; (b) one step of every otype (SGD, Novograd, Adam,
+     Shampoo at a refresh and a plain step, EMA, Average, Lookahead,
+     Batched, ExponentialDecay, a Composite and the chain) on config_hash's
+     param vector against the same step on the CPU, every state leaf
+     under OPT_STEP_REL / SHAMPOO_STEP_REL, each inside
+     `torch.cuda.set_sync_debug_mode("error")`, Shampoo's refresh step
+     beside its TF32 control; (c) config_hash under Shampoo,
+     N_SHAMPOO_STEPS steps through K6 alone, the loss falling; (d) the SDF
+     sample's HashGrid with max_level 0.5, with "fast_input_grads" false
+     and with stochastic interpolation, N_ROUTE_STEPS steps each (counters:
+     K1, K2, K5, K4 a step on the data term; no K3, K7, K8 or K9 on the
+     eikonal term's plain route), its eikonal gradient against the CPU
+     model's at f32 and at bf16; (e) config_hash's Trainer at
+     compute_dtype f32, N_F32_STEPS steps through K1, K2, K5 and K4 once a
+     step (their bf16 outputs cast to f32, as tcnn_tpu keeps its Pallas
+     kernels at f32 on a TPU) with the loss falling, a step's gradient
+     against the CPU twins' beside the CPU's f32 plain route; times of the
+     optimizer steps alone and of a step of each path.
 Then a line with every kernel and option (its launches on the main path,
 error against its twin, time, twin's time, bound, what bounds it and its
 yardstick's time; K1's, K2's, K3's, K5's, K6's and K9's entries,
@@ -462,6 +487,86 @@ COMPOSITE_CONFIG = {"loss": {"otype": "L2"},
                     "encoding": COMPOSITE_ENCODING,
                     "network": {"otype": "FullyFusedMLP", "n_neurons": 64, "n_hidden_layers": 2}}
 N_COMPOSITE_STEPS = 20
+#: Phase 17 (a): instant-ngp's NeRF optimizer (configs/nerf/base.json): an
+#: EMA of an ExponentialDecay of Adam, config_hash's Adam with l2_reg 1e-6.
+NERF_OPTIMIZER = {"otype": "Ema", "decay": 0.95, "nested": {
+    "otype": "ExponentialDecay", "decay_start": 20000, "decay_interval": 10000,
+    "decay_base": 0.33, "nested": {"otype": "Adam", "learning_rate": 1e-2, "beta1": 0.9,
+                                   "beta2": 0.99, "epsilon": 1e-15, "l2_reg": 1e-6}}}
+#: The same chain decaying at nested steps 2, 4, ...: its decay fires in
+#: N_DECAY_STEPS steps, twice.
+FAST_DECAY = {**NERF_OPTIMIZER, "nested": {**NERF_OPTIMIZER["nested"], "decay_start": 2,
+                                           "decay_interval": 2}}
+N_DECAY_STEPS = 6
+#: (c): Shampoo on config_hash's model.
+SHAMPOO_OPTIMIZER = {"otype": "Shampoo", "learning_rate": 1e-2}
+#: Steps of (a) the chain, (c) Shampoo, (d) each A2 SDF variant and (e) the
+#: f32 Trainer.
+N_CHAIN_STEPS = 200
+N_SHAMPOO_STEPS = 50
+N_ROUTE_STEPS = 20
+N_F32_STEPS = 50
+#: The least loss fall (first step's loss over the last ten's mean) of (a),
+#: (c) and (e), set before the first card run: (c) and (e) from
+#: scripts/rehearse_optimizers_slice.py's CPU run at B = 2^18 (44.8x and
+#: 278x; (e) again on the card's route, the twins of K1 K2 K5 K4: 275x), (a)
+#: at phase 5's LOSS_FALL for Adam in 100 steps (the chain trains
+#: as Adam: its decay starts at step 20,000, its EMA only filters).
+CHAIN_LOSS_FALL = LOSS_FALL
+SHAMPOO_LOSS_FALL = 10.0
+F32_LOSS_FALL = 50.0
+#: (b): one step of each otype on the card against the same step on the CPU,
+#: from the same weights, state and gradient: every leaf's norm-relative
+#: error. The elementwise optimizers run the same torch expressions on both
+#: (a pow or a reduction may differ in its last bit): 1e-5. Shampoo's
+#: products sum in cuBLAS's order, and its 30 coupled-Newton iterations
+#: carry those roundings into the inverse fourth roots of ill-conditioned
+#: Gram factors: the first card run read 5.3e-7 on a Gram factor and
+#: 1.4e-4 on a root (L_root_1, 64 x 64; NVIDIA H100 80GB HBM3, 700.00 W),
+#: past the 1e-4 written before it. 1e-3, which its TF32 control (each
+#: product's operands rounded to 10 bits, 2^-11) must break.
+OPT_STEP_REL = 1e-5
+SHAMPOO_STEP_REL = 1e-3
+#: (b)'s cases: (optimizer, CPU steps before the step compared). Each
+#: step compared does what its otype's schedule does there: Average
+#: overwrites a ring slot, Lookahead blends, Batched steps its nested
+#: optimizer, ExponentialDecay decays, Shampoo refreshes every root (step
+#: 1) or none (step 2).
+_ADAM = NERF_OPTIMIZER["nested"]["nested"]
+OPTIMIZER_STEPS = {
+    "Adam": (_ADAM, 3),
+    "SGD": ({"otype": "SGD", "learning_rate": 1e-2}, 3),
+    "Novograd": ({"otype": "Novograd", "learning_rate": 1e-2}, 3),
+    "Shampoo refresh": (SHAMPOO_OPTIMIZER, 0),
+    "Shampoo plain": (SHAMPOO_OPTIMIZER, 1),
+    "EMA": ({"otype": "EMA", "decay": 0.95, "nested": _ADAM}, 3),
+    "Average": ({"otype": "Average", "n_samples": 4, "nested": _ADAM}, 4),
+    "Lookahead": ({"otype": "Lookahead", "alpha": 0.5, "n_steps": 4, "nested": _ADAM}, 4),
+    "Batched": ({"otype": "Batched", "batch_size_multiplier": 2, "nested": _ADAM}, 3),
+    "ExponentialDecay": ({"otype": "ExponentialDecay", "decay_start": 2, "decay_interval": 2,
+                          "decay_base": 0.33, "nested": _ADAM}, 2),
+    # Adam on the network, SGD on the grid: built with the network's size
+    "Composite": (None, 3),
+    "chain": (FAST_DECAY, 2),
+}
+#: (d): the eikonal term's parameter gradient on the card against the CPU
+#: model's, same params and points. At f32 the plain route and the f32 chain
+#: differ only in summation order (the table's scatter, cuBLAS): 1e-4. At
+#: bf16, as the steps run, a sum in another order can flip a bf16 rounding
+#: of a layer's output (2^-8 relative): 3e-2.
+ROUTE_F32_REL = 1e-4
+ROUTE_BF16_REL = 3e-2
+#: (d)'s variants of the SDF sample's HashGrid: (encoding keys, max_level).
+ROUTE_VARIANTS = {"max_level 0.5": ({}, 0.5),
+                  "fast_input_grads false": ({"fast_input_grads": False}, None),
+                  "stochastic": ({"stochastic_interpolation": True}, None)}
+#: (e): one f32 step's params gradient on the card (K1 K2 K5 K4) against
+#: the CPU twins' on the same route, as phase 16 holds the Composite's
+#: composed step (it read 4.0e-7 / 2.6e-5 there): K5's gx bound (1e-3 at
+#: config_hash) on the table, 1e-4 on the weights. The control, the CPU's
+#: f32 plain route (no bf16 rounding), reads 5.6e-3 to 7.6e-3 against the
+#: twins on tests/test_torch_compute_dtype.py's small models.
+F32_GRAD_REL = {"weights": 1e-4, "table": 1e-3}
 
 
 def emit(obj) -> None:
@@ -2076,12 +2181,13 @@ def check_option_kernels(cfg, gen, dev, smi, enc_w):
         x = torch.rand(B_MAIN, 2, generator=gen).to(dev)
         t = torch.rand(B_MAIN, 3, generator=gen).to(dev)
         gy = torch.randn(B_MAIN, enc_w, generator=gen).to(torch.bfloat16).to(dev)
-        library = None
         if plan.stochastic:
             rows = grid_kernel.stochastic_rows(plan, x).reshape(-1)
             grow = gy[:, : L * plan.f].float().reshape(-1, plan.f)
             out = torch.zeros((plan.total_rows, plan.f), device=dev)
             library = {"K4": lambda: out.zero_().index_add_(0, rows, grow)}
+        else:  # Rng: index_add_ of the contributions at the rows it hashes to
+            library = {"K4": k4_yardstick(plan, x, gy, L)}
         kernels = ("K1", "K3", "K4", "K6") if plan.rng else ("K4", "K6")  # K1, K3: Rng only
         timed = time_grid_kernels(net, tr, x, t, gy, kernels, library, plain_iters=1)
         grid_bnd = grid_bounds(net, prep, x, t, gy)
@@ -2895,6 +3001,426 @@ def composite_slice(dev):
     return errs, trained, eik_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the optimizers (A6), the grid's plain route (A2), compute_dtype (A5)
+# ---------------------------------------------------------------------------
+
+
+def state_to(state, device):
+    """A copy of an optimizer state tree on `device`."""
+    if isinstance(state, dict):
+        return {k: state_to(v, device) for k, v in state.items()}
+    if isinstance(state, list):
+        return [state_to(v, device) for v in state]
+    return state.to(device, copy=True)
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Any CUDA call that synchronises the host raises inside."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def with_optimizer(cfg, optimizer):
+    out = json.loads(json.dumps(cfg))
+    out["optimizer"] = optimizer
+    return out
+
+
+def leaf_errors(got_w, got_state, want_w, want_state, bound):
+    """{leaf: norm-relative error} of the weights and every float leaf, and
+    whether the integer leaves are equal."""
+    import torch
+    from tcnn_tpu_torch.utils.serialization import tree_leaves
+
+    errs = {"weights": norm_errors(got_w.cpu(), want_w, {"all": bound})[0]["all"]}
+    ints_equal = True
+    for i, (g, w) in enumerate(zip(tree_leaves(got_state), tree_leaves(want_state))):
+        if w.dtype.is_floating_point:
+            errs[f"leaf {i} {tuple(w.shape)}"] = norm_errors(g.cpu(), w, {"all": bound})[0]["all"]
+        else:
+            ints_equal &= torch.equal(g.cpu(), w)
+    return errs, ints_equal
+
+
+def check_optimizer_steps(cfg, dev, smi):
+    """(b): one step of every otype on config_hash's param vector on the
+    card against the same step on the CPU, from the same weights, state
+    (OPTIMIZER_STEPS' CPU steps before) and gradient (seeded, x loss scale
+    128, 30% exact zeros in the table), each inside no_host_sync; Shampoo's
+    refresh step beside its TF32 control (`Shampoo._step`, the step without
+    its pinned precision, under `shampoo.matmul_precision("high")`).
+    Returns {name: max leaf error}."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.optimizers import shampoo as shampoo_mod
+
+    net = tt.create_network_with_input_encoding(2, 3, cfg["encoding"], cfg["network"])
+    n, sizes, n_net = net.n_params, net.layer_sizes(), net.network.n_params
+    ogen = torch.Generator().manual_seed(SEED + 60)
+    w0 = torch.cat([net.network.init_params(ogen), torch.rand(n - n_net, generator=ogen) * 2 - 1])
+
+    def grad():
+        g = torch.randn(n, generator=ogen) * 128.0
+        g[n_net:][torch.rand(n - n_net, generator=ogen) < 0.3] = 0.0
+        return g
+
+    out = {}
+    for name, (ocfg, warm) in OPTIMIZER_STEPS.items():
+        if ocfg is None:
+            ocfg = {"otype": "Composite", "nested": [{**_ADAM, "n_params_to_optimize": n_net},
+                                                     {"otype": "SGD", "learning_rate": 1e-1}]}
+        shampoo = ocfg["otype"] == "Shampoo"
+        bound = SHAMPOO_STEP_REL if shampoo else OPT_STEP_REL
+        ref = tt.create_optimizer(ocfg)
+        ref.allocate(n, sizes)
+        state, w = ref.init_state("cpu"), w0.clone()
+        for _ in range(warm):
+            ref.step(state, 128.0, w, grad())
+        g = grad()
+        runs = ["card", "TF32 control"] if name == "Shampoo refresh" else ["card"]
+        got = {}
+        for run in runs:
+            opt = tt.create_optimizer(ocfg)
+            opt.allocate(n, sizes)
+            dstate, dw, dg = state_to(state, dev), w.to(dev, copy=True), g.to(dev, copy=True)
+            opt.load_state(dstate)
+            torch.cuda.synchronize()
+            with no_host_sync():
+                if run == "card":
+                    opt.step(dstate, 128.0, dw, dg)
+                else:
+                    with shampoo_mod.matmul_precision("high"):
+                        opt._step(dstate, 128.0, dw, dg, 1.0)
+            torch.cuda.synchronize()
+            got[run] = (opt, dstate, dw)
+        if shampoo:
+            check(ref.refresh_groups(warm + 1) == (list(range(3)) if warm == 0 else []),
+                  f"{name}: the step compared does not refresh as planned")
+        ref.step(state, 128.0, w, g)
+        opt, dstate, dw = got["card"]
+        errs, ints_equal = leaf_errors(dw, dstate, w, state, bound)
+        cw, want_cw = opt.custom_weights(dstate, dw), ref.custom_weights(state, w)
+        if want_cw is not None:
+            errs["custom_weights"] = norm_errors(cw.cpu(), want_cw, {"all": bound})[0]["all"]
+        worst = max(errs.values())
+        emit({"phase": "optimizer step", "name": name, "warm_steps": warm,
+              "norm_rel_err": errs, "integer_leaves_equal": ints_equal, "limit": bound,
+              "host_syncs": 0, "ok": worst <= bound and ints_equal})
+        rejected = True
+        if "TF32 control" in got:
+            _, cstate, cw_ = got["TF32 control"]
+            cerrs, _ = leaf_errors(cw_, cstate, w, state, bound)
+            rejected = any(not e <= bound for e in cerrs.values())  # a NaN root breaks it too
+            emit({"phase": "control", "name": f"{name}, TF32 matmuls", "norm_rel_err": cerrs,
+                  "limit": bound, "rejected": rejected})
+        check(worst <= bound and ints_equal, f"{name}: the card's step disagrees with the CPU's")
+        check(rejected, f"control {name}: the bound {bound} passes TF32 matmuls")
+        out[name] = worst
+    return out
+
+
+def time_optimizer_steps(cfg, dev):
+    """ms of one optimizer step alone on config_hash's param vector on the
+    card: Adam, the NeRF chain, Shampoo's step 1 (every root refreshed),
+    step 3 (one group's roots) and step 2 (none)."""
+    import torch
+    import tcnn_tpu_torch as tt
+
+    net = tt.create_network_with_input_encoding(2, 3, cfg["encoding"], cfg["network"])
+    n, sizes = net.n_params, net.layer_sizes()
+    w = (torch.rand(n, device=dev) - 0.5) * 0.1
+    g = torch.randn(n, device=dev)
+    times = {}
+    for name, ocfg in (("Adam", _ADAM), ("chain", NERF_OPTIMIZER)):
+        opt = tt.create_optimizer(ocfg)
+        opt.allocate(n, sizes)
+        state = opt.init_state(dev)
+        times[name] = cuda_ms(lambda: opt.step(state, 128.0, w, g), 50)
+    opt = tt.create_optimizer(SHAMPOO_OPTIMIZER)
+    opt.allocate(n, sizes)
+    state = opt.init_state(dev)
+
+    def shampoo_at(t):
+        opt._host_step = t  # the step count before the step: its schedule
+        opt.step(state, 128.0, w, g)
+
+    for label, t in (("Shampoo step 1 (all roots)", 0), ("Shampoo step 3 (one group's roots)", 2),
+                     ("Shampoo step 2 (no root)", 1)):
+        times[label] = cuda_ms(lambda: shampoo_at(t), 20)
+    return times
+
+
+def train_loop(tr, batches):
+    """Run `batches` through `training_step`; returns (losses on the CPU,
+    launches, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = [tr.training_step(x, t) for x, t in batches]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counters()
+    return torch.stack(losses).cpu(), launched, seconds
+
+
+def loss_report(tag, losses, fall_min):
+    import torch
+
+    check(bool(torch.isfinite(losses).all()), f"{tag}: loss not finite")
+    fall = float(losses[0] / losses[-10:].mean())
+    n = len(losses)
+    return {"loss_first": float(losses[0]), "loss_last10_mean": float(losses[-10:].mean()),
+            "loss_at": {str(i): float(losses[i]) for i in sorted({0, n // 4, n // 2, n - 1})},
+            "loss_fall": fall, "loss_fall_min": fall_min}
+
+
+def chain_slice(cfg, dev, batch):
+    """(a): config_hash under NERF_OPTIMIZER, N_CHAIN_STEPS steps at B_MAIN
+    through K6 alone, the loss falling; trainer.inference (K3 on the EMA
+    weights) against model.apply on them; ten inference calls between two
+    steps building K3's operands once; FAST_DECAY's N_DECAY_STEPS steps
+    decaying twice. Returns (launches, ms per step)."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch import trainer as trainer_mod
+
+    model = tt.create_from_config(2, 3, with_optimizer(cfg, NERF_OPTIMIZER), seed=SEED + 62,
+                                  device=dev)
+    tr, net = model.trainer, model.network
+    check(tr.use_fused(), "config_hash under the NeRF chain must take K6")
+    losses, launched, loop_s = train_loop(tr, [batch() for _ in range(N_CHAIN_STEPS)])
+    report = loss_report("the NeRF chain", losses, CHAIN_LOSS_FALL)
+    emit({"phase": "chain slice", "steps": N_CHAIN_STEPS, "B": B_MAIN, "launches": launched,
+          **report, "loop_seconds": loop_s})
+    check(launched["K6"] == N_CHAIN_STEPS and all(v == 0 for k, v in launched.items() if k != "K6"),
+          f"the chain's steps did not run K6 alone: {launched}")
+    check(report["loss_fall"] >= CHAIN_LOSS_FALL, f"the chain's loss fell only {report['loss_fall']}x")
+
+    # K3 on the EMA weights against model.apply on them; its operands built
+    # once across ten calls between two steps
+    prepared = []
+    real = trainer_mod.prepare_forward
+    trainer_mod.prepare_forward = lambda m, p: prepared.append(1) or real(m, p)
+    try:
+        x, t = batch()
+        tr.training_step(x, t)
+        reset_counters()
+        xq = [torch.rand(B, 2, device=dev) for B in (B_MAIN, 100_003, 1, 4096, 333, 1 << 16,
+                                                     7, 65_537, 2048, 100)]
+        ys = [tr.inference(q) for q in xq]
+        calls = counters()
+        n_prepared = len(prepared)
+        ema = tr.inference_params  # the weights those calls served
+        tr.training_step(x, t)
+        tr.inference(xq[-1])
+        n_after = len(prepared)
+    finally:
+        trainer_mod.prepare_forward = real
+    emit({"phase": "chain inference", "requests": len(xq), "launches": calls,
+          "operand_builds": n_prepared, "operand_builds_after_a_step": n_after - n_prepared})
+    check(calls["K3"] == len(xq) and n_prepared == 1 and n_after == 2,
+          f"ten EMA inference calls: K3 {calls['K3']}, operands built {n_prepared} times")
+    for q, y in zip(xq[:3], ys[:3]):
+        check(y.shape == (q.shape[0], 3) and bool(torch.isfinite(y).all()), "inference shape")
+        compare(f"chain trainer.inference (K3, EMA weights) B={q.shape[0]} vs model.apply", y,
+                net.apply(ema, q)[:, :3].float(), rel_max=MLP_REL)
+
+    fast = tt.create_from_config(2, 3, with_optimizer(cfg, FAST_DECAY), seed=SEED + 63,
+                                 device=dev)
+    _, fast_launched, _ = train_loop(fast.trainer, [batch() for _ in range(N_DECAY_STEPS)])
+    factor = float(fast.trainer.state["opt"]["nested"]["lr_factor"])
+    emit({"phase": "chain decay", "steps": N_DECAY_STEPS, "lr_factor": factor,
+          "expected": 0.33**2, "launches": fast_launched})
+    check(abs(factor - 0.33**2) <= 1e-6 and fast_launched["K6"] == N_DECAY_STEPS,
+          f"the chain decaying from step 2 every 2: factor {factor}")
+    launched["K6"] += fast_launched["K6"]
+    return launched, cuda_ms(lambda: tr.training_step(x, t), 30)
+
+
+def shampoo_slice(cfg, dev, batch):
+    """(c): config_hash under Shampoo, N_SHAMPOO_STEPS steps at B_MAIN
+    through K6 alone, the loss falling. Returns (launches, ms per step)."""
+    import tcnn_tpu_torch as tt
+
+    model = tt.create_from_config(2, 3, with_optimizer(cfg, SHAMPOO_OPTIMIZER), seed=SEED + 64,
+                                  device=dev)
+    tr = model.trainer
+    check(tr.use_fused(), "config_hash under Shampoo must take K6")
+    losses, launched, loop_s = train_loop(tr, [batch() for _ in range(N_SHAMPOO_STEPS)])
+    report = loss_report("Shampoo", losses, SHAMPOO_LOSS_FALL)
+    emit({"phase": "shampoo slice", "steps": N_SHAMPOO_STEPS, "B": B_MAIN, "launches": launched,
+          **report, "loop_seconds": loop_s})
+    check(launched["K6"] == N_SHAMPOO_STEPS
+          and all(v == 0 for k, v in launched.items() if k != "K6"),
+          f"Shampoo's steps did not run K6 alone: {launched}")
+    check(report["loss_fall"] >= SHAMPOO_LOSS_FALL,
+          f"Shampoo's loss fell only {report['loss_fall']}x")
+    x, t = batch()
+    return launched, cuda_ms(lambda: tr.training_step(x, t), 20)
+
+
+def eikonal_param_grad(net, params, xe, compute_dtype):
+    """d/dparams of the SDF sample's eikonal term at the points `xe`, on the
+    composed route at `compute_dtype`."""
+    import torch
+
+    p = params.detach().requires_grad_(True)
+    x = xe.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = net.apply(p, x, prepare_input_gradients=True, compute_dtype=compute_dtype)
+        (g,) = torch.autograd.grad(out[:, 0].float().sum(), x, create_graph=True)
+        (grad,) = torch.autograd.grad(((g.norm(dim=-1) - 1.0) ** 2).mean(), p)
+    return grad
+
+
+def route_slice(dev):
+    """(d): the SDF sample's HashGrid (T = 2^17) in each ROUTE_VARIANTS
+    variant, N_ROUTE_STEPS steps of the sample's train_step at B_SDF: the
+    data term through K1, K2, K5 and K4, the eikonal term through the plain
+    route and the matmul chain (no K3, K7, K8 or K9), by the counters; the
+    eikonal term's gradient against the CPU model's at bf16 and at f32.
+    Returns (launches summed over the variants, {variant: ms per step})."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.ops.cuda import train_kernel
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    total, step_ms = dict.fromkeys(counters(), 0), {}
+    rgen = torch.Generator(device=dev).manual_seed(SEED + 65)
+    for i, (variant, (keys, max_level)) in enumerate(ROUTE_VARIANTS.items()):
+        scfg = sdf.config("HashGrid")
+        scfg["encoding"].update(keys)
+        models = [tt.create_from_config(3, 1, scfg, seed=SEED + 66 + i, device=d)
+                  for d in (dev, "cpu")]
+        for m in models:
+            m.network.encoding.update_hyperparams({"max_level": max_level})
+        model, cpu = models
+        tr, net = model.trainer, model.network
+        check(not train_kernel.supported_ig(net), f"{variant}: K9 must not take the eikonal term")
+        batches = [torch.rand(B_SDF, 3, generator=rgen, device=dev) for _ in range(N_ROUTE_STEPS)]
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        losses = torch.stack([sdf.train_step(tr, xs) for xs in batches]).cpu()
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        launched = counters()
+        check(bool(torch.isfinite(losses).all()), f"{variant}: SDF loss not finite")
+        per_step = {"K1": 1, "K2": 1, "K4": 1, "K5": 1}
+        emit({"phase": "route slice", "variant": variant, "steps": N_ROUTE_STEPS, "B": B_SDF,
+              "eikonal_points": sdf.N_EIKONAL, "launches": launched,
+              "launches_per_step_expected": per_step, "loss_first": float(losses[0]),
+              "loss_last": float(losses[-1]), "loop_seconds": loop_s})
+        check(all(v == per_step.get(k, 0) * N_ROUTE_STEPS for k, v in launched.items()),
+              f"{variant}: the steps did not run K1, K2, K5 and K4 alone, once each: {launched}")
+        for k, v in launched.items():
+            total[k] += v
+        xe = batches[-1][: sdf.N_EIKONAL]
+        cpu.trainer.set_params(tr.params.cpu())
+        for dtype, bound in ((torch.float32, ROUTE_F32_REL), (torch.bfloat16, ROUTE_BF16_REL)):
+            got = eikonal_param_grad(net, tr.params, xe, dtype)
+            want = eikonal_param_grad(cpu.network, cpu.trainer.params, xe.cpu(), dtype)
+            compare_norm(f"{variant}: eikonal gradient at {str(dtype)[6:]} on the card vs the CPU",
+                         got.cpu(), want, {"weights": bound, "table": bound},
+                         net.network.n_params)
+        xs = batches[0]
+        step_ms[variant] = cuda_ms(lambda: sdf.train_step(tr, xs), 10)
+    return total, step_ms
+
+
+@contextlib.contextmanager
+def card_route():
+    """A compute dtype other than bf16 keeps the grid's and FullyFusedMLP's
+    kernels on a CPU tensor too (their twins), as it does on the card."""
+    from tcnn_tpu_torch import common
+
+    real = common.plain_route
+    common.plain_route = lambda x, compute_dtype: False
+    try:
+        yield
+    finally:
+        common.plain_route = real
+
+
+def f32_slice(cfg, dev, batch):
+    """(e): config_hash's Trainer at compute_dtype f32, N_F32_STEPS steps at
+    B_MAIN through K1, K2, K5 and K4 once a step (K6 and K3 not chosen), the
+    loss falling; inference through K1 and K2, in f32; one step's params
+    gradient against the CPU Trainer's on the same route (the twins, under
+    `card_route`), beside its control: the CPU's f32 plain route, what
+    tcnn_tpu computes at f32 off a TPU. Returns (launches, ms per step)."""
+    import torch
+    import tcnn_tpu_torch as tt
+
+    def trainer(device, seed):
+        net = tt.create_network_with_input_encoding(2, 3, cfg["encoding"], cfg["network"])
+        return tt.Trainer(net, tt.create_optimizer(cfg["optimizer"]), tt.create_loss(cfg["loss"]),
+                          seed=seed, device=device, compute_dtype=torch.float32)
+
+    tr = trainer(dev, SEED + 70)
+    check(tr.loss_scale == 1.0 and not tr.use_fused(), "f32: loss scale 1, K6 not chosen")
+    losses, launched, loop_s = train_loop(tr, [batch() for _ in range(N_F32_STEPS)])
+    report = loss_report("f32", losses, F32_LOSS_FALL)
+    per_step = {"K1": 1, "K2": 1, "K4": 1, "K5": 1}
+    emit({"phase": "f32 slice", "steps": N_F32_STEPS, "B": B_MAIN, "launches": launched,
+          "launches_per_step_expected": per_step, **report, "loop_seconds": loop_s})
+    check(all(v == per_step.get(k, 0) * N_F32_STEPS for k, v in launched.items()),
+          f"the f32 steps did not run K1, K2, K5 and K4 alone, once each: {launched}")
+    check(report["loss_fall"] >= F32_LOSS_FALL, f"the f32 loss fell only {report['loss_fall']}x")
+    x, t = batch()
+    reset_counters()
+    y = tr.inference(x)
+    infer = counters()
+    check(y.dtype == torch.float32 and all(v == (1 if k in ("K1", "K2") else 0)
+                                           for k, v in infer.items()),
+          f"f32 inference: {y.dtype}, launches {infer}")
+    cpu = trainer("cpu", SEED + 70)
+    cpu.set_params(tr.params.cpu())
+    gl, gg = tr.loss_and_grad_fn(tr.params, x, t)
+    with card_route():
+        cl, cg = cpu.loss_and_grad_fn(cpu.params, x.cpu(), t.cpu())
+    _, plain_g = cpu.loss_and_grad_fn(cpu.params, x.cpu(), t.cpu())
+    n_net = tr.model.network.n_params
+    compare_norm("f32 step gradient (K1 K2 K5 K4) on the card vs the CPU twins", gg.cpu(), cg,
+                 F32_GRAD_REL, n_net)
+    control("f32 step gradient, the CPU's f32 plain route", plain_g, cg, F32_GRAD_REL, n_net)
+    check(abs(float(gl) - float(cl)) <= TRAIN_LOSS_RTOL * abs(float(cl)),
+          "f32 loss on the card vs the CPU twins")
+    return launched, cuda_ms(lambda: tr.training_step(x, t), 10)
+
+
+def optimizers_slice(cfg, dev, smi, batch):
+    """Phase 17: (a) chain_slice, (b) check_optimizer_steps, (c)
+    shampoo_slice, (d) route_slice, (e) f32_slice, and the times of the
+    optimizer steps alone and of a step of each path. Returns the launches
+    of the paths that run kernels: K6 (a) and (c)'s, and (d) and (e)'s."""
+    t0 = time.perf_counter()
+    chain_launches, chain_ms = chain_slice(cfg, dev, batch)
+    step_errs = check_optimizer_steps(cfg, dev, smi)
+    shampoo_launches, shampoo_ms = shampoo_slice(cfg, dev, batch)
+    route_launches, route_ms = route_slice(dev)
+    f32_launches, f32_ms = f32_slice(cfg, dev, batch)
+    emit({"phase": "times optimizers", "card": smi, "B": B_MAIN,
+          "optimizer_step_ms": time_optimizer_steps(cfg, dev),
+          "training_step_ms": {"chain (a)": chain_ms, "Shampoo (c)": shampoo_ms,
+                               **{f"SDF {k} (d), B={B_SDF}": v for k, v in route_ms.items()},
+                               "f32 (e)": f32_ms},
+          "optimizer_step_max_leaf_err": step_errs,
+          "phase_seconds": time.perf_counter() - t0})
+    launches = {k: v + f32_launches[k] for k, v in route_launches.items()}
+    launches["K6"] += chain_launches["K6"] + shampoo_launches["K6"]
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3340,6 +3866,10 @@ def main() -> int:
     for part in (oneblob_errs, comp_errs):
         for k, v in part.items():
             errs[k] = max(errs[k], v)
+    # 17. the optimizers, the grid's plain route and compute_dtype: (a) the
+    #     NeRF chain, (b) one step of every otype against the CPU, (c)
+    #     Shampoo, (d) the SDF grid's A2 cases, (e) config_hash at f32
+    opt_launches17 = optimizers_slice(cfg, dev, smi, batch)
     emit({"phase": "modules launches", "oneblob_steps": oneblob_launches,
           "modules_demo": {k: v for k, v in modules_demo.items() if v},
           "modules_steps": {k: v for k, v in modules_launches.items() if v},
@@ -3379,9 +3909,11 @@ def main() -> int:
     # slice, K10-K13 from the PPNG SDF slice (all three configs); times of
     # K10 and K11 at PPNG2's defaults, of K12 and K13 at PPNG3's (K13's
     # table half, as the data term launches it, beside index_add_)
-    path_launches = {**{k: launches[k] for k in ("K1", "K2", "K3")},
-                     "K4": composed_launches["K4"], "K5": composed_launches["K5"],
-                     "K6": train_launches["K6"],
+    # phase 17's K6 steps (the chain, Shampoo), A2's data terms and the f32
+    # steps (K1, K2, K5, K4) added
+    path_launches = {**{k: launches[k] + opt_launches17[k] for k in ("K1", "K2", "K3")},
+                     **{k: composed_launches[k] + opt_launches17[k] for k in ("K4", "K5")},
+                     "K6": train_launches["K6"] + opt_launches17["K6"],
                      **{k: sdf_launches[k] for k in ("K7", "K8", "K9")},
                      **{k: sum(n[k] for n in ppng_launches.values())
                         for k in ("K10", "K11", "K12", "K13")}}

@@ -4,7 +4,10 @@ Imports `torch` and never `jax`. Uses the JAX package's JSON "otype"
 configs, flat parameter layout ([network | encoding]) and checkpoint format.
 So far it trains and serves grid, PPNG1/2/3, fixed-function (Identity,
 Frequency, TriangleWave, OneBlob, SphericalHarmonics, Empty) and Composite
-encodings + MLP models with the nine losses and Adam, through the Trainer
+encodings + MLP models with the nine losses and every optimizer of the JAX
+package (Adam, SGD, Novograd, Shampoo, the EMA, Average, Lookahead,
+Batched and ExponentialDecay wrappers, Composite), in bf16 or, with the
+Trainer's `compute_dtype=torch.float32`, in f32, through the Trainer
 or the module API (`NetworkWithInputEncoding`, `Network`, `Encoding`:
 `torch.nn.Module`s with `fwd` / `bwd`), and differentiates them with
 respect to their inputs to second order (`model.apply(...,

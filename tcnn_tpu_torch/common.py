@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``tcnn_tpu/common.py``: the enums, their
 case-insensitive parsers, the padding constants and the precision policy
-(fp32 master parameters, bf16 compute).
+(fp32 master parameters, bf16 compute by default; f32 compute where the
+caller asks for it, `plain_route`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ BATCH_SIZE_GRANULARITY = 128
 #: Loss scale of half-precision compute (common.h:229-233): multiplied into
 #: the loss gradient, divided out by the optimizer.
 DEFAULT_LOSS_SCALE = 128.0
+#: Loss scale of full-precision compute (common.h:229-233): none.
+DEFAULT_LOSS_SCALE_FLOAT = 1.0
 
 #: "Zoom" factor of Squareplus/Softplus activations (K_ACT, common_device.h:100).
 K_ACT = 10.0
@@ -34,8 +37,30 @@ MAX_N_LEVELS = 128
 PI = math.pi
 
 #: Network compute precision (master parameters stay fp32); the kernels
-#: take bf16 operands.
+#: take bf16 operands. At another dtype (torch.float32) the grid and
+#: FullyFusedMLP keep their kernels on a CUDA tensor, as tcnn_tpu keeps
+#: its Pallas kernels on a TPU, and take the plain route on a CPU tensor
+#: (`plain_route`).
 COMPUTE_DTYPE = torch.bfloat16
+
+
+def plain_route(x: torch.Tensor, compute_dtype) -> bool:
+    """Whether the grid and FullyFusedMLP leave their kernels for the plain
+    route at `compute_dtype`: only at a dtype other than bf16 and on a CPU
+    tensor, where the route computes what tcnn_tpu computes off a TPU (its
+    XLA route: the f32 gather and the f32 matmul chain). On a CUDA tensor
+    the kernels run and their bf16 outputs are cast to `compute_dtype`, as
+    tcnn_tpu's Pallas kernels are on a TPU (grid.py:316-343,
+    mlp.py:153-167)."""
+    return compute_dtype != COMPUTE_DTYPE and x.device.type == "cpu"
+
+
+def default_loss_scale(compute_dtype=COMPUTE_DTYPE) -> float:
+    """The loss scale of `compute_dtype` (tcnn_tpu/common.py:147): 128 for a
+    half-precision type, 1 for f32."""
+    if compute_dtype in (torch.float16, torch.bfloat16):
+        return DEFAULT_LOSS_SCALE
+    return DEFAULT_LOSS_SCALE_FLOAT
 
 
 class Activation(enum.Enum):

@@ -9,6 +9,14 @@
     (mlp_kernel.py:44-48) and takes the matmul chain, and so does a
     `second_order` apply (the input-gradient path).
 
+`compute_dtype` bf16 (the default) rounds operands and layer outputs to
+bf16; torch.float32 runs CutlassMLP's matmul chain in f32 with no
+rounding, as the JAX package's `jnp.dot(..., preferred_element_type=f32)`
+chain computes at f32 (mlp.py:98-108). FullyFusedMLP at f32 keeps K2 and
+K5 on a CUDA tensor, its bf16 output cast to f32, as the JAX package keeps
+its Pallas kernel on a TPU (mlp.py:153-167), and takes the f32 chain on a
+CPU tensor, as the JAX package does off a TPU (`common.plain_route`).
+
 Parameter layout (flat fp32, row-major per matrix, fully_fused_mlp.cu:659-677):
     [W_in (width x input_width), W_hidden_1..H-1 (width x width),
      W_out (padded_output_width x width)]
@@ -25,7 +33,8 @@ import math
 
 import torch
 
-from ..common import Activation
+from .. import common
+from ..common import COMPUTE_DTYPE, Activation
 from ..ops.activations import activation_fn
 from ..ops.cuda import mlp_kernel
 from .base import Network
@@ -75,19 +84,20 @@ class CutlassMLP(Network):
         return torch.cat(parts)
 
     # -- compute -----------------------------------------------------------
-    def apply(self, params, x, second_order=False):
-        """bf16 operands, f32 products and activation, bf16 between layers
-        (mlp.py:98-108); differentiable to any order by autograd, so
-        `second_order` changes nothing here."""
-        h = x.to(torch.bfloat16).float()
+    def apply(self, params, x, second_order=False, compute_dtype=COMPUTE_DTYPE):
+        """Operands and layer outputs rounded to `compute_dtype`, f32
+        products and activation (mlp.py:98-108); differentiable to any order
+        by autograd, so `second_order` changes nothing here. The output is
+        in `compute_dtype`."""
+        h = x.to(compute_dtype).float()
         off = 0
         sizes = self.layer_sizes()
         for i, (r, c) in enumerate(sizes):
-            w = params[off : off + r * c].view(r, c).to(torch.bfloat16).float()
+            w = params[off : off + r * c].view(r, c).to(compute_dtype).float()
             off += r * c
             act = self.output_activation if i == len(sizes) - 1 else self.activation
-            h = activation_fn(torch.matmul(h, w.T), act).to(torch.bfloat16).float()
-        return h.to(torch.bfloat16)
+            h = activation_fn(torch.matmul(h, w.T), act).to(compute_dtype).float()
+        return h.to(compute_dtype)
 
     def hyperparams(self):
         return {
@@ -133,14 +143,17 @@ class FullyFusedMLP(CutlassMLP):
             self.padded_output_width, self.activation, self.output_activation,
         )
 
-    def apply(self, params, x, second_order=False):
-        """K2 forward and K5 backward; `second_order` (the input-gradient
-        path, whose gradient is differentiated again) takes the matmul chain
-        under autograd instead, as tcnn_tpu does (mlp.py:153-170): K5's
-        backward is not differentiable."""
-        if second_order or Activation.Sine in (self.activation, self.output_activation):
-            return super().apply(params, x)
-        return mlp_kernel.FusedMlpFn.apply(params, x, self.dims)
+    def apply(self, params, x, second_order=False, compute_dtype=COMPUTE_DTYPE):
+        """K2 forward and K5 backward, the output cast to `compute_dtype`;
+        `second_order` (the input-gradient path, whose gradient is
+        differentiated again) takes the matmul chain under autograd
+        instead, as tcnn_tpu does (mlp.py:153-170): K5's backward is not
+        differentiable. So does a compute dtype other than bf16 on a CPU
+        tensor (`common.plain_route`)."""
+        if (second_order or common.plain_route(x, compute_dtype)
+                or Activation.Sine in (self.activation, self.output_activation)):
+            return super().apply(params, x, compute_dtype=compute_dtype)
+        return mlp_kernel.FusedMlpFn.apply(params, x, self.dims).to(compute_dtype)
 
     def hyperparams(self):
         hp = super().hyperparams()

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..common import COMPUTE_DTYPE
 from ..ops.cuda import train_kernel
 from ..ops.encodings.base import Encoding
 from .base import Network
@@ -45,9 +46,10 @@ class NetworkWithInputEncoding(Network):
         return torch.cat([net, self.encoding.init_params(generator)])
 
     def apply(self, params, x, *, max_level=None, prepare_input_gradients=False,
-              _no_fused_ig=False):
-        """[B, D] -> [B, padded_output_width] bf16 (network_with_input_encoding.
-        py:59-111). Differentiable with respect to `params`: autograd runs K5
+              _no_fused_ig=False, compute_dtype=COMPUTE_DTYPE):
+        """[B, D] -> [B, padded_output_width] in `compute_dtype`, bf16 by
+        default (network_with_input_encoding.py:59-111), handed to the
+        encoding and the network. Differentiable with respect to `params`: autograd runs K5
         and K4 backward (or the matmul chain's own backward) and returns the
         f32 gradient of the flat vector.
 
@@ -63,14 +65,15 @@ class NetworkWithInputEncoding(Network):
         (network_with_input_encoding.py:93-94); any other (PPNG) is
         differentiable in x as it is."""
         if (prepare_input_gradients and not _no_fused_ig and max_level is None
-                and train_kernel.supported_ig(self)):
+                and compute_dtype == COMPUTE_DTYPE and train_kernel.supported_ig(self)):
             return train_kernel.FusedApplyIgFn.apply(params, x, self)
         net_p, enc_p = self.split_params(params)
         kwargs = {} if max_level is None else {"max_level": max_level}
         if getattr(self.encoding, "supports_input_grad_opt", False):
             kwargs["needs_input_grad"] = prepare_input_gradients
-        enc_out = self.encoding.apply(enc_p, x, **kwargs)
-        return self.network.apply(net_p, enc_out, second_order=prepare_input_gradients)
+        enc_out = self.encoding.apply(enc_p, x, compute_dtype=compute_dtype, **kwargs)
+        return self.network.apply(net_p, enc_out, second_order=prepare_input_gradients,
+                                  compute_dtype=compute_dtype)
 
     def hyperparams(self):
         return {

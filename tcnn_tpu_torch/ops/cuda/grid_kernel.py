@@ -140,14 +140,15 @@ def mul_u32(a: torch.Tensor, b) -> torch.Tensor:
     return (lo + hi) & U32
 
 
-def index_within_level(cells, strides, use_hash, hash_fn, sizes):
+def index_within_level(cells, strides, hashed_levels, hash_fn, sizes):
     """Per-level table row of integer grid cells (grid_index,
     common_device.h:690-707), in int64 holding uint32 values.
 
     cells: int64 [..., L, C, D] uint32 cells; strides: int64 [L, D];
-    use_hash: bool [L]; hash_fn: `level_hash`'s function (None when no level
-    hashes), applied to the hashed levels' cells only; sizes: int64 [L].
-    Returns int64 [..., L, C] in [0, size)."""
+    hashed_levels: int64 [H], the levels that hash, on cells' device;
+    hash_fn: `level_hash`'s function (None when no level hashes), applied
+    to the hashed levels' cells only; sizes: int64 [L]. Returns int64
+    [..., L, C] in [0, size)."""
     d = cells.shape[-1]
     strides = strides[:, None, :]  # [L, 1, D] broadcast over corners
     dense = torch.zeros(cells.shape[:-1], dtype=torch.int64, device=cells.device)
@@ -155,7 +156,6 @@ def index_within_level(cells, strides, use_hash, hash_fn, sizes):
         dense = (dense + mul_u32(cells[..., dim], strides[..., dim])) & U32
     raw = dense
     if hash_fn is not None:
-        hashed_levels = torch.nonzero(use_hash).flatten()
         raw = dense.index_copy(-2, hashed_levels, hash_fn(cells.index_select(-3, hashed_levels)))
     return raw % sizes[:, None]
 
@@ -225,6 +225,7 @@ class GridPlan:
                            and enc.interpolation != InterpolationType.Nearest)
         self.hash_seed = self.draw_seed = SEED
         self._device_consts = {}
+        self._index_consts = {}
 
     @property
     def n_corners(self) -> int:
@@ -269,6 +270,25 @@ class GridPlan:
         return self._device_consts[key]
 
 
+    def index_consts(self, device):
+        """(strides int64 [L, D], the hashed levels int64 [H], sizes int64
+        [L], offsets int64 [L], scales f32 [L]) on `device`, made once:
+        what the twins and the plain route index with, so that they copy
+        nothing to the device a call. Keyed on the fields they come from
+        too, which a control's copy of the plan may change."""
+        key = (str(device), self.strides, self.use_hash, self.sizes, self.offsets)
+        if key not in self._index_consts:
+            consts = (
+                torch.tensor(self.strides, dtype=torch.int64).reshape(self.n_levels, self.d),
+                torch.tensor([l for l, h in enumerate(self.use_hash) if h], dtype=torch.int64),
+                torch.tensor(self.sizes, dtype=torch.int64),
+                torch.tensor(self.offsets, dtype=torch.int64),
+                torch.from_numpy(self.scales.copy()),
+            )
+            self._index_consts[key] = tuple(t.to(device) for t in consts)
+        return self._index_consts[key]
+
+
 class Corner(NamedTuple):
     """One corner c of every (sample, level): absolute table rows [B, L]
     int64 and the weight W_c [B, L] f32; with derivatives, dW_c/dx_d [D] and
@@ -283,14 +303,10 @@ class Corner(NamedTuple):
 def _rows(plan: GridPlan, cells):
     """Absolute table rows int64 [B, L] of the uint32 cells [B, L, D] (each
     int64, taken mod 2^32)."""
-    dev = cells.device
-    idx = index_within_level(
-        (cells & U32)[:, :, None, :],
-        torch.tensor(plan.strides, dtype=torch.int64, device=dev).reshape(plan.n_levels, plan.d),
-        torch.tensor(plan.use_hash, dtype=torch.bool, device=dev), plan.hash_fn(),
-        torch.tensor(plan.sizes, dtype=torch.int64, device=dev),
-    )[..., 0]
-    return torch.tensor(plan.offsets, dtype=torch.int64, device=dev)[None, :] + idx
+    strides, hashed_levels, sizes, offsets, _ = plan.index_consts(cells.device)
+    idx = index_within_level((cells & U32)[:, :, None, :], strides, hashed_levels,
+                             plan.hash_fn(), sizes)[..., 0]
+    return offsets[None, :] + idx
 
 
 def stochastic_rows(plan: GridPlan, x):
@@ -301,7 +317,7 @@ def stochastic_rows(plan: GridPlan, x):
     of `positions`, the forward's own."""
     from ..encodings.grid import stochastic_uniforms
 
-    cells, w = positions(x, torch.from_numpy(plan.scales).to(x.device), plan.interpolation)
+    cells, w = positions(x, plan.index_consts(x.device)[4], plan.interpolation)
     u = stochastic_uniforms(x.shape[0], plan.n_levels, x.device, plan.draw_seed)
     return _rows(plan, cells + (u[..., None] < w).to(torch.int64))
 
@@ -326,14 +342,14 @@ def _corners(plan: GridPlan, x, derivs: bool = False):
     (grid_kernel.py:896-921, 1048-1057, 1125-1151)."""
     D = plan.d
     dev = x.device
-    pos = positions(x, torch.from_numpy(plan.scales).to(dev), plan.interpolation, derivs)
+    pos = positions(x, plan.index_consts(dev)[4], plan.interpolation, derivs)
     cells, w = pos[0], pos[1]  # each [B, L, D]
     nearest = plan.interpolation == InterpolationType.Nearest
     for corner in range(plan.n_corners):
         bits = [(corner >> d) & 1 for d in range(D)]
-        rows = _rows(plan, cells + torch.tensor(bits, dtype=torch.int64, device=dev))
+        rows = _rows(plan, torch.stack([cells[..., d] + bits[d] for d in range(D)], -1))
         if nearest:
-            yield Corner(rows, torch.ones_like(w[..., 0]))
+            yield Corner(rows, 1.0 + 0.0 * w[..., 0])  # dW/dx = 0, not absent
             continue
         terms = [w[..., d] if bits[d] else 1.0 - w[..., d] for d in range(D)]
         cw = _prod(terms)

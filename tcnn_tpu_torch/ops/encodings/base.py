@@ -4,7 +4,8 @@ Counterpart of ``tcnn_tpu/ops/encodings/base.py``: every encoding consumes
 `n_dims_to_encode` input dims and produces `n_output_dims` real outputs,
 padded up to `padded_output_width` with a constant (0 for parametric grids,
 grid.h:749-759; 1 for fixed-function encodings, frequency.h:64-65). Its
-parameters, if any, live in one flat fp32 vector slice.
+parameters, if any, live in one flat fp32 vector slice. The output is in
+`compute_dtype`: bf16 by default, f32 where the caller asks for it.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import abc
 import torch
 import torch.nn.functional as F
 
-from ...common import next_multiple
+from ...common import COMPUTE_DTYPE, next_multiple
 
 
 class Encoding(abc.ABC):
@@ -74,12 +75,12 @@ class Encoding(abc.ABC):
 
     # -- compute -------------------------------------------------------------
     @abc.abstractmethod
-    def apply_unpadded(self, params, x):
+    def apply_unpadded(self, params, x, *, compute_dtype=COMPUTE_DTYPE):
         """Encode `x` [B, n_dims_to_encode] -> [B, n_output_dims]."""
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, compute_dtype=COMPUTE_DTYPE):
         """Encode and pad to `padded_output_width`."""
-        y = self.apply_unpadded(params, x)
+        y = self.apply_unpadded(params, x, compute_dtype=compute_dtype)
         if self.n_to_pad:
             y = F.pad(y, (0, self.n_to_pad), value=self.pad_value)
         return y

@@ -12,7 +12,7 @@ CompositeEncoding, composite.h:136-290):
     encodes the next multiple and cuts, ``ops/cuda/grid_kernel.py``);
   - Sum and Product need equal nested widths, align every nested encoding
     the same way and reduce the padding columns too (composite.h:47-133);
-    they add or multiply in f32 and round to bf16 once.
+    they add or multiply in f32 and round to the compute dtype once.
 
 The flat params are the nested encodings' in nesting order, the JAX
 layout, so `params_from_jax` carries a JAX model over unchanged. A nested
@@ -87,11 +87,12 @@ class CompositeEncoding(Encoding):
         return [s for e in self.nested for s in e.layer_sizes()]
 
     # -- compute ---------------------------------------------------------------
-    def apply_unpadded(self, params, x):
+    def apply_unpadded(self, params, x, *, compute_dtype=COMPUTE_DTYPE):
         raise NotImplementedError("CompositeEncoding pads its nested encodings: call apply")
 
-    def apply(self, params, x, *, needs_input_grad=False):
-        """[B, n_dims_to_encode] -> [B, padded_output_width] bf16."""
+    def apply(self, params, x, *, needs_input_grad=False, compute_dtype=COMPUTE_DTYPE):
+        """[B, n_dims_to_encode] -> [B, padded_output_width] in
+        `compute_dtype` (bf16 by default)."""
         outs, off = [], 0
         for enc, begin in zip(self.nested, self.dims_to_encode_begin):
             p = params[off : off + enc.n_params]
@@ -100,15 +101,15 @@ class CompositeEncoding(Encoding):
                   if getattr(enc, "supports_input_grad_opt", False) else {})
             # the kernels read a contiguous x
             xi = x[:, begin : begin + enc.n_dims_to_encode].contiguous()
-            outs.append(enc.apply(p, xi, **kw))
+            outs.append(enc.apply(p, xi, compute_dtype=compute_dtype, **kw))
         if not outs:
-            return torch.zeros((x.shape[0], 0), dtype=COMPUTE_DTYPE, device=x.device)
+            return torch.zeros((x.shape[0], 0), dtype=compute_dtype, device=x.device)
         if self.reduction == ReductionType.Concatenation:
             return torch.cat(outs, -1)
         stacked = torch.stack([o.float() for o in outs])
         if self.reduction == ReductionType.Sum:
-            return stacked.sum(0).to(COMPUTE_DTYPE)
-        return stacked.prod(0).to(COMPUTE_DTYPE)
+            return stacked.sum(0).to(compute_dtype)
+        return stacked.prod(0).to(compute_dtype)
 
     def hyperparams(self):
         return {"otype": "Composite", "reduction": self.reduction.value,

@@ -7,8 +7,8 @@ no Pallas kernel for any of them, so they are plain torch here on every
 device: autograd differentiates them to any order in x.
 
 Each computes in f32 in the JAX package's op order (`encode_f32`, and the
-module-level functions the tests call) and rounds to bf16 at the end, as
-the grid's output is bf16. Every one pads at the back with 1, except
+module-level functions the tests call) and rounds to the compute dtype at
+the end (bf16 by default, as the grid's output is bf16). Every one pads at the back with 1, except
 SphericalHarmonics, which pads at the FRONT (spherical_harmonics.h:57-63),
 a reference quirk the JAX package keeps.
 """
@@ -99,8 +99,8 @@ def sh_encode(xyz, degree: int):
 
 
 class FixedEncoding(Encoding):
-    """A parameter-free encoding: `encode_f32`, rounded to bf16, padded
-    with 1."""
+    """A parameter-free encoding: `encode_f32`, rounded to the compute
+    dtype, padded with 1."""
 
     pad_value = 1.0
 
@@ -108,8 +108,8 @@ class FixedEncoding(Encoding):
     def encode_f32(self, x):
         """f32 [B, n_dims_to_encode] -> f32 [B, n_output_dims]."""
 
-    def apply_unpadded(self, params, x):
-        return self.encode_f32(x).to(COMPUTE_DTYPE)
+    def apply_unpadded(self, params, x, *, compute_dtype=COMPUTE_DTYPE):
+        return self.encode_f32(x).to(compute_dtype)
 
 
 class IdentityEncoding(FixedEncoding):
@@ -210,8 +210,8 @@ class SphericalHarmonicsEncoding(FixedEncoding):
     def encode_f32(self, x):
         return sh_encode(x * 2.0 - 1.0, self.degree)
 
-    def apply(self, params, x):
-        y = self.apply_unpadded(params, x)
+    def apply(self, params, x, *, compute_dtype=COMPUTE_DTYPE):
+        y = self.apply_unpadded(params, x, compute_dtype=compute_dtype)
         if self.n_to_pad:
             y = F.pad(y, (self.n_to_pad, 0), value=self.pad_value)
         return y

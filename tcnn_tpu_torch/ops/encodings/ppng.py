@@ -27,7 +27,13 @@ kernels (``ops/cuda/ext_kernel.py``):
 
 Parameter gradients come through K11 (PPNG1/2) and K13 (PPNG3); input
 gradients through the torch coordinate math and, for PPNG3, K13's dots.
-Both compose to any order. The JAX package's TPU-only machinery (PPNG2's
+Both compose to any order.
+
+At compute dtype f32 every variant reads the f32 params, as the JAX
+package's jnp route computes (ppng.py:185-210, 328-411, 599-638): K10
+gathers PPNG2's plane corners and PPNG3's 8 corners from the f32 table
+(K11 scatters their gradient), the combine and PPNG3's weighted corner sum
+are torch code in f32, and the output stays f32. The JAX package's TPU-only machinery (PPNG2's
 batch chunking, PPNG3's premixed rows and binned plan) is not ported.
 
 Initialization: PPNG1/PPNG2 U(+-0.7) (ppng_1.h:324-327, ppng_2.h:451-454);
@@ -37,12 +43,14 @@ log2 freq 0..6, Q 64, F 6, C 4, rank 4; D must be 3.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F_
 
+from ...common import COMPUTE_DTYPE
 from ..cuda.ext_kernel import ExtGatherFn, ExtLookupFn, ExtSpec
 from .base import Encoding
 
@@ -126,11 +134,18 @@ class PPNGBase(Encoding):
         return p0.detach().long(), p1.detach().long(), w
 
     # -- Encoding API ---------------------------------------------------------
-    def apply(self, params, x, *, max_level=None):
-        """Encode and pad to `padded_output_width` with zeros, bf16;
-        differentiable in params and in x, to any order. `max_level` is
-        accepted and ignored, as in the JAX package."""
-        y = self.apply_unpadded(params, x)
+    def spec_for(self, compute_dtype) -> ExtSpec:
+        """`spec`, reading the tables in f32 at compute dtype f32."""
+        if compute_dtype == torch.float32:
+            return dataclasses.replace(self.spec, dtype=torch.float32)
+        return self.spec
+
+    def apply(self, params, x, *, max_level=None, compute_dtype=COMPUTE_DTYPE):
+        """Encode and pad to `padded_output_width` with zeros, in
+        `compute_dtype` (bf16 by default); differentiable in params and in
+        x, to any order. `max_level` is accepted and ignored, as in the JAX
+        package."""
+        y = self.apply_unpadded(params, x, compute_dtype=compute_dtype)
         if self.n_to_pad:
             y = F_.pad(y, (0, self.n_to_pad), value=self.pad_value)
         return y
@@ -185,10 +200,10 @@ class PPNG1Encoding(PPNGBase):
         idx = torch.cat([p0.reshape(B, K) + base, p1.reshape(B, K) + base], dim=1)
         return idx.to(torch.int32), w.reshape(B, K)
 
-    def combine(self, picks, w):
-        """Output [B, F*2*C] bf16 from the raw endpoint picks [B, 2*K*C*R]
-        (f32) and weights w [B, K]: the lerp per axis, the product over the
-        D axes, the sum over ranks (ppng.py:206-210)."""
+    def combine(self, picks, w, compute_dtype=COMPUTE_DTYPE):
+        """Output [B, F*2*C] in `compute_dtype` from the raw endpoint picks
+        [B, 2*K*C*R] (f32) and weights w [B, K]: the lerp per axis, the
+        product over the D axes, the sum over ranks (ppng.py:206-210)."""
         B = picks.shape[0]
         F, D, C, R = self.n_frequencies, self.n_dims_to_encode, self.n_features, self.rank
         # unbind, not slices: its backward stacks the parts' gradients once,
@@ -196,11 +211,12 @@ class PPNG1Encoding(PPNGBase):
         v0, v1 = picks.reshape(B, 2, self.spec.n_levels, C * R).unbind(1)
         w = w[..., None]
         l0, l1, l2 = ((1.0 - w) * v0 + w * v1).reshape(B, F, 2, D, C, R).unbind(3)
-        return (l0 * l1 * l2).sum(-1).reshape(B, F * 2 * C).to(torch.bfloat16)
+        return (l0 * l1 * l2).sum(-1).reshape(B, F * 2 * C).to(compute_dtype)
 
-    def apply_unpadded(self, params, x):
+    def apply_unpadded(self, params, x, *, compute_dtype=COMPUTE_DTYPE):
         idx, w = self.indices(x)
-        return self.combine(ExtGatherFn.apply(self.table(params), idx, self.spec), w)
+        picks = ExtGatherFn.apply(self.table(params), idx, self.spec_for(compute_dtype))
+        return self.combine(picks, w, compute_dtype)
 
 
 class PPNG2Encoding(PPNGBase):
@@ -245,10 +261,11 @@ class PPNG2Encoding(PPNGBase):
                                    for d, (rd, cd) in enumerate(self.PLANES)], dim=1))
         return torch.cat(cols, dim=1).to(torch.int32), w.reshape(B, F2, 3)
 
-    def combine(self, picks, w):
-        """Output [B, F2*C] bf16 from the raw plane-corner picks
-        [B, 4*NL*C*R] (bf16) and weights w [B, F2, 3]: the 8-corner
-        rank-coupled combine in f32 (ppng.py:303-326)."""
+    def combine(self, picks, w, compute_dtype=COMPUTE_DTYPE):
+        """Output [B, F2*C] in `compute_dtype` from the raw plane-corner
+        picks [B, 4*NL*C*R] (bf16, or f32 at compute dtype f32) and weights
+        w [B, F2, 3]: the 8-corner rank-coupled combine in f32
+        (ppng.py:303-326)."""
         B = picks.shape[0]
         C, R, F2 = self.n_features, self.rank, self.n_levels
         CR = C * R
@@ -268,11 +285,12 @@ class PPNG2Encoding(PPNGBase):
             a, b2, c2 = (corner >> 2) & 1, (corner >> 1) & 1, corner & 1  # x, y, z bits
             weight = wexp(0, a) * wexp(1, b2) * wexp(2, c2)
             out = out + weight * (plane(0, c2, b2) * plane(1, c2, a) * plane(2, b2, a))
-        return out.reshape(B, F2, C, R).sum(-1).reshape(B, F2 * C).to(torch.bfloat16)
+        return out.reshape(B, F2, C, R).sum(-1).reshape(B, F2 * C).to(compute_dtype)
 
-    def apply_unpadded(self, params, x):
+    def apply_unpadded(self, params, x, *, compute_dtype=COMPUTE_DTYPE):
         idx, w = self.indices(x)
-        return self.combine(ExtGatherFn.apply(self.table(params), idx, self.spec), w)
+        picks = ExtGatherFn.apply(self.table(params), idx, self.spec_for(compute_dtype))
+        return self.combine(picks, w, compute_dtype)
 
 
 class PPNG3Encoding(PPNGBase):
@@ -329,6 +347,16 @@ class PPNG3Encoding(PPNGBase):
             w_cols.append(weight.reshape(B, NL))
         return torch.cat(idx_cols, dim=1).to(torch.int32), torch.cat(w_cols, dim=1)
 
-    def apply_unpadded(self, params, x):
+    def apply_unpadded(self, params, x, *, compute_dtype=COMPUTE_DTYPE):
         idx, cw = self.indices(x)
-        return ExtLookupFn.apply(self.table(params), cw, idx, self.spec)
+        if compute_dtype != torch.float32:
+            return ExtLookupFn.apply(self.table(params), cw, idx, self.spec)
+        # f32: K10's corner rows from the f32 table, summed over the corners
+        # in order in f32 (ppng.py:620-638)
+        B, NL, C = x.shape[0], self.n_levels, self.n_features
+        picks = ExtGatherFn.apply(self.table(params), idx, self.spec_for(compute_dtype))
+        terms = (picks.reshape(B, -1, NL, C) * cw.reshape(B, -1, NL, 1)).unbind(1)
+        out = terms[0]
+        for t in terms[1:]:
+            out = out + t
+        return out.reshape(B, NL * C)

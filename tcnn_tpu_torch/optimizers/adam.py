@@ -64,7 +64,7 @@ class AdamOptimizer(Optimizer):
             "step": torch.zeros((), dtype=torch.int64, device=device),
         }
 
-    def step(self, state, loss_scale, weights, grads) -> None:
+    def step(self, state, loss_scale, weights, grads, lr_scale=1.0) -> None:
         is_matrix = torch.arange(self.n_weights, device=weights.device) < self.n_matrix_weights
         g = grads.float() / loss_scale
 
@@ -83,7 +83,7 @@ class AdamOptimizer(Optimizer):
         state["param_steps"].add_(active)
         t = state["param_steps"].float()
 
-        base_lr = self.base_learning_rate
+        base_lr = self.base_learning_rate * lr_scale
         lr = torch.where(is_matrix, base_lr, base_lr * self.non_matrix_learning_rate_factor)
         lr = lr * torch.sqrt(1 - self.beta2**t) / (1 - self.beta1**t)
 

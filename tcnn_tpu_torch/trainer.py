@@ -18,9 +18,20 @@ True raises for a model the gate does not take.
 
 Inference follows the JAX package's dispatch (trainer.py:418-479): a grid +
 FullyFusedMLP model without Sine and without a max_level clamp runs the
-fused kernel K3; every other model runs `model.apply` (K1, then K2 or the
+fused kernel K3 on the inference params (the optimizer's custom weights
+where it has them), whose prepared operands are cached on the tensors they
+derive from; every other model runs `model.apply` (K1, then K2 or the
 matmul chain). K3's wrapper checks the shared memory its tile and weights
 need and raises when no tile fits.
+
+`compute_dtype` (bf16 by default) sets the loss scale's default
+(`common.default_loss_scale`: 1 at f32) and, at torch.float32, sends
+training and inference down the composed route at f32, K6 and K3 not
+chosen (trainer.py:146-152): on a CUDA tensor a grid + FullyFusedMLP model
+runs K1, K2, K5 and K4 with their bf16 outputs cast to f32, as tcnn_tpu's
+Trainer at f32 runs its Pallas kernels on a TPU; on a CPU tensor the
+grid's plain route and the MLP's f32 matmul chain (`common.plain_route`),
+as tcnn_tpu's runs XLA off a TPU.
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ import json
 import numpy as np
 import torch
 
-from .common import DEFAULT_LOSS_SCALE
+from .common import COMPUTE_DTYPE, default_loss_scale
 from .ops.cuda.train_kernel import (
     fused_forward_prepared,
     fused_plan_for,
@@ -39,7 +50,13 @@ from .ops.cuda.train_kernel import (
     supported,
 )
 from .registry import create_loss
-from .utils.serialization import array_from_json, array_to_json, tree_from_json, tree_to_json
+from .utils.serialization import (
+    array_from_json,
+    array_to_json,
+    tree_from_json,
+    tree_leaves,
+    tree_to_json,
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -57,12 +74,15 @@ def resolve_device(device) -> torch.device:
 
 class Trainer:
     def __init__(self, model, optimizer, loss, seed: int = 1337, device="cuda",
-                 loss_scale: float | None = None, perturbation_sigma: float = 0.0):
+                 loss_scale: float | None = None, perturbation_sigma: float = 0.0,
+                 compute_dtype=COMPUTE_DTYPE):
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss
         self.device = resolve_device(device)
-        self.loss_scale = DEFAULT_LOSS_SCALE if loss_scale is None else float(loss_scale)
+        self.compute_dtype = compute_dtype
+        self.loss_scale = (default_loss_scale(compute_dtype) if loss_scale is None
+                           else float(loss_scale))
         self.perturbation_sigma = float(perturbation_sigma)
         #: None: the fused train kernel when `supported`; True/False force.
         self.use_fused_train_kernel: bool | None = None
@@ -107,7 +127,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def use_fused(self) -> bool:
         """The route of the next step: True for K6, False for autograd."""
-        ok = supported(self.model, self.loss_fn, self.perturbation_sigma)
+        ok = (self.compute_dtype == COMPUTE_DTYPE
+              and supported(self.model, self.loss_fn, self.perturbation_sigma))
         if self.use_fused_train_kernel is True and not ok:
             raise ValueError(
                 f"use_fused_train_kernel=True, but the fused train kernel does not take "
@@ -133,7 +154,7 @@ class Trainer:
                                      self.loss_scale, pdf=pdf, noise=noise)
         p = params.detach().requires_grad_(True)
         with torch.enable_grad():
-            out = self.model.apply(p, inputs)
+            out = self.model.apply(p, inputs, compute_dtype=self.compute_dtype)
             if noise is not None:
                 out = out + noise.to(out.dtype)
             total = self.loss_fn(out, targets, pdf).sum()
@@ -151,7 +172,7 @@ class Trainer:
             return grads
         p = params.detach().requires_grad_(True)
         with torch.enable_grad():
-            out = self.model.apply(p, inputs)
+            out = self.model.apply(p, inputs, compute_dtype=self.compute_dtype)
             (grads,) = torch.autograd.grad(out, p, grad_outputs=dL_doutput.to(out.dtype))
         return grads
 
@@ -186,7 +207,7 @@ class Trainer:
         """Forward and loss values (trainer.h:97-141) through the composed
         `model.apply`, with the output perturbation a step would see."""
         params = self.inference_params if use_inference_params else self.params
-        out = self.model.apply(params, self._input(inputs))
+        out = self.model.apply(params, self._input(inputs), compute_dtype=self.compute_dtype)
         if self.perturbation_sigma > 0:
             out = out + self._noise(out.shape).to(out.dtype)
         if targets is None:
@@ -202,13 +223,19 @@ class Trainer:
     # Inference
     # ------------------------------------------------------------------
     def _prepared(self):
-        """Prepared fused operands, cached on the params tensor's identity
-        and version: an in-place optimizer step, `set_params` or `load`
-        bumps the version and rebuilds them."""
-        p = self.inference_params
+        """Prepared fused operands, cached on the tensors the inference
+        params derive from, each by identity and version: the params and
+        every optimizer-state leaf (tcnn_tpu/trainer.py:440-470). An
+        in-place optimizer step, `set_params` or `load` bumps a version or
+        swaps a tensor and rebuilds them; repeated calls between steps
+        neither rebuild them nor recompute custom weights (EMA, Average and
+        Lookahead return a fresh tensor each call)."""
+        srcs = [self.state["params"]] + tree_leaves(self.state["opt"])
+        key = [(id(t), t._version) for t in srcs]
         cached = self._infer_prepared
-        if cached is None or cached[0] is not p or cached[1] != p._version:
-            cached = (p, p._version, prepare_forward(self.model, p))
+        if cached is None or cached[0] != key:
+            # the tensors stay referenced, so no id is reused while cached
+            cached = (key, srcs, prepare_forward(self.model, self.inference_params))
             self._infer_prepared = cached
         return cached[2]
 
@@ -217,10 +244,11 @@ class Trainer:
         """fp32 output trimmed to n_output_dims (object.h:147-179)."""
         x = self._input(inputs)
         enc = getattr(self.model, "encoding", None)
-        if fused_plan_for(self.model) is not None and enc.max_level is None:
+        if (self.compute_dtype == COMPUTE_DTYPE and fused_plan_for(self.model) is not None
+                and enc.max_level is None):
             y = fused_forward_prepared(self._prepared(), x)
         else:
-            y = self.model.apply(self.inference_params, x)
+            y = self.model.apply(self.inference_params, x, compute_dtype=self.compute_dtype)
         return y[:, : self.model.n_output_dims].float()
 
     # ------------------------------------------------------------------
@@ -265,6 +293,7 @@ class Trainer:
         self.set_params(torch.from_numpy(np.asarray(params, np.float32).copy()))
         if data.get("optimizer") is not None:
             self.state["opt"] = tree_from_json(data["optimizer"]["state"], self.state["opt"])
+            self.optimizer.load_state(self.state["opt"])
 
     def save(self, path: str, serialize_optimizer: bool = True) -> None:
         with open(path, "w") as f:

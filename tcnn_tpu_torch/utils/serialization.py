@@ -2,12 +2,13 @@
 ``tcnn_tpu/utils/serialization.py:17-54``): base64-encoded little-endian
 arrays inside plain JSON, the format both packages' checkpoints use.
 
-Optimizer state is a flat dict of tensors. `tcnn_tpu` stores it with
-`jax.tree_util`, which flattens a dict in sorted-key order and names the
-structure by its treedef string; `tree_to_json`/`tree_from_json` write and
-read the leaves in that order under the same string, so snapshots cross
-between the packages. Integer leaves (step counters) are uint32 in the
-snapshot and int64 on the port's device.
+Optimizer state is a tree of tensors: dicts, and the list Composite keeps
+of its nested states. `tcnn_tpu` stores it with `jax.tree_util`, which
+flattens a dict in sorted-key order and a list in order and names the
+structure by its treedef string; `tree_leaves`, `tree_to_json` and
+`tree_from_json` write and read the leaves in that order under the same
+string, so snapshots cross between the packages. Integer leaves (step
+counters) are uint32 in the snapshot and int64 on the port's device.
 """
 
 from __future__ import annotations
@@ -32,9 +33,28 @@ def array_from_json(obj) -> np.ndarray:
     return np.frombuffer(data, dtype=np.dtype(obj["dtype"])).reshape(obj["shape"])
 
 
-def treedef_string(tree: dict) -> str:
-    """`str(jax.tree_util.tree_structure(tree))` for a flat dict of arrays."""
-    return "PyTreeDef({" + ", ".join(f"'{k}': *" for k in sorted(tree)) + "})"
+def tree_leaves(tree) -> list:
+    """The leaves of a state tree in `jax.tree_util`'s order: a dict's in
+    sorted-key order, a list's in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def _structure(tree) -> str:
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"'{k}': {_structure(tree[k])}" for k in sorted(tree)) + "}"
+    if isinstance(tree, (list, tuple)):
+        return "[" + ", ".join(_structure(v) for v in tree) + "]"
+    return "*"
+
+
+def treedef_string(tree) -> str:
+    """`str(jax.tree_util.tree_structure(tree))` for a tree of dicts and
+    lists of arrays."""
+    return f"PyTreeDef({_structure(tree)})"
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -44,40 +64,56 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().astype(np.uint32)
 
 
-def tree_to_json(tree: dict) -> dict:
-    """A flat dict of tensors in `tcnn_tpu`'s `tree_to_json` format."""
+def tree_to_json(tree) -> dict:
+    """A state tree in `tcnn_tpu`'s `tree_to_json` format."""
     return {
         "treedef": treedef_string(tree),
-        "leaves": [array_to_json(_to_numpy(tree[k])) for k in sorted(tree)],
+        "leaves": [array_to_json(_to_numpy(leaf)) for leaf in tree_leaves(tree)],
     }
 
 
-def tree_from_json(obj, like: dict) -> dict:
-    """A dict with the keys, dtypes, shapes and devices of `like`, from
+def _unflatten(like, leaves):
+    """A tree shaped as `like` of the next items of the iterator `leaves`."""
+    if isinstance(like, dict):
+        out = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: out[k] for k in like}
+    if isinstance(like, (list, tuple)):
+        return [_unflatten(v, leaves) for v in like]
+    return next(leaves)
+
+
+def tree_from_json(obj, like):
+    """A tree with the structure, dtypes, shapes and devices of `like`, from
     leaves serialized by `tree_to_json` here or in `tcnn_tpu`."""
-    keys = sorted(like)
     stored = [array_from_json(o) for o in obj["leaves"]]
-    if len(stored) != len(keys):
-        raise ValueError(f"checkpoint has {len(stored)} leaves, expected {len(keys)}")
+    n = len(tree_leaves(like))
+    if len(stored) != n:
+        raise ValueError(f"checkpoint has {len(stored)} leaves, expected {n}")
     if obj.get("treedef", treedef_string(like)) != treedef_string(like):
         raise ValueError(f"checkpoint state {obj['treedef']} does not match {treedef_string(like)}")
-    return opt_state_from_jax(dict(zip(keys, stored)), like)
+    return opt_state_from_jax(_unflatten(like, iter(stored)), like)
 
 
-def opt_state_from_jax(state: dict, like: dict) -> dict:
+def opt_state_from_jax(state, like):
     """The port's optimizer state from a `tcnn_tpu` state passed as numpy
-    arrays (`{k: np.asarray(v) for k, v in trainer.state["opt"].items()}`),
-    shaped, typed and placed like `like` (the port's `init_state()`)."""
-    if sorted(state) != sorted(like):
-        raise ValueError(f"state keys {sorted(state)} do not match {sorted(like)}")
-    out = {}
-    for k, ref in like.items():
-        arr = np.asarray(state[k])
-        if arr.size != ref.numel():
-            raise ValueError(f"{k}: expected {ref.numel()} values, got {arr.size}")
-        arr = arr.astype(np.float32 if ref.dtype.is_floating_point else np.int64)
-        out[k] = torch.from_numpy(arr.reshape(tuple(ref.shape))).to(ref.device)
-    return out
+    arrays (`jax.tree_util.tree_map(np.asarray, trainer.state["opt"])`),
+    shaped, typed and placed like `like` (the port's `init_state()`). An
+    optimizer that keeps step counts on the host re-reads them with
+    `optimizer.load_state` (the Trainer's `deserialize` does)."""
+    if isinstance(like, dict):
+        if not isinstance(state, dict) or sorted(state) != sorted(like):
+            got = sorted(state) if isinstance(state, dict) else type(state).__name__
+            raise ValueError(f"state keys {got} do not match {sorted(like)}")
+        return {k: opt_state_from_jax(state[k], ref) for k, ref in like.items()}
+    if isinstance(like, (list, tuple)):
+        if not isinstance(state, (list, tuple)) or len(state) != len(like):
+            raise ValueError(f"expected a list of {len(like)} nested states")
+        return [opt_state_from_jax(s, ref) for s, ref in zip(state, like)]
+    arr = np.asarray(state)
+    if arr.size != like.numel():
+        raise ValueError(f"expected {like.numel()} values, got {arr.size}")
+    arr = arr.astype(np.float32 if like.dtype.is_floating_point else np.int64)
+    return torch.from_numpy(arr.reshape(tuple(like.shape))).to(like.device)
 
 
 def params_from_jax(arr: np.ndarray, n_params: int) -> torch.Tensor:

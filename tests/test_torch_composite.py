@@ -110,7 +110,8 @@ def test_dims_to_encode_rules():
 
 def test_nested_encodings_get_contiguous_slices():
     """The kernels refuse a strided x on the card, so each nested encoding
-    gets its slice contiguous, and a grid nested last gets needs_input_grad."""
+    gets its slice contiguous, and a grid nested last gets needs_input_grad;
+    each gets the compute dtype."""
     te = tt.create_encoding(6, SH_GRID)
     seen = []
     for enc in te.nested:
@@ -123,7 +124,8 @@ def test_nested_encodings_get_contiguous_slices():
         enc.apply = spy
     p = te.init_params(torch.Generator().manual_seed(0))
     te.apply(p, torch.rand(10, 6, requires_grad=True), needs_input_grad=True)
-    assert seen == [(True, (10, 3), {}), (True, (10, 3), {"needs_input_grad": True})]
+    bf16 = {"compute_dtype": torch.bfloat16}
+    assert seen == [(True, (10, 3), bf16), (True, (10, 3), {"needs_input_grad": True, **bf16})]
 
 
 @pytest.mark.parametrize("otype", ["NRC", "OneBlobFrequency"])

@@ -175,11 +175,27 @@ def test_third_order_raises():
 ])
 def test_uncovered_input_gradients_raise(cfg, max_level, why):
     """The cases the JAX package sends to its XLA autodiff route
-    (grid.py:316-356) have no kernel in the port yet."""
-    te = tt.create_encoding(2, cfg)
-    params = torch.zeros(te.n_params, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=f"{why}.*item 7b"):
-        te.apply(params, torch.rand(8, 2), max_level=max_level, needs_input_grad=True)
+    (grid.py:316-356) no longer raise: they take the port's plain route,
+    whose value and dL/dx equal tcnn_tpu's XLA route (bf16 output bit for
+    bit; dL/dx at rtol 1e-5; tests/test_torch_grid_route.py holds the rest)
+    and launch no input-gradient kernel."""
+    je, te = tc.create_encoding(2, cfg), tt.create_encoding(2, cfg)
+    rng = np.random.default_rng(len(why))
+    p = rng.uniform(-1, 1, te.n_params).astype(np.float32)
+    x = rng.uniform(0, 1, (8, 2)).astype(np.float32)
+    gy = rng.normal(size=(8, te.n_output_dims)).astype(np.float32)
+    y, vjp = jax.vjp(lambda xx: je.apply_unpadded(jnp.asarray(p), xx, max_level=max_level,
+                                                  needs_input_grad=True).astype(jnp.float32),
+                     jnp.asarray(x))
+    params = torch.from_numpy(p).requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    before = (grid_kernel.IG_LAUNCHES, grid_kernel.BWDBWD_LAUNCHES)
+    yt = te.apply_unpadded(params, xt, max_level=max_level, needs_input_grad=True)
+    (gx,) = torch.autograd.grad(yt.float(), xt, torch.from_numpy(gy))
+    assert (grid_kernel.IG_LAUNCHES, grid_kernel.BWDBWD_LAUNCHES) == before
+    np.testing.assert_array_equal(yt.float().detach().numpy(), np.asarray(y))
+    np.testing.assert_allclose(gx.numpy(), np.asarray(vjp(jnp.asarray(gy))[0]), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_fast_input_grads_is_parsed_as_in_jax():

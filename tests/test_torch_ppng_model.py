@@ -225,7 +225,7 @@ def test_input_gradients_of_an_encoding_without_needs_input_grad():
         def init_params(self, generator):
             return torch.ones(1)
 
-        def apply_unpadded(self, params, x):
+        def apply_unpadded(self, params, x, **_):
             return (x * params).to(torch.bfloat16)
 
         def hyperparams(self):

@@ -232,8 +232,16 @@ def test_stochastic_backward_launches_nothing_on_cpu_and_refuses_input_gradients
     params = torch.zeros(te.n_params, requires_grad=True)
     te.apply(params, torch.rand(20, 2)).float().sum().backward()
     assert grid_kernel.BWD_LAUNCHES == before and params.grad.abs().sum() > 0
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        te.apply(params, torch.rand(8, 2, requires_grad=True), needs_input_grad=True)
+    # input gradients take the plain route: dL/dx through the exact
+    # interpolation (tests/test_torch_grid_route.py holds it against tcnn_tpu)
+    x8 = torch.rand(8, 2, requires_grad=True)
+    table = torch.rand(te.n_params) * 2 - 1
+    (gx,) = torch.autograd.grad(te.apply(table, x8, needs_input_grad=True).float().sum(), x8)
+    xe = x8.detach().requires_grad_(True)
+    (want,) = torch.autograd.grad(te.interpolate_f32(table, xe).sum(), xe)
+    assert gx.abs().sum() > 0
+    torch.testing.assert_close(gx, want)
+    assert grid_kernel.BWD_LAUNCHES == before
     table = torch.zeros(te.plan.total_rows, te.plan.f, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="stochastic"):
         grid_kernel.grid_backward_ig(te.plan, table, torch.rand(8, 2),
