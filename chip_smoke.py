@@ -155,15 +155,32 @@ Phases, each printing JSON lines:
      sample's HashGrid with max_level 0.5, with "fast_input_grads" false
      and with stochastic interpolation, N_ROUTE_STEPS steps each (counters:
      K1, K2, K5, K4 a step on the data term; no K3, K7, K8 or K9 on the
-     eikonal term's plain route), its eikonal gradient against the CPU
-     model's at f32 and at bf16; (e) config_hash's Trainer at
-     compute_dtype f32, N_F32_STEPS steps through K1, K2, K5 and K4 once a
-     step (their bf16 outputs cast to f32, as tcnn_tpu keeps its Pallas
-     kernels at f32 on a TPU) with the loss falling, a step's gradient
+     eikonal term's plain route), the loss falling under ROUTE_LOSS_FALL,
+     its eikonal gradient against the CPU model's at f32 and at bf16; (e)
+     config_hash's Trainer at compute_dtype f32, N_F32_STEPS steps through
+     K1, K2, K5 and K4 once a step (their bf16 outputs cast to f32, as
+     tcnn_tpu keeps its Pallas kernels at f32 on a TPU) with the loss
+     falling, a step's gradient
      against the CPU twins' beside the CPU's f32 plain route; times of the
-     optimizer steps alone and of a step of each path.
+     optimizer steps alone and of a step of each path;
+ 18. data parallel, the native host runtime and profiling: (a) two ranks
+     (gloo, both on the card) run config_hash through
+     `tcnn_tpu_torch.parallel.DataParallelTrainer` at the global batch
+     B = 2^18: N_DP_STEPS fused steps (K6 on each rank's 2^17 rows, then
+     the all-reduce), a `step_external`, a composed step (K1 K2 K5 K4) and
+     a `trainer.inference` request (K3), by each rank's counters; the
+     ranks' params bit-equal after each stage and within DP_REL of the same
+     run on one process; a 1-rank NCCL group's steps; `dryrun_multichip(2)`
+     (config_hash under EMA(Adam), PPNG3); (b) the native host runtime
+     built by g++, its streams bit-equal to the numpy fallback (uniform,
+     logistic, next_uint, advance, image_batch), the image sample's
+     `--native-pipeline` batches training N_NATIVE_STEPS steps through K6,
+     the loss falling under NATIVE_LOSS_FALL, and its step (host batch and
+     copy included) timed beside the device-sampled one; (c) `StepTimer`
+     over N_TIMER_STEPS K6 steps against CUDA events within TIMER_REL, and
+     `trace` writing a file that names K6's kernel.
 Then a line with every kernel and option (its launches on the main path,
-error against its twin, time, twin's time, bound, what bounds it and its
+phase 18's ranks and processes counted in, error against its twin, time, twin's time, bound, what bounds it and its
 yardstick's time; K1's, K2's, K3's, K5's, K6's and K9's entries,
 redesigned for Hopper, say so),
 the `nvidia-smi` line, and as the last line
@@ -560,6 +577,13 @@ ROUTE_BF16_REL = 3e-2
 ROUTE_VARIANTS = {"max_level 0.5": ({}, 0.5),
                   "fast_input_grads false": ({"fast_input_grads": False}, None),
                   "stochastic": ({"stochastic_interpolation": True}, None)}
+#: (d)'s least loss fall (first step's loss over the last ten's mean) in
+#: N_ROUTE_STEPS steps, by variant, set before its first card run at about
+#: 70% of the least of four CPU draws (scripts/rehearse_optimizers_slice.py
+#: `limits 18 route`): max_level 0.5 read 2.38-3.38x, fast_input_grads
+#: false 1.71-2.10x, stochastic 1.98-2.51x. A model that does not train
+#: reads about 1x.
+ROUTE_LOSS_FALL = {"max_level 0.5": 1.6, "fast_input_grads false": 1.2, "stochastic": 1.4}
 #: (e): one f32 step's params gradient on the card (K1 K2 K5 K4) against
 #: the CPU twins' on the same route, as phase 16 holds the Composite's
 #: composed step (it read 4.0e-7 / 2.6e-5 there): K5's gx bound (1e-3 at
@@ -567,6 +591,42 @@ ROUTE_VARIANTS = {"max_level 0.5": ({}, 0.5),
 #: f32 plain route (no bf16 rounding), reads 5.6e-3 to 7.6e-3 against the
 #: twins on tests/test_torch_compute_dtype.py's small models.
 F32_GRAD_REL = {"weights": 1e-4, "table": 1e-3}
+#: Phase 18 (a): ranks (gloo, all on the one card) and fused steps of the
+#: data-parallel run at the global batch B_MAIN; the 1-rank NCCL group's
+#: steps.
+N_DP_RANKS = 2
+N_DP_STEPS = 10
+N_NCCL_STEPS = 3
+NCCL_BACKEND = "nccl"
+#: (a): the ranks' params against one process's after the same steps at the
+#: same global batch, norm-relative per part, and the losses. The sums differ
+#: in order (each rank's shard, then the all-reduce) and, on the card, in
+#: K6's atomics; Adam's first steps are about lr * sign(g), so a gradient
+#: sum near 0 that flips its sign moves a param by 2 lr. Set before the
+#: first card run at about 10x the largest of four CPU draws
+#: (scripts/rehearse_parallel_slice.py `limits 4 dp`): weights 4.6e-8 to
+#: 7.8e-6, table 1.1e-7 to 1.8e-4 (two draws with flips, two without),
+#: losses 1.2e-7 to 1.4e-6. Control: the first rank's rows alone, with no
+#: all-reduce (FirstShardOnly), must break them.
+DP_REL = {"weights": 1e-4, "table": 2e-3}
+DP_LOSS_RTOL = 2e-5
+#: (a): the first step's reduced gradient against one process's, from the
+#: same params: each sample's contribution is the same bits (the shard's
+#: loss normalisation is twice the global one, exactly), so only the order
+#: of the sums differs.
+DP_GRAD_REL = {"weights": 1e-5, "table": 1e-5}
+#: (b): the streams compared, and the native pipeline's steps and least loss
+#: fall (phase 5's limit for the device-sampled batches in 100 steps; the
+#: native stream draws the same uniform coordinates), and the steps each
+#: pipeline is timed over, in turns.
+NATIVE_N = 4096
+N_NATIVE_STEPS = 100
+NATIVE_LOSS_FALL = LOSS_FALL
+N_PIPELINE_STEPS = 20
+#: (c): StepTimer against CUDA events over N_TIMER_STEPS steps; the traced steps.
+N_TIMER_STEPS = 50
+TIMER_REL = 0.1
+N_TRACE_STEPS = 5
 
 
 def emit(obj) -> None:
@@ -3282,28 +3342,35 @@ def eikonal_param_grad(net, params, xe, compute_dtype):
     return grad
 
 
+def route_model(variant, seed, device):
+    """The SDF sample's HashGrid model in the ROUTE_VARIANTS `variant`."""
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    keys, max_level = ROUTE_VARIANTS[variant]
+    scfg = sdf.config("HashGrid")
+    scfg["encoding"].update(keys)
+    model = tt.create_from_config(3, 1, scfg, seed=seed, device=device)
+    model.network.encoding.update_hyperparams({"max_level": max_level})
+    return model
+
+
 def route_slice(dev):
     """(d): the SDF sample's HashGrid (T = 2^17) in each ROUTE_VARIANTS
     variant, N_ROUTE_STEPS steps of the sample's train_step at B_SDF: the
     data term through K1, K2, K5 and K4, the eikonal term through the plain
     route and the matmul chain (no K3, K7, K8 or K9), by the counters; the
-    eikonal term's gradient against the CPU model's at bf16 and at f32.
-    Returns (launches summed over the variants, {variant: ms per step})."""
+    loss falling under ROUTE_LOSS_FALL; the eikonal term's gradient against
+    the CPU model's at bf16 and at f32. Returns (launches summed over the
+    variants, {variant: ms per step})."""
     import torch
-    import tcnn_tpu_torch as tt
     from tcnn_tpu_torch.ops.cuda import train_kernel
     from tcnn_tpu_torch.samples import learn_a_sdf as sdf
 
     total, step_ms = dict.fromkeys(counters(), 0), {}
     rgen = torch.Generator(device=dev).manual_seed(SEED + 65)
-    for i, (variant, (keys, max_level)) in enumerate(ROUTE_VARIANTS.items()):
-        scfg = sdf.config("HashGrid")
-        scfg["encoding"].update(keys)
-        models = [tt.create_from_config(3, 1, scfg, seed=SEED + 66 + i, device=d)
-                  for d in (dev, "cpu")]
-        for m in models:
-            m.network.encoding.update_hyperparams({"max_level": max_level})
-        model, cpu = models
+    for i, variant in enumerate(ROUTE_VARIANTS):
+        model, cpu = (route_model(variant, SEED + 66 + i, d) for d in (dev, "cpu"))
         tr, net = model.trainer, model.network
         check(not train_kernel.supported_ig(net), f"{variant}: K9 must not take the eikonal term")
         batches = [torch.rand(B_SDF, 3, generator=rgen, device=dev) for _ in range(N_ROUTE_STEPS)]
@@ -3314,14 +3381,16 @@ def route_slice(dev):
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t0
         launched = counters()
-        check(bool(torch.isfinite(losses).all()), f"{variant}: SDF loss not finite")
+        report = loss_report(variant, losses, ROUTE_LOSS_FALL[variant])
         per_step = {"K1": 1, "K2": 1, "K4": 1, "K5": 1}
         emit({"phase": "route slice", "variant": variant, "steps": N_ROUTE_STEPS, "B": B_SDF,
               "eikonal_points": sdf.N_EIKONAL, "launches": launched,
-              "launches_per_step_expected": per_step, "loss_first": float(losses[0]),
-              "loss_last": float(losses[-1]), "loop_seconds": loop_s})
+              "launches_per_step_expected": per_step, **report, "loss_last": float(losses[-1]),
+              "loop_seconds": loop_s})
         check(all(v == per_step.get(k, 0) * N_ROUTE_STEPS for k, v in launched.items()),
               f"{variant}: the steps did not run K1, K2, K5 and K4 alone, once each: {launched}")
+        check(report["loss_fall"] >= ROUTE_LOSS_FALL[variant],
+              f"{variant}: the SDF loss fell only {report['loss_fall']}x")
         for k, v in launched.items():
             total[k] += v
         xe = batches[-1][: sdf.N_EIKONAL]
@@ -3419,6 +3488,367 @@ def optimizers_slice(cfg, dev, smi, batch):
     launches = {k: v + f32_launches[k] for k, v in route_launches.items()}
     launches["K6"] += chain_launches["K6"] + shampoo_launches["K6"]
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: data parallel (A9), the native host runtime (A10), profiling
+# ---------------------------------------------------------------------------
+
+
+def sync(dev) -> None:
+    """Wait for `dev`'s work (a CUDA device; nothing to wait for on the CPU,
+    where scripts/rehearse_parallel_slice.py runs this phase)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_run(cfg, dev, dp_of=None, steps=N_DP_STEPS, batch=B_MAIN, seed=SEED + 80):
+    """(a)'s run on one process: config_hash (seed `seed`) takes `steps`
+    fused steps on the global batch `batch`, one external-
+    gradient step and one composed-route step, then serves one
+    `trainer.inference` request; through `dp_of(trainer)` (a
+    DataParallelTrainer: this rank's shard, the all-reduce) or, with None,
+    the plain Trainer. Every process draws the same batches. Returns numpy
+    results: the losses, the params and the launches after each stage, the
+    inference output and the fused loop's seconds."""
+    import numpy as np
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.utils.image import sample_image, synthetic_image
+
+    tr = tt.create_from_config(2, 3, cfg, seed=seed, device=dev).trainer
+    dp = None if dp_of is None else dp_of(tr)
+    state = tr.state if dp is None else dp.replicate(tr.state)
+    image = synthetic_image(1024, 1024, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    batches = []
+    for _ in range(steps + 2):
+        x = torch.rand(batch, 2, generator=gen, device=dev)
+        batches.append((x, sample_image(image, x)))
+    out = {"grad": (tr.loss_and_grad_fn(tr.params, *batches[0]) if dp is None
+                    else dp.loss_and_grad(tr.params, *batches[0]))[1].cpu().numpy()}
+
+    def stage(name, fn):
+        sync(dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        result = fn()
+        sync(dev)
+        out[f"{name} seconds"] = time.perf_counter() - t0
+        out[f"{name} launches"] = counters()
+        out[f"{name} params"] = state["params"].cpu().numpy().copy()
+        return result
+
+    def fused():
+        if dp is None:
+            return [tr.training_step(x, t) for x, t in batches[:steps]]
+        return [dp.step(state, x, t)[1] for x, t in batches[:steps]]
+
+    out["fused losses"] = torch.stack(stage("fused", fused)).cpu().numpy()
+    x, t = batches[steps]
+    dl = torch.zeros(batch, tr.model.padded_output_width, device=dev)
+    dl[:, :3] = -2.0 * t / t.numel()  # an L2 loss's dL/doutput at a zero prediction
+    stage("external", lambda: tr.training_step(x, dL_doutput=dl) if dp is None
+          else dp.step_external(state, x, dl))
+    tr.use_fused_train_kernel = False
+    x, t = batches[steps + 1]
+    stage("composed", lambda: tr.training_step(x, t) if dp is None else dp.step(state, x, t))
+    out["inference"] = stage("inference", lambda: tr.inference(x[:4096])).cpu().numpy()
+    return out
+
+
+def dp_rank(rank, n_ranks, address, cfg, device, batch, steps, seed, results):
+    """One rank of (a): gloo, every rank on the first card (NCCL refuses
+    two ranks on one device); puts (rank, dp_run's results) or (rank, the
+    error) on `results`."""
+    try:
+        import torch
+        import torch.distributed as dist
+        from tcnn_tpu_torch.parallel import DataParallelTrainer, create_mesh, init_distributed
+
+        init_distributed(address, n_ranks, rank, local_device_ids=[0], backend="gloo")
+        dev = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+        out = dp_run(cfg, dev, lambda tr: DataParallelTrainer(tr, create_mesh()), steps, batch,
+                     seed)
+        dist.destroy_process_group()
+        results.put((rank, out))
+    except BaseException as e:  # reported to the parent, which raises
+        results.put((rank, f"{type(e).__name__}: {e}"))
+        raise
+
+
+class FirstShardOnly:
+    """DataParallelTrainer's interface without the all-reduce: the first
+    rank's rows alone, on one process. Its params are DP_REL's control."""
+
+    def __init__(self, trainer):
+        self.tr = trainer
+
+    def _rows(self, a):
+        return a[: a.shape[0] // N_DP_RANKS]
+
+    def replicate(self, state):
+        return state
+
+    def loss_and_grad(self, params, x, t):
+        return self.tr.loss_and_grad_fn(params, self._rows(x), self._rows(t))
+
+    def step(self, state, x, t):
+        return state, self.tr.training_step(self._rows(x), self._rows(t))
+
+    def step_external(self, state, x, dl):
+        self.tr.training_step(self._rows(x), dL_doutput=self._rows(dl))
+        return state
+
+
+def dp_compare(name, got, want, n_net, bounds=None):
+    """A data-parallel run's params against the single process's (stage
+    `name`): norm-relative per part under DP_REL."""
+    import torch
+
+    return compare_norm(f"data parallel {name} vs one process", torch.from_numpy(got),
+                        torch.from_numpy(want), bounds or DP_REL, n_net)
+
+
+def parallel_slice(cfg, dev, smi):
+    """(a): N_DP_RANKS gloo ranks on the card run dp_run through
+    DataParallelTrainer; their params bit-equal after each stage and within
+    DP_REL of the same run on one process; K6 launched on each rank (K1 K2
+    K5 K4 on the composed step, K3 on the request); a 1-rank NCCL group's
+    N_NCCL_STEPS steps against one process; then dryrun_multichip. Returns
+    the launches of the phase's runs, summed over ranks and runs."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.parallel import (DataParallelTrainer, create_mesh, dryrun_multichip,
+                                         init_distributed)
+    from tcnn_tpu_torch.parallel.data_parallel import spawn_ranks
+
+    t0 = time.perf_counter()
+    n_net = tt.create_network_with_input_encoding(2, 3, cfg["encoding"], cfg["network"]) \
+        .network.n_params
+    ranks = spawn_ranks(dp_rank, N_DP_RANKS,
+                        (cfg, torch.device(dev).type, B_MAIN, N_DP_STEPS, SEED + 80))
+    spawn_s = time.perf_counter() - t0
+    single = dp_run(cfg, dev, steps=N_DP_STEPS, batch=B_MAIN)
+    total = dict.fromkeys(counters(), 0)
+    stages = {"fused": {"K6": N_DP_STEPS}, "external": {"K6": 1},
+              "composed": {"K1": 1, "K2": 1, "K4": 1, "K5": 1}, "inference": {"K3": 1}}
+    for r, out in enumerate(ranks):
+        emit({"phase": "data parallel rank", "rank": r, "ranks": N_DP_RANKS, "B": B_MAIN,
+              "rows_a_rank": B_MAIN // N_DP_RANKS, "steps": N_DP_STEPS,
+              "losses": out["fused losses"].tolist(),
+              "launches": {k: out[f"{k} launches"] for k in stages},
+              "fused_ms_a_step": out["fused seconds"] * 1e3 / N_DP_STEPS})
+        for stage, want in stages.items():
+            got = out[f"{stage} launches"]
+            check(all(v == want.get(k, 0) for k, v in got.items()),
+                  f"rank {r}'s {stage} stage launched {got}, not {want}")
+            for k, v in got.items():
+                total[k] += v
+    first = dp_run(cfg, dev, FirstShardOnly, steps=N_DP_STEPS, batch=B_MAIN)
+    same = all(np.array_equal(o["grad"].view(np.uint32), ranks[0]["grad"].view(np.uint32))
+               for o in ranks)
+    check(same, "the ranks' reduced gradients differ")
+    dp_compare("reduced gradient", ranks[0]["grad"], single["grad"], n_net, DP_GRAD_REL)
+    control("data parallel reduced gradient, the first rank's rows alone",
+            torch.from_numpy(first["grad"]), torch.from_numpy(single["grad"]), DP_GRAD_REL, n_net)
+    for stage in ("fused", "external", "composed"):
+        key = f"{stage} params"
+        same = all(np.array_equal(o[key].view(np.uint32), ranks[0][key].view(np.uint32))
+                   for o in ranks)
+        emit({"phase": "data parallel ranks bit-equal", "stage": stage, "ok": same})
+        check(same, f"the ranks' params differ after the {stage} stage")
+        dp_compare(f"{stage} params", ranks[0][key], single[key], n_net)
+        control(f"data parallel {stage} params, the first rank's rows alone",
+                torch.from_numpy(first[key]), torch.from_numpy(single[key]), DP_REL, n_net)
+    same = all(np.array_equal(o["fused losses"], ranks[0]["fused losses"]) for o in ranks)
+    check(same and np.array_equal(ranks[0]["inference"], ranks[1]["inference"]),
+          "the ranks' losses or inference outputs differ")
+    loss_rel = float(np.abs(ranks[0]["fused losses"] / single["fused losses"] - 1).max())
+    emit({"phase": "data parallel losses vs one process", "losses": ranks[0]["fused losses"].tolist(),
+          "one_process": single["fused losses"].tolist(), "max_rel": loss_rel, "limit": DP_LOSS_RTOL})
+    check(loss_rel <= DP_LOSS_RTOL, f"data-parallel losses {loss_rel} off one process's")
+    for stage in stages:
+        for k, v in single[f"{stage} launches"].items():
+            total[k] += v
+
+    # a 1-rank NCCL group in this process
+    rank_world = init_distributed(f"localhost:{free_port()}", 1, 0, backend=NCCL_BACKEND)
+    try:
+        check(rank_world == (0, 1) and dist.get_backend() == NCCL_BACKEND, "the NCCL group")
+        nccl = dp_run(cfg, dev, lambda tr: DataParallelTrainer(tr, create_mesh()),
+                      steps=N_NCCL_STEPS, batch=B_MAIN)
+    finally:
+        dist.destroy_process_group()
+    one = dp_run(cfg, dev, steps=N_NCCL_STEPS, batch=B_MAIN)
+    check(nccl["fused launches"]["K6"] == N_NCCL_STEPS, "the NCCL group's steps did not run K6")
+    dp_compare("NCCL 1 rank params", nccl["fused params"], one["fused params"], n_net)
+    for run in (nccl, one):
+        for stage in stages:
+            for k, v in run[f"{stage} launches"].items():
+                total[k] += v
+
+    t1 = time.perf_counter()
+    dry = dryrun_multichip(N_DP_RANKS, device=torch.device(dev).type)
+    for out in dry:
+        check(out["launches"]["K6"] > 0 and out["launches"]["K12"] > 0
+              and out["launches"]["K13"] > 0, f"the dry run did not run K6, K12, K13: "
+              f"{out['launches']}")
+        for k, v in out["launches"].items():
+            total[k] += v
+    emit({"phase": "times data parallel", "card": smi, "ranks": N_DP_RANKS, "B": B_MAIN,
+          "spawn_and_run_seconds": spawn_s, "dryrun_seconds": time.perf_counter() - t1,
+          "fused_ms_a_step": {"one process": single["fused seconds"] * 1e3 / N_DP_STEPS,
+                              **{f"rank {r}": o["fused seconds"] * 1e3 / N_DP_STEPS
+                                 for r, o in enumerate(ranks)}},
+          "note": "ranks share one card: no multi-GPU speed"})
+    return total
+
+
+def native_slice(cfg, dev, smi):
+    """(b): the native library built and its streams bit-equal to the numpy
+    fallback at NATIVE_N; the image sample's native pipeline trains
+    N_NATIVE_STEPS steps through K6 alone, the loss falling under
+    NATIVE_LOSS_FALL; its step (host batch and copy included) timed beside
+    the device-sampled step. Returns (launches, the trained trainer)."""
+    import numpy as np
+    import torch
+    from tcnn_tpu_torch import native
+    from tcnn_tpu_torch.samples import mlp_learning_an_image as sample
+    from tcnn_tpu_torch.utils.image import synthetic_image
+    from tcnn_tpu_torch.utils.profiling import StepTimer
+
+    t0 = time.perf_counter()
+    a = native.HostRng(1337, use_native=True)
+    build_s = time.perf_counter() - t0
+    b = native.HostRng(1337, use_native=False)
+    image = synthetic_image(1024, 1024, device="cpu")
+    host_image = image.numpy()
+    bits = lambda v: np.asarray(v, np.float32).view(np.uint32)  # noqa: E731
+    same = {"seed": a.state == b.state,
+            "uniform": np.array_equal(bits(a.uniform(NATIVE_N)), bits(b.uniform(NATIVE_N))),
+            "logistic": np.array_equal(bits(a.logistic(NATIVE_N, 0.5, 0.1)),
+                                       bits(b.logistic(NATIVE_N, 0.5, 0.1))),
+            "next_uint": [a.next_uint() for _ in range(16)] == [b.next_uint() for _ in range(16)]}
+    a.advance(NATIVE_N * 3 + 5)
+    b.advance(NATIVE_N * 3 + 5)
+    same["advance"] = a.state == b.state and a.next_uint() == b.next_uint()
+    batches = [r.image_batch(host_image, NATIVE_N) for r in (a, b)]
+    same["image_batch"] = all(np.array_equal(bits(p), bits(q)) for p, q in zip(*batches))
+    same["state after"] = a.state == b.state
+    emit({"phase": "native streams", "n": NATIVE_N, "build_seconds": build_s,
+          "bit_equal": same})
+    check(all(same.values()), f"the native streams differ from the fallback: {same}")
+
+    reset_counters()
+    model, losses = sample.train(cfg, image, N_NATIVE_STEPS, device=dev, log=None,
+                                 pipeline=sample.native_batches)
+    sync(dev)
+    launched = counters()
+    report = loss_report("native pipeline", losses, NATIVE_LOSS_FALL)
+    emit({"phase": "native pipeline", "steps": N_NATIVE_STEPS, "B": B_MAIN, "launches": launched,
+          **report})
+    check(launched["K6"] == N_NATIVE_STEPS and all(v == 0 for k, v in launched.items()
+                                                    if k != "K6"),
+          f"the native pipeline's steps did not run K6 alone: {launched}")
+    check(report["loss_fall"] >= NATIVE_LOSS_FALL,
+          f"the native pipeline's loss fell only {report['loss_fall']}x")
+
+    tr = model.trainer
+    feeds = {name: fn(image, B_MAIN, tr.device) for name, fn in
+             (("native", sample.native_batches), ("device", sample.device_batches))}
+    times = {name: [] for name in feeds}
+    for name in ("native", "device", "device", "native"):
+        for _ in range(2):  # warm
+            tr.training_step(*next(feeds[name]))
+        sync(dev)
+        timer = StepTimer(B_MAIN)
+        for _ in range(N_PIPELINE_STEPS):
+            timer.step(tr.training_step(*next(feeds[name])))
+        times[name].append(timer.seconds() * 1e3 / N_PIPELINE_STEPS)
+    rng = native.HostRng(1337, use_native=True)
+    t0 = time.perf_counter()
+    for _ in range(N_PIPELINE_STEPS):
+        xy, rgb = rng.image_batch(host_image, B_MAIN)
+    host_ms = (time.perf_counter() - t0) * 1e3 / N_PIPELINE_STEPS
+    pinned = torch.from_numpy(xy).pin_memory() if torch.device(dev).type == "cuda" else None
+    copy_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), 20) if pinned is not None else 0.0
+    emit({"phase": "times native pipeline", "card": smi, "B": B_MAIN,
+          "training_step_ms": {f"{k} batches": v for k, v in times.items()},
+          "host_image_batch_ms": host_ms, "xy_copy_ms": copy_ms,
+          "note": "wall ms a step, the batch's draw and copy included, in turns"})
+    return launched, tr
+
+
+def profiling_slice(tr, dev, smi):
+    """(c): StepTimer over N_TIMER_STEPS K6 steps against CUDA events
+    around the same steps, within TIMER_REL; `trace` over N_TRACE_STEPS
+    steps writes a file that names K6's kernel. Returns the launches."""
+    import torch
+    from tcnn_tpu_torch.samples import mlp_learning_an_image as sample
+    from tcnn_tpu_torch.utils.profiling import StepTimer, trace
+
+    x, t = next(sample.device_batches(torch.rand(64, 64, 3), B_MAIN, tr.device))
+    tr.training_step(x, t)
+    sync(dev)
+    reset_counters()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    timer = StepTimer(B_MAIN)
+    start.record()
+    for _ in range(N_TIMER_STEPS):
+        timer.step(tr.training_step(x, t))
+    end.record()
+    timer_ms = 1e3 / timer.steps_per_sec
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end) / N_TIMER_STEPS
+    rel = abs(timer_ms - event_ms) / event_ms if event_ms > 0 else float("inf")
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            for _ in range(N_TRACE_STEPS):
+                tr.training_step(x, t)
+            sync(dev)
+        files = list(pathlib.Path(tmp).glob("*.pt.trace.json"))
+        text = files[0].read_text() if len(files) == 1 else ""
+    k6_events = sum(1 for e in prof.events() if "fused_train_kernel" in e.name)
+    launched = counters()
+    emit({"phase": "profiling", "card": smi, "steps": N_TIMER_STEPS, "step_timer_ms": timer_ms,
+          "cuda_event_ms": event_ms, "rel": rel, "limit": TIMER_REL,
+          "samples_per_sec": timer.samples_per_sec, "trace_files": len(files),
+          "trace_bytes": len(text), "trace_names_k6": "fused_train_kernel" in text,
+          "k6_events": k6_events, "launches": launched})
+    check(rel <= TIMER_REL, f"StepTimer {timer_ms} ms vs CUDA events {event_ms} ms")
+    # the profiler may miss a launch (one of five in one card run): the trace
+    # must name K6's kernel, and the counters hold every launch
+    check("fused_train_kernel" in text and k6_events >= 1,
+          "the trace does not name K6's kernel")
+    check(launched["K6"] == N_TIMER_STEPS + N_TRACE_STEPS, f"profiled steps: {launched}")
+    return launched
+
+
+def parallel_native_slice(cfg, dev, smi):
+    """Phase 18: (a) parallel_slice, (b) native_slice, (c)
+    profiling_slice. Returns the launches of its runs, summed."""
+    t0 = time.perf_counter()
+    total = parallel_slice(cfg, dev, smi)
+    native_launches, tr = native_slice(cfg, dev, smi)
+    prof_launches = profiling_slice(tr, dev, smi)
+    for part in (native_launches, prof_launches):
+        for k, v in part.items():
+            total[k] += v
+    emit({"phase": "phase 18", "launches": total, "phase_seconds": time.perf_counter() - t0})
+    return total
 
 
 def main() -> int:
@@ -3870,6 +4300,10 @@ def main() -> int:
     #     NeRF chain, (b) one step of every otype against the CPU, (c)
     #     Shampoo, (d) the SDF grid's A2 cases, (e) config_hash at f32
     opt_launches17 = optimizers_slice(cfg, dev, smi, batch)
+    # 18. data parallel (a: two gloo ranks on the card, a 1-rank NCCL group,
+    #     dryrun_multichip), the native host runtime (b: its streams, the
+    #     image sample's native pipeline) and profiling (c: StepTimer, trace)
+    launches18 = parallel_native_slice(cfg, dev, smi)
     emit({"phase": "modules launches", "oneblob_steps": oneblob_launches,
           "modules_demo": {k: v for k, v in modules_demo.items() if v},
           "modules_steps": {k: v for k, v in modules_launches.items() if v},
@@ -3910,12 +4344,15 @@ def main() -> int:
     # K10 and K11 at PPNG2's defaults, of K12 and K13 at PPNG3's (K13's
     # table half, as the data term launches it, beside index_add_)
     # phase 17's K6 steps (the chain, Shampoo), A2's data terms and the f32
-    # steps (K1, K2, K5, K4) added
-    path_launches = {**{k: launches[k] + opt_launches17[k] for k in ("K1", "K2", "K3")},
-                     **{k: composed_launches[k] + opt_launches17[k] for k in ("K4", "K5")},
-                     "K6": train_launches["K6"] + opt_launches17["K6"],
+    # steps (K1, K2, K5, K4) added; phase 18's on every rank and process
+    # (K6 steps, the composed steps, inference, the dry run's PPNG3: K12 K13)
+    path_launches = {**{k: launches[k] + opt_launches17[k] + launches18[k]
+                        for k in ("K1", "K2", "K3")},
+                     **{k: composed_launches[k] + opt_launches17[k] + launches18[k]
+                        for k in ("K4", "K5")},
+                     "K6": train_launches["K6"] + opt_launches17["K6"] + launches18["K6"],
                      **{k: sdf_launches[k] for k in ("K7", "K8", "K9")},
-                     **{k: sum(n[k] for n in ppng_launches.values())
+                     **{k: sum(n[k] for n in ppng_launches.values()) + launches18[k]
                         for k in ("K10", "K11", "K12", "K13")}}
     for k in ("K7", "K8", "K9"):  # phase 12's Rng checks of the input-gradient kernels
         errs[k] = max(errs[k], opt_errs[f"{k} rng"])

@@ -18,11 +18,12 @@ of each step after a warm-up:
     reference's default hash grid (log2_hashmap_size 19, per_level_scale
     2.0: 5,592,320 rows), the image sample's step.
 For each it prints one JSON line: wall ms per step (host clock around
-synchronised steps, without the profiler), device ms per step (the sum of
-the CUDA kernels' times under the profiler), the device's busy share of the
-profiled wall time, the number of kernel launches per step, and the kernels
-and the operators that take the most device time. Exits non-zero without a
-CUDA device.
+synchronised steps, without the profiler: `utils.profiling.StepTimer`),
+device ms per step (the sum of the CUDA kernels' times under the profiler,
+`utils.profiling.trace`, whose trace files go to a temporary directory),
+the device's busy share of the profiled wall time, the number of kernel
+launches per step, and the kernels and the operators that take the most
+device time. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import json
 import pathlib
 import subprocess
 import sys
-import time
+import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -40,24 +41,27 @@ WARMUP = 10
 STEPS = 20
 
 
+def timed(step) -> float:
+    """Wall ms a step over STEPS steps (the timer waits for the last)."""
+    import torch
+    from tcnn_tpu_torch.utils.profiling import StepTimer
+
+    torch.cuda.synchronize()
+    timer = StepTimer(1)
+    for _ in range(STEPS):
+        timer.step(step())
+    return timer.seconds() * 1e3 / STEPS
+
+
 def profile(name, step, smi):
     import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from tcnn_tpu_torch.utils.profiling import trace
 
     for _ in range(WARMUP):
         step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            step()
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    wall_ms = timed(step)
+    with tempfile.TemporaryDirectory() as logdir, trace(logdir) as prof:
+        prof_wall_ms = timed(step)
     kernels = {}
     launches = 0
     for ev in prof.events():

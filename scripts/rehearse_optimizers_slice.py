@@ -15,9 +15,12 @@ CPU's f32 plain route) print "CHECK FAILED" and the run goes on.
 limits: the training loops of paths (a) the NeRF chain, (c) Shampoo and (e)
 the f32 Trainer at B = 2^LOG2_B (default 18, the card's) with the card's
 step counts and routes (`chip_smoke.card_route`: the f32 Trainer's twins of
-K1, K2, K5 and K4), on config_hash and the synthetic 1024^2 image; prints the
-first loss, the mean of the last ten and their ratio for each (WHICH: any
-of chain, shampoo, f32; default all).
+K1, K2, K5 and K4), on config_hash and the synthetic 1024^2 image, and (d)
+"route": each A2 variant of the SDF sample's HashGrid (ROUTE_VARIANTS) at
+the card's B_SDF and N_ROUTE_STEPS over ROUTE_DRAWS seeded draws (the
+card's model seeds first); prints the first loss, the mean of the last ten
+and their ratio for each (WHICH: any of chain, shampoo, f32, route;
+default all).
 """
 
 from __future__ import annotations
@@ -72,13 +75,39 @@ def flow(log2_b: int) -> None:
                       "seconds": time.perf_counter() - t0}))
 
 
+ROUTE_DRAWS = 4
+
+
+def route_limits() -> None:
+    """(d)'s loss falls: each variant over ROUTE_DRAWS draws (model and
+    batch seeds), the first draw at the card's model seeds."""
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    for draw in range(ROUTE_DRAWS):
+        gen = torch.Generator().manual_seed(cs.SEED + 65 + 100 * draw)
+        for i, variant in enumerate(cs.ROUTE_VARIANTS):
+            tr = cs.route_model(variant, cs.SEED + 66 + i + 100 * draw, "cpu").trainer
+            t0 = time.perf_counter()
+            losses = torch.stack([sdf.train_step(tr, torch.rand(cs.B_SDF, 3, generator=gen))
+                                  for _ in range(cs.N_ROUTE_STEPS)])
+            print(json.dumps({"rehearsal": "route", "variant": variant, "draw": draw,
+                              "steps": cs.N_ROUTE_STEPS, "B": cs.B_SDF,
+                              "loss_first": float(losses[0]),
+                              "loss_last10_mean": float(losses[-10:].mean()),
+                              "loss_fall": float(losses[0] / losses[-10:].mean()),
+                              "seconds": time.perf_counter() - t0}), flush=True)
+
+
 def limits(log2_b: int, which) -> None:
     cfg = tt.load_config(str(ROOT / "data" / "config_hash.json"))
     B = 1 << log2_b
     runs = {"chain": (cs.NERF_OPTIMIZER, cs.N_CHAIN_STEPS, torch.bfloat16),
             "shampoo": (cs.SHAMPOO_OPTIMIZER, cs.N_SHAMPOO_STEPS, torch.bfloat16),
             "f32": (cfg["optimizer"], cs.N_F32_STEPS, torch.float32)}
-    for name in which or runs:
+    for name in which or [*runs, "route"]:
+        if name == "route":
+            route_limits()
+            continue
         optimizer, steps, dtype = runs[name]
         net = tt.create_network_with_input_encoding(2, 3, cfg["encoding"], cfg["network"])
         tr = tt.Trainer(net, tt.create_optimizer(optimizer), tt.create_loss(cfg["loss"]),

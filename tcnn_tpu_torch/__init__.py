@@ -23,6 +23,12 @@ grid + MLP inference (K3), train step (K6) and input-gradient backward
 tensor; a CPU tensor takes each kernel's plain PyTorch twin.
 Entry points run on the card unless the caller asks for the CPU
 (`device="cpu"`).
+
+Around the model: `parallel` trains data-parallel on `torch.distributed`
+(`DataParallelTrainer`, `init_distributed`, `dryrun_multichip`), `native`
+generates the reference demo's PCG32 batches on the host (`HostRng`, a g++
+library built at first use, with a numpy fallback), and
+`utils.profiling` times steps (`StepTimer`) and traces them (`trace`).
 """
 
 __version__ = "0.1.0"
@@ -35,6 +41,7 @@ from .common import (  # noqa: F401
     HashType,
     InterpolationType,
     ReductionType,
+    default_loss_scale,
 )
 from .config import (  # noqa: F401
     TrainableModel,

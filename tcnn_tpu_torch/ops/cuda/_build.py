@@ -1,11 +1,13 @@
-"""Builds and loads the port's CUDA kernels.
+"""Builds and loads the port's CUDA kernels and its native host runtime.
 
 All sources under ``tcnn_tpu_torch/csrc/`` are compiled by ``nvcc`` for
 ``sm_90a``, one ``nvcc`` process per source, all started together, and
 linked into one shared library with a plain C interface, loaded with
-``ctypes``. The build happens at first use, never at import, into
-``build/tcnn_tpu_torch/`` beside the package; the library's name carries a
-hash of the sources and flags, so an edited source is rebuilt. An
+``ctypes``. The host runtime ``csrc/host/tcnn_host.cpp`` (outside the
+``*.cu`` glob) is built by ``g++`` into a library of its own
+(`host_library`). Each build happens at first use, never at import, into
+``build/tcnn_tpu_torch/`` beside the package; a library's name carries a
+hash of its sources and flags, so an edited source is rebuilt. An
 ``fcntl.flock`` serialises concurrent first uses and the finished library is
 moved into place with ``os.replace``.
 """
@@ -28,6 +30,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+
+HOST_SOURCE = CSRC / "host" / "tcnn_host.cpp"
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-fopenmp", "-shared")
 
 _lib = None
 #: Seconds the last `library()` call spent building (0.0 when the library
@@ -59,28 +64,59 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libtcnn_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _build_once(path: pathlib.Path, build) -> float:
+    """Run `build(tmp)`, which must leave the library at `path`, unless
+    `path` exists; under the build directory's lock. Returns the seconds
+    spent building (0.0 when the library was already built)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if path.exists():
+                return 0.0
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                build(pathlib.Path(tmp))
+            return time.perf_counter() - t0
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
     path = library_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if not path.exists():
-                t0 = time.perf_counter()
-                with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-                    _compile_and_link(_sources()[0], pathlib.Path(tmp), path)
-                build_seconds = time.perf_counter() - t0
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
+    build_seconds = _build_once(path, lambda tmp: _compile_and_link(_sources()[0], tmp, path))
     lib = ctypes.CDLL(str(path))
     lib.tcnn_error_string.argtypes = [ctypes.c_int]
     lib.tcnn_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def host_library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return BUILD_DIR / f"libtcnn_host_{h.hexdigest()[:16]}.so"
+
+
+def host_library() -> pathlib.Path:
+    """The path of the native host runtime's library, built with g++ first
+    if needed; raises RuntimeError when it cannot be built."""
+    path = host_library_path()
+
+    def build(tmp: pathlib.Path) -> None:
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("g++ not found: the native host runtime cannot be built")
+        lib = tmp / path.name
+        _run_all([[cxx, *HOST_FLAGS, "-o", str(lib), str(HOST_SOURCE)]])
+        os.replace(lib, path)
+
+    _build_once(path, build)
+    return path
 
 
 def _run_all(cmds) -> None:
@@ -93,7 +129,8 @@ def _run_all(cmds) -> None:
     outputs = [proc.communicate()[0] for proc in procs]
     for cmd, proc, out in zip(cmds, procs, outputs):
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+            name = pathlib.Path(cmd[0]).name
+            raise RuntimeError(f"{name} failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
 
 
 def _compile_and_link(sources, tmp: pathlib.Path, path: pathlib.Path) -> None:

@@ -3,7 +3,7 @@
 samples/mlp_learning_an_image.cu by intent).
 
     python -m tcnn_tpu_torch.samples.mlp_learning_an_image [image] [config.json] \\
-        [n_steps] [output] [device]
+        [n_steps] [output] [device] [--native-pipeline]
 
 Each step draws 2^18 uniform coordinates on the device (a torch.Generator
 seeded 1337) and their bilinear targets (`sample_image`); the loss is
@@ -23,19 +23,25 @@ at every layer where K6 keeps it at f32 precision; set
 `trainer.use_fused_train_kernel = False` for the port's composed route
 (K1 K2 K5 K4).
 
-`--native-pipeline` (the JAX sample's PCG32 host batch stream) is not
-ported yet and raises.
+`--native-pipeline` takes the batches from the native host runtime
+instead (`tcnn_tpu_torch.native`, as the JAX sample's flag does): each step
+`HostRng(1337).image_batch` draws the reference demo's PCG32 coordinate
+stream and samples the image bilinearly on the host; the batch is copied
+into pinned memory and goes to the card with a non-blocking copy. The flag
+demands the native library and raises when it cannot be built.
 """
 
 from __future__ import annotations
 
 import pathlib
 import sys
-import time
 
+import numpy as np
 import torch
 
 from ..config import create_from_config, load_config
+from ..native import HostRng
+from ..utils.profiling import StepTimer
 from ..utils.image import (
     load_image,
     pixel_center_coords,
@@ -53,25 +59,49 @@ RENDER_CHUNK = 1 << 20
 SEED = 1337
 
 
+def device_batches(image: torch.Tensor, batch: int, device: torch.device):
+    """Batches drawn on `device`: uniform coordinates from a generator
+    seeded SEED and their bilinear targets."""
+    image = image.to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    while True:
+        x = torch.rand(batch, 2, generator=gen, device=device)
+        yield x, sample_image(image, x)
+
+
+def native_batches(image: torch.Tensor, batch: int, device: torch.device):
+    """Batches from the native host runtime: `HostRng(SEED).image_batch`
+    (the reference demo's PCG32 stream, sampled on the host), copied to
+    `device` through pinned memory without blocking. Raises when the
+    native library cannot be built."""
+    rng = HostRng(SEED, use_native=True)
+    host_image = np.ascontiguousarray(image.cpu().numpy(), np.float32)
+    while True:
+        xy, rgb = (torch.from_numpy(a) for a in rng.image_batch(host_image, batch))
+        if device.type == "cuda":
+            # the caching host allocator keeps a pinned block until its copy ends
+            xy, rgb = (t.pin_memory().to(device, non_blocking=True) for t in (xy, rgb))
+        yield xy, rgb
+
+
 def train(config: dict, image: torch.Tensor, n_steps: int, device="cuda", batch: int = BATCH,
-          log=print):
+          log=print, pipeline=device_batches):
     """Create the model of `config` on `device` and train it `n_steps`
-    steps on `image` [H, W, 3]. Returns (model, the losses f32 [n_steps]
-    on the CPU). `log` gets the progress lines (None: silent)."""
+    steps on `image` [H, W, 3], each on a batch of `pipeline(image, batch,
+    device)` (`device_batches` or `native_batches`). Returns (model, the
+    losses f32 [n_steps] on the CPU). `log` gets the progress lines (None:
+    silent)."""
     model = create_from_config(2, 3, config, device=device)
     trainer = model.trainer
-    image = image.to(trainer.device)
-    gen = torch.Generator(device=trainer.device).manual_seed(SEED)
+    batches = pipeline(image, batch, trainer.device)
     losses = []
     interval = 10
-    t0 = time.perf_counter()
+    timer = StepTimer(batch)
     for step in range(1, n_steps + 1):
-        x = torch.rand(batch, 2, generator=gen, device=trainer.device)
-        losses.append(trainer.training_step(x, sample_image(image, x)))
+        losses.append(timer.step(trainer.training_step(*next(batches))))
         if log is not None and (step % interval == 0 or step == n_steps):
-            loss = float(losses[-1])  # synchronises
-            dt = time.perf_counter() - t0
-            log(f"step {step}: loss {loss:.6e} ({step / dt:.1f} steps/s, "
+            dt = timer.seconds()  # synchronises
+            log(f"step {step}: loss {float(losses[-1]):.6e} ({step / dt:.1f} steps/s, "
                 f"{step * batch / dt / 1e6:.1f} Msamples/s)")
             if step // interval == 10:
                 interval *= 10
@@ -88,10 +118,7 @@ def render(trainer, height: int, width: int, chunk: int = RENDER_CHUNK) -> torch
 
 
 def main(argv) -> int:
-    if "--native-pipeline" in argv:
-        raise NotImplementedError(
-            "--native-pipeline (the PCG32 host batch stream of native/libtcnn_host.so) is not "
-            "ported to tcnn_tpu_torch yet (ROADMAP Queue A item A10)")
+    pipeline = native_batches if "--native-pipeline" in argv else device_batches
     args = [a for a in argv[1:] if not a.startswith("--")]
     image_path = args[0] if len(args) > 0 else None
     config_path = args[1] if len(args) > 1 else str(DEFAULT_CONFIG)
@@ -107,7 +134,7 @@ def main(argv) -> int:
         image = synthetic_image(1024, 1024, device="cpu")
     h, w = image.shape[:2]
     print(f"image {w}x{h}; config {config_path}; {n_steps} steps")
-    model, _ = train(load_config(config_path), image, n_steps, device=device)
+    model, _ = train(load_config(config_path), image, n_steps, device=device, pipeline=pipeline)
     print(f"model: {model.network.n_params} params on {model.trainer.device}")
     pred = render(model.trainer, h, w)
     print(f"final PSNR {psnr(pred, image.to(pred.device)):.2f} dB")

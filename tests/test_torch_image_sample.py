@@ -5,7 +5,9 @@ grid, against tcnn_tpu on the CPU.
   - `pixel_center_coords` bit-equal to tcnn_tpu's; `save_image` and
     `load_image` through PIL;
   - the sample's `train` and `render` at a small batch and image, its
-    refusals (no GPU without `device="cpu"`; `--native-pipeline`);
+    refusal of no GPU without `device="cpu"`, and its native pipeline
+    (`--native-pipeline`): the first batch bit-equal to
+    `tcnn_tpu.native.HostRng(1337).image_batch`, a few steps on it;
   - one `training_step` of the full 2-D reference default (5,592,320 rows,
     the grid tcnn_tpu runs on its binned route on a TPU) on the port's
     composed route (K1 K2 K5 K4 twins) against tcnn_tpu's Trainer step on
@@ -43,6 +45,7 @@ import torch
 
 import tcnn_tpu as tc
 import tcnn_tpu_torch as tt
+from tcnn_tpu import native as jax_native
 from tcnn_tpu.utils import image as jax_image
 from tcnn_tpu_torch.samples import mlp_learning_an_image as sample
 from tcnn_tpu_torch.utils import image
@@ -105,9 +108,17 @@ def test_sample_refuses_to_run_without_a_gpu():
         sample.train(REFERENCE_CONFIG, img, 1)
 
 
-def test_native_pipeline_raises_naming_a10():
-    with pytest.raises(NotImplementedError, match="A10"):
-        sample.main(["prog", "--native-pipeline"])
+def test_native_pipeline_streams_tcnn_tpu_batches_and_trains_on_the_cpu():
+    img = image.synthetic_image(64, 64, device="cpu")
+    xy, rgb = next(sample.native_batches(img, 4096, torch.device("cpu")))
+    want_xy, want_rgb = jax_native.HostRng(1337).image_batch(img.numpy(), 4096)
+    np.testing.assert_array_equal(xy.numpy().view(np.int32), want_xy.view(np.int32))
+    np.testing.assert_array_equal(rgb.numpy().view(np.int32), want_rgb.view(np.int32))
+    cfg = tt.load_config(str(sample.DEFAULT_CONFIG))
+    _, losses = sample.train(cfg, img, 20, device="cpu", batch=4096, log=None,
+                             pipeline=sample.native_batches)
+    assert losses.shape == (20,) and bool(torch.isfinite(losses).all())
+    assert float(losses[0] / losses[-5:].mean()) > 5, losses
 
 
 def pair(cfg, seed):
