@@ -1,0 +1,3 @@
+"""A step's least time over its kernels' device time outside the optimizer (device trace)."""
+
+from portbench.readers import kernels_roofline_pct as read  # noqa: F401
