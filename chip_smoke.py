@@ -776,26 +776,18 @@ def control_rows(name, lower, want, q, bound):
 
 
 def counters():
-    """Every kernel's launch counter, by name."""
-    from tcnn_tpu_torch.ops.cuda import ext_kernel, grid_kernel, mlp_kernel, train_kernel
+    """Every kernel's launch counter, by name (K1-K13, from the port's
+    counter totals)."""
+    from tcnn_tpu_torch.utils import profiling
 
-    return {"K1": grid_kernel.LAUNCHES, "K2": mlp_kernel.LAUNCHES, "K3": train_kernel.LAUNCHES,
-            "K4": grid_kernel.BWD_LAUNCHES, "K5": mlp_kernel.BWD_LAUNCHES,
-            "K6": train_kernel.TRAIN_LAUNCHES, "K7": grid_kernel.IG_LAUNCHES,
-            "K8": grid_kernel.BWDBWD_LAUNCHES, "K9": train_kernel.IG_LAUNCHES,
-            "K10": ext_kernel.GATHER_LAUNCHES, "K11": ext_kernel.SCATTER_LAUNCHES,
-            "K12": ext_kernel.LOOKUP_LAUNCHES, "K13": ext_kernel.LOOKUP_BWD_LAUNCHES}
+    launched = profiling.counts("launches.")
+    return {f"K{i}": launched.get(f"launches.K{i}", 0) for i in range(1, 14)}
 
 
 def reset_counters():
-    from tcnn_tpu_torch.ops.cuda import ext_kernel, grid_kernel, mlp_kernel, train_kernel
+    from tcnn_tpu_torch.utils import profiling
 
-    grid_kernel.LAUNCHES = grid_kernel.BWD_LAUNCHES = 0
-    grid_kernel.IG_LAUNCHES = grid_kernel.BWDBWD_LAUNCHES = 0
-    mlp_kernel.LAUNCHES = mlp_kernel.BWD_LAUNCHES = 0
-    train_kernel.LAUNCHES = train_kernel.TRAIN_LAUNCHES = train_kernel.IG_LAUNCHES = 0
-    ext_kernel.GATHER_LAUNCHES = ext_kernel.SCATTER_LAUNCHES = 0
-    ext_kernel.LOOKUP_LAUNCHES = ext_kernel.LOOKUP_BWD_LAUNCHES = 0
+    profiling.reset_counts()
 
 
 def cuda_ms(fn, iters):
@@ -4006,7 +3998,7 @@ def main() -> int:
         check(y.shape == (x.shape[0], 3) and y.dtype == torch.float32, "inference shape/dtype")
         check(bool(torch.isfinite(y).all()), "inference output not finite")
         outs.append(y)
-    k3_launches = train_kernel.LAUNCHES
+    k3_launches = counters()["K3"]
     composed = [net.apply(tr.params, x)[:, :3].float() for x in xs]
     torch.cuda.synchronize()
     for y, ref in zip(outs, composed):

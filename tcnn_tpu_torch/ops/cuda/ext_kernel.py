@@ -43,16 +43,10 @@ import dataclasses
 
 import torch
 
+from ...utils import profiling
 from . import _build
 from .mlp_kernel import SMEM_OPTIN
 from .train_kernel import SMEM_SM
-
-#: Launches of K10, K11, K12 and K13 since the last reset (counted where each
-#: kernel launches).
-GATHER_LAUNCHES = 0
-SCATTER_LAUNCHES = 0
-LOOKUP_LAUNCHES = 0
-LOOKUP_BWD_LAUNCHES = 0
 
 #: Row widths K12 and K13 take (PPNG3's n_features).
 LOOKUP_WIDTHS = (1, 2, 4, 8)
@@ -273,7 +267,6 @@ def ext_gather(table, idx):
         return _ext_gather_plain(table, idx)
     if table.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"K10 reads f32 or bf16 tables, got {table.dtype}")
-    global GATHER_LAUNCHES
     B, K = idx.shape
     F = table.shape[1]
     out = torch.empty((B, K * F), dtype=table.dtype, device=idx.device)
@@ -283,7 +276,7 @@ def ext_gather(table, idx):
     _build.check(fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, K,
                     F * table.element_size(), idx.device.index, _stream(idx.device)),
                  "tcnn_ext_gather")
-    GATHER_LAUNCHES += 1
+    profiling.count("launches.K10")
     return out
 
 
@@ -307,7 +300,6 @@ def ext_scatter(idx, ct, n_rows: int, n_levels: int = 1):
         raise ValueError(f"K11 reads f32 or bf16 cotangents, got {ct.dtype}")
     if n_levels <= 0 or K % n_levels or n_rows % n_levels:
         raise ValueError(f"{K} columns and {n_rows} rows must be multiples of {n_levels} levels")
-    global SCATTER_LAUNCHES
     dev = idx.device
     F = ct.shape[1] // K if K else 1
     out = torch.zeros((n_rows, F), dtype=torch.float32, device=dev)
@@ -321,7 +313,7 @@ def ext_scatter(idx, ct, n_rows: int, n_levels: int = 1):
                     int(ct.dtype == torch.bfloat16), n_levels, rows, plan.n_private,
                     plan.group_levels, plan.warps, plan.blocks, dev.index, _stream(dev)),
                  "tcnn_ext_scatter")
-    SCATTER_LAUNCHES += 1
+    profiling.count("launches.K11")
     return out
 
 
@@ -351,7 +343,6 @@ def ext_lookup(table, idx, cw, n_levels: int):
     _check_lookup(idx, n_levels, F)
     if idx.device.type == "cpu":
         return _ext_lookup_plain(table, idx, cw, n_levels)
-    global LOOKUP_LAUNCHES
     dev = idx.device
     B, CNL = idx.shape
     y = torch.empty((B, n_levels * F), dtype=torch.bfloat16, device=dev)
@@ -363,7 +354,7 @@ def ext_lookup(table, idx, cw, n_levels: int):
     _build.check(fn(table.data_ptr(), idx.data_ptr(), cw.data_ptr(), y.data_ptr(), B, n_levels,
                     CNL // n_levels, F, threads, dev.index, _stream(dev)),
                  "tcnn_ext_lookup")
-    LOOKUP_LAUNCHES += 1
+    profiling.count("launches.K12")
     return y
 
 
@@ -405,7 +396,6 @@ def ext_lookup_bwd(table, idx, cw, gy, n_rows: int, n_levels: int, want_table: b
             raise ValueError(f"table must be [{n_rows}, {F}], got {tuple(table.shape)}")
     if idx.device.type == "cpu":
         return _ext_lookup_bwd_plain(table, idx, cw, gy, n_rows, n_levels, want_table, want_dots)
-    global LOOKUP_BWD_LAUNCHES
     dev = idx.device
     dT = torch.zeros((n_rows, F), dtype=torch.float32, device=dev) if want_table else None
     dcw = torch.empty((B, CNL), dtype=torch.float32, device=dev) if want_dots else None
@@ -420,7 +410,7 @@ def ext_lookup_bwd(table, idx, cw, gy, n_rows: int, n_levels: int, want_table: b
                                  torch.cuda.get_device_properties(dev).multi_processor_count),
                     dev.index, _stream(dev)),
                  "tcnn_ext_lookup_bwd")
-    LOOKUP_BWD_LAUNCHES += 1
+    profiling.count("launches.K13")
     return dT, dcw
 
 

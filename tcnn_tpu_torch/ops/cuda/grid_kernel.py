@@ -58,16 +58,10 @@ import numpy as np
 import torch
 
 from ...common import GridType, HashType, InterpolationType, smoothstep
+from ...utils import profiling
 from .. import pcg32
 from . import _build
 from .mlp_kernel import persistent_grid
-
-#: Launches of K1, K4, K7 and K8 since the last reset (counted where each
-#: kernel launches).
-LAUNCHES = 0
-BWD_LAUNCHES = 0
-IG_LAUNCHES = 0
-BWDBWD_LAUNCHES = 0
 
 U32 = 0xFFFFFFFF
 
@@ -514,7 +508,6 @@ def grid_encode(plan: GridPlan, table, x, out_width: int, n_active: int):
         return wide[:, :out_width].contiguous()
     if x.device.type == "cpu":
         return _grid_encode_plain(plan, table, x, out_width, n_active)
-    global LAUNCHES
     out = torch.empty((B, out_width), dtype=torch.bfloat16, device=x.device)
     if B == 0:
         return out
@@ -530,7 +523,7 @@ def grid_encode(plan: GridPlan, table, x, out_width: int, n_active: int):
         ),
         "tcnn_grid_fwd",
     )
-    LAUNCHES += 1
+    profiling.count("launches.K1")
     return out
 
 
@@ -597,7 +590,6 @@ def grid_backward(plan: GridPlan, x, gy, n_active: int):
     B = _check_gy(plan, x, gy)
     if x.device.type == "cpu":
         return _grid_backward_plain(plan, x, gy, n_active)
-    global BWD_LAUNCHES
     dev = x.device
     out = torch.zeros((plan.total_rows, plan.f), dtype=torch.float32, device=dev)
     if B == 0 or n_active == 0:
@@ -618,7 +610,7 @@ def grid_backward(plan: GridPlan, x, gy, n_active: int):
         ),
         "tcnn_grid_bwd",
     )
-    BWD_LAUNCHES += 1
+    profiling.count("launches.K4")
     return out
 
 
@@ -665,7 +657,6 @@ def grid_backward_ig(plan: GridPlan, table, x, gy):
     B = _check_ig(plan, table, x, gy)
     if x.device.type == "cpu":
         return _grid_backward_ig_plain(plan, table, x, gy)
-    global IG_LAUNCHES
     dev = x.device
     gtable = torch.zeros((plan.total_rows, plan.f), dtype=torch.float32, device=dev)
     gx = torch.empty((B, plan.d), dtype=torch.float32, device=dev)
@@ -685,7 +676,7 @@ def grid_backward_ig(plan: GridPlan, table, x, gy):
         ),
         "tcnn_grid_bwd_ig",
     )
-    IG_LAUNCHES += 1
+    profiling.count("launches.K7")
     return gtable, gx
 
 
@@ -730,7 +721,6 @@ def _grid_backward_bwd(plan: GridPlan, table, ct_table, x, gy, z):
     for t in (ct_table, z):
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError("ct_table and z must be contiguous and 16-byte aligned")
-    global BWDBWD_LAUNCHES
     gtable2 = torch.zeros((plan.total_rows, plan.f), dtype=torch.float32, device=dev)
     if B == 0 or (ct_table is None and z is None):
         return (torch.zeros((B, gy.shape[1]), dtype=torch.float32, device=dev), gtable2,
@@ -753,7 +743,7 @@ def _grid_backward_bwd(plan: GridPlan, table, ct_table, x, gy, z):
         ),
         "tcnn_grid_bwd_bwd",
     )
-    BWDBWD_LAUNCHES += 1
+    profiling.count("launches.K8")
     return ct_gy, gtable2, ct_x
 
 

@@ -37,13 +37,9 @@ import functools
 import torch
 
 from ...common import Activation
+from ...utils import profiling
 from ..activations import ACTIVATION_CODES, activation_bwd_out, activation_fn
 from . import _build
-
-#: Launches of K2 and of K5 since the last reset (counted where each kernel
-#: launches).
-LAUNCHES = 0
-BWD_LAUNCHES = 0
 
 FUSED_WIDTHS = (16, 32, 64, 128)
 
@@ -178,7 +174,6 @@ def mlp_forward(dims: MlpDims, weights, x):
     B = check_mlp_inputs(dims, weights, x)
     if x.device.type == "cpu":
         return _mlp_forward_plain(dims, weights, x)
-    global LAUNCHES
     out = torch.empty((B, dims.out_w), dtype=torch.bfloat16, device=x.device)
     if B == 0:
         return out
@@ -190,7 +185,7 @@ def mlp_forward(dims: MlpDims, weights, x):
         ),
         "tcnn_mlp_fwd",
     )
-    LAUNCHES += 1
+    profiling.count("launches.K2")
     return out
 
 
@@ -287,7 +282,6 @@ def mlp_backward(dims: MlpDims, weights, x, gy):
     nt = mlp_bwd_tile(dims)
     if nt == 0:
         raise ValueError(f"fused MLP {dims} does not fit the backward kernel's shared memory")
-    global BWD_LAUNCHES
     gw = torch.zeros(dims.n_weights, dtype=torch.float32, device=x.device)
     gx = torch.empty((B, dims.in_w), dtype=torch.bfloat16, device=x.device)
     if B == 0:
@@ -303,7 +297,7 @@ def mlp_backward(dims: MlpDims, weights, x, gy):
         ),
         "tcnn_mlp_bwd",
     )
-    BWD_LAUNCHES += 1
+    profiling.count("launches.K5")
     return gw, gx
 
 

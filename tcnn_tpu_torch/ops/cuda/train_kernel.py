@@ -50,6 +50,7 @@ import dataclasses
 import torch
 
 from ...common import Activation
+from ...utils import profiling
 from ..activations import activation_bwd_out
 from ..losses import Loss, RelativeL2LuminanceLoss
 from . import _build
@@ -75,12 +76,6 @@ from .mlp_kernel import (
     check_mlp_inputs,
     persistent_grid,
 )
-
-#: Launches of K3, K6 and K9 since the last reset (counted where each
-#: kernel launches).
-LAUNCHES = 0
-TRAIN_LAUNCHES = 0
-IG_LAUNCHES = 0
 
 
 def fused_plan_for(model):
@@ -138,34 +133,35 @@ def _fused_forward_plain(prep: PreparedForward, x):
 
 
 def fused_forward_prepared(prep: PreparedForward, x):
-    """x [B, D] f32 -> [B, out_w] bf16 through the fused grid + MLP."""
-    B = _check_inputs(prep.plan, prep.table, x)
-    check_mlp_inputs(prep.dims, prep.weights)
-    if prep.weights.device != x.device:
-        raise ValueError(f"weights on {prep.weights.device}, x on {x.device}")
-    if prep.dims.in_w < prep.plan.n_levels * prep.plan.f:
-        raise ValueError("MLP input narrower than the encoding")
-    if x.device.type == "cpu":
-        return _fused_forward_plain(prep, x)
-    global LAUNCHES
-    plan, dims = prep.plan, prep.dims
-    out = torch.empty((B, dims.out_w), dtype=torch.bfloat16, device=x.device)
-    if B == 0:
+    """x [B, D] f32 -> [B, out_w] bf16 through the fused grid + MLP (the
+    span "tcnn.k3.launch": the checks and the launch, or the plain twin)."""
+    with profiling.span("tcnn.k3.launch"):
+        B = _check_inputs(prep.plan, prep.table, x)
+        check_mlp_inputs(prep.dims, prep.weights)
+        if prep.weights.device != x.device:
+            raise ValueError(f"weights on {prep.weights.device}, x on {x.device}")
+        if prep.dims.in_w < prep.plan.n_levels * prep.plan.f:
+            raise ValueError("MLP input narrower than the encoding")
+        if x.device.type == "cpu":
+            return _fused_forward_plain(prep, x)
+        plan, dims = prep.plan, prep.dims
+        out = torch.empty((B, dims.out_w), dtype=torch.bfloat16, device=x.device)
+        if B == 0:
+            return out
+        level_i32, level_f32 = plan.device_consts(x.device)
+        fn = _build.function("tcnn_fused_infer", _FUSED_INFER_ARGS)
+        _build.check(
+            fn(
+                x.data_ptr(), prep.table.data_ptr(), level_i32.data_ptr(),
+                level_f32.data_ptr(), prep.weights.data_ptr(), out.data_ptr(),
+                B, plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation],
+                *plan.c_hash(), *dims.c_args(), x.device.index,
+                torch.cuda.current_stream(x.device).cuda_stream,
+            ),
+            "tcnn_fused_infer",
+        )
+        profiling.count("launches.K3")
         return out
-    level_i32, level_f32 = plan.device_consts(x.device)
-    fn = _build.function("tcnn_fused_infer", _FUSED_INFER_ARGS)
-    _build.check(
-        fn(
-            x.data_ptr(), prep.table.data_ptr(), level_i32.data_ptr(),
-            level_f32.data_ptr(), prep.weights.data_ptr(), out.data_ptr(),
-            B, plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation],
-            *plan.c_hash(), *dims.c_args(), x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        ),
-        "tcnn_fused_infer",
-    )
-    LAUNCHES += 1
-    return out
 
 
 _FUSED_INFER_ARGS = (
@@ -289,7 +285,19 @@ def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noi
     loss_scale. Values and gradients are normalised by n = B * dims once;
     the JAX kernel normalises each tile by nt * dims and rescales by nt / B
     afterwards, which is equal up to f32 rounding. The gradient carries
-    loss_scale, as the optimizer expects."""
+    loss_scale, as the optimizer expects.
+
+    Two spans: "tcnn.k6.prepare", the operands up to the launch, and
+    "tcnn.k6.launch", the launch (on a CPU tensor, the plain twin)."""
+    with profiling.span("tcnn.k6.prepare"):
+        launch = _prepare_train(model, loss, params, x, targets, loss_scale, pdf, noise, ext_dl)
+    with profiling.span("tcnn.k6.launch"):
+        return launch()
+
+
+def _prepare_train(model, loss, params, x, targets, loss_scale, pdf, noise, ext_dl):
+    """K6's checked operands, bound into a call that launches it (or, on a
+    CPU tensor, runs its twin) and returns (loss sum, gradient)."""
     plan = fused_plan_for(model)
     dims = model.network.dims
     n_active = model.encoding.active_levels()
@@ -309,20 +317,19 @@ def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noi
     if ext_dl and (pdf is not None or noise is not None):
         raise ValueError("an external dL/doutput takes no pdf and no noise")
     if x.device.type == "cpu":
-        return _fused_train_grads_plain(plan, dims, n_active, table, weights, loss, x,
-                                        targets, loss_scale, pdf, noise, ext_dl)
+        return lambda: _fused_train_grads_plain(plan, dims, n_active, table, weights, loss, x,
+                                                targets, loss_scale, pdf, noise, ext_dl)
     for t in (targets, pdf, noise):
         if t is not None and not t.is_contiguous():
             raise ValueError("targets, pdf and noise must be contiguous")
     nt, n_private, priv = train_layout(model)
     if nt == 0:
         raise ValueError(f"{model!r} does not fit the fused train kernel's shared memory")
-    global TRAIN_LAUNCHES
     dev = x.device
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
     grads = torch.zeros(model.n_params, dtype=torch.float32, device=dev)
     if B == 0:
-        return loss_sum, grads
+        return lambda: (loss_sum, grads)
     grid = persistent_grid("tcnn_fused_train_grid", (B, plan.f, priv, nt, *dims.c_args()), dev)
     # a block's partial: the weights' gradient, then the private levels',
     # padded to 8 floats (csrc/fused_train.cuh: TrainLayout::n_partial)
@@ -330,22 +337,26 @@ def fused_train_grads(model, loss, params, x, targets, loss_scale, pdf=None, noi
                            device=dev)
     level_i32, level_f32 = plan.device_consts(dev)
     fn = _build.function("tcnn_fused_train", _FUSED_TRAIN_ARGS)
-    _build.check(
-        fn(
-            x.data_ptr(), table.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
-            weights.data_ptr(), targets.data_ptr(),
-            0 if pdf is None else pdf.data_ptr(), 0 if noise is None else noise.data_ptr(),
-            grads.data_ptr(), partials.data_ptr(), loss_sum.data_ptr(),
-            grid, B, plan.d, plan.f, plan.n_levels, int(n_active),
-            INTERP_CODES[plan.interpolation], *plan.c_hash(), int(plan.stochastic),
-            n_private, priv, nt, *dims.c_args(),
-            0 if ext_dl else loss.kernel_code, width, float(loss_scale),
-            dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        ),
-        "tcnn_fused_train",
-    )
-    TRAIN_LAUNCHES += 1
-    return loss_sum, grads
+
+    def launch():
+        _build.check(
+            fn(
+                x.data_ptr(), table.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
+                weights.data_ptr(), targets.data_ptr(),
+                0 if pdf is None else pdf.data_ptr(), 0 if noise is None else noise.data_ptr(),
+                grads.data_ptr(), partials.data_ptr(), loss_sum.data_ptr(),
+                grid, B, plan.d, plan.f, plan.n_levels, int(n_active),
+                INTERP_CODES[plan.interpolation], *plan.c_hash(), int(plan.stochastic),
+                n_private, priv, nt, *dims.c_args(),
+                0 if ext_dl else loss.kernel_code, width, float(loss_scale),
+                dev.index, torch.cuda.current_stream(dev).cuda_stream,
+            ),
+            "tcnn_fused_train",
+        )
+        profiling.count("launches.K6")
+        return loss_sum, grads
+
+    return launch
 
 
 _FUSED_TRAIN_ARGS = (
@@ -423,7 +434,6 @@ def fused_ig_grads(model, params, x, gy):
     nt = ig_tile(model)
     if nt == 0:
         raise ValueError(f"{model!r} does not fit the fused input-gradient kernel's shared memory")
-    global IG_LAUNCHES
     dev = x.device
     grads = torch.zeros(model.n_params, dtype=torch.float32, device=dev)
     gx = torch.empty((B, plan.d), dtype=torch.float32, device=dev)
@@ -444,7 +454,7 @@ def fused_ig_grads(model, params, x, gy):
         ),
         "tcnn_fused_ig",
     )
-    IG_LAUNCHES += 1
+    profiling.count("launches.K9")
     return grads, gx
 
 

@@ -155,7 +155,7 @@ def _dryrun_rank(rank, n_ranks, address, device, backend, results) -> None:
     "launches": kernel launches}) or (rank, the error) on `results`."""
     try:
         from ..config import create_from_config
-        from ..ops.cuda import ext_kernel, grid_kernel, mlp_kernel, train_kernel
+        from ..utils import profiling
 
         init_distributed(address, n_ranks, rank,
                          local_device_ids=[rank % max(torch.cuda.device_count(), 1)],
@@ -170,11 +170,8 @@ def _dryrun_rank(rank, n_ranks, address, device, backend, results) -> None:
             x = torch.rand(DRYRUN_BATCH, n_in, generator=gen, device=device)
             t = _dryrun_target(x)
             out[name] = [float(dp.step(state, x, t)[1]) for _ in range(DRYRUN_STEPS)]
-        out["launches"] = {
-            "K1": grid_kernel.LAUNCHES, "K2": mlp_kernel.LAUNCHES, "K3": train_kernel.LAUNCHES,
-            "K4": grid_kernel.BWD_LAUNCHES, "K5": mlp_kernel.BWD_LAUNCHES,
-            "K6": train_kernel.TRAIN_LAUNCHES, "K12": ext_kernel.LOOKUP_LAUNCHES,
-            "K13": ext_kernel.LOOKUP_BWD_LAUNCHES}
+        launched = profiling.counts("launches.")
+        out["launches"] = {f"K{i}": launched.get(f"launches.K{i}", 0) for i in range(1, 14)}
         dist.destroy_process_group()
         results.put((rank, out))
     except BaseException as e:  # reported to the parent, which raises

@@ -38,6 +38,7 @@ import tcnn_tpu_torch as tt
 from tcnn_tpu.ops.pallas import grid_kernel as jax_grid_kernel
 from tcnn_tpu.ops.pallas.train_kernel import fused_train_grads as jax_fused_train_grads
 from tcnn_tpu_torch.ops.cuda import grid_kernel, train_kernel
+from tcnn_tpu_torch.utils import profiling
 from tcnn_tpu_torch.ops.encodings.grid import stochastic_uniforms
 from test_torch_grid_bwd import _jax_bwd
 from test_torch_train import _batch, _cfg, _pair, _rel, _t
@@ -228,10 +229,10 @@ def test_nearest_turns_stochastic_off_as_the_pallas_plan_does():
 
 def test_stochastic_backward_launches_nothing_on_cpu_and_refuses_input_gradients():
     te = tt.create_encoding(2, _enc_cfg())
-    before = grid_kernel.BWD_LAUNCHES
+    before = profiling.counts("launches.")
     params = torch.zeros(te.n_params, requires_grad=True)
     te.apply(params, torch.rand(20, 2)).float().sum().backward()
-    assert grid_kernel.BWD_LAUNCHES == before and params.grad.abs().sum() > 0
+    assert profiling.counts("launches.") == before and params.grad.abs().sum() > 0
     # input gradients take the plain route: dL/dx through the exact
     # interpolation (tests/test_torch_grid_route.py holds it against tcnn_tpu)
     x8 = torch.rand(8, 2, requires_grad=True)
@@ -241,7 +242,7 @@ def test_stochastic_backward_launches_nothing_on_cpu_and_refuses_input_gradients
     (want,) = torch.autograd.grad(te.interpolate_f32(table, xe).sum(), xe)
     assert gx.abs().sum() > 0
     torch.testing.assert_close(gx, want)
-    assert grid_kernel.BWD_LAUNCHES == before
+    assert profiling.counts("launches.") == before
     table = torch.zeros(te.plan.total_rows, te.plan.f, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="stochastic"):
         grid_kernel.grid_backward_ig(te.plan, table, torch.rand(8, 2),
