@@ -29,7 +29,8 @@ Phases, each printing JSON lines:
      the composed `model.apply` (K1 + K2) and the plain twins on the CPU, the
      launch counters of that run, and a save/load round trip;
   5. the training slice: `training_step` at B = 2^18 on targets sampled on
-     the card from a synthetic 1024^2 image, through K6 only (counters), the
+     the card from a synthetic 1024^2 image, through K6 and K14, Adam's
+     step, only (counters), the
      loss falling and the holdout PSNR of `trainer.inference` after it; the
      composed route (K1, K2, K5, K4) on a second model against K6's
      gradient; a save/load with the optimizer state and one more step on
@@ -161,8 +162,15 @@ Phases, each printing JSON lines:
      K1, K2, K5 and K4 once a step (their bf16 outputs cast to f32, as
      tcnn_tpu keeps its Pallas kernels at f32 on a TPU) with the loss
      falling, a step's gradient
-     against the CPU twins' beside the CPU's f32 plain route; times of the
-     optimizer steps alone and of a step of each path;
+     against the CPU twins' beside the CPU's f32 plain route; (f) K14, the
+     Adam step, against its plain twin on the same card tensors, every leaf
+     bit-equal or under OPT_STEP_REL: N_K14_STEPS steps on K6's gradients
+     at B_K14 (exact-zero entries taking the skip rule), one step of each
+     K14_CASES setting, a Composite whose second view is not 16-byte
+     aligned, beside a control (the skip rule left out of the moments) that
+     must fail; three Trainer steps rebuilding K3's operands once each; its
+     device time beside its twin's, torch's fused Adam's and its bound;
+     times of the optimizer steps alone and of a step of each path;
  18. data parallel, the native host runtime and profiling: (a) two ranks
      (gloo, both on the card) run config_hash through
      `tcnn_tpu_torch.parallel.DataParallelTrainer` at the global batch
@@ -182,7 +190,7 @@ Phases, each printing JSON lines:
 Then a line with every kernel and option (its launches on the main path,
 phase 18's ranks and processes counted in, error against its twin, time, twin's time, bound, what bounds it and its
 yardstick's time; K1's, K2's, K3's, K5's, K6's and K9's entries,
-redesigned for Hopper, say so),
+redesigned for Hopper, say so; K14's, which replaces no Pallas kernel, last),
 the `nvidia-smi` line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero and prints no result; it also exits non-zero when no GPU is present.
@@ -544,6 +552,26 @@ F32_LOSS_FALL = 50.0
 #: product's operands rounded to 10 bits, 2^-11) must break.
 OPT_STEP_REL = 1e-5
 SHAMPOO_STEP_REL = 1e-3
+#: (f): K14 against its plain twin on the same card tensors, N_K14_STEPS
+#: steps of config_hash's Adam on K6's gradients at B_K14, where some hash
+#: rows get no sample and take the skip rule; then one step of each
+#: K14_CASES setting (a tensor lr_scale: the 0-d device factor), and
+#: N_K14_COMPOSITE_STEPS of a Composite whose second Adam's view starts
+#: 4 bytes past a 16-byte boundary (its first covers the network and one
+#: table entry). Every leaf bit-equal, or within OPT_STEP_REL.
+N_K14_STEPS = 20
+B_K14 = 1 << 14
+N_K14_COMPOSITE_STEPS = 3
+K14_CASES = {
+    "AdaBound": {"adabound": True},
+    "relative + absolute decay": {"relative_decay": 0.01, "absolute_decay": 1e-3},
+    "clipping": {"clipping_magnitude": 0.05},
+    "non-matrix factor 0.5": {"non_matrix_learning_rate_factor": 0.5},
+    "matrix params frozen": {"optimize_matrix_params": False},
+    "non-matrix params frozen": {"optimize_non_matrix_params": False},
+    "lr_scale a device tensor": {},
+}
+K14_LR_SCALE = 0.37
 #: (b)'s cases: (optimizer, CPU steps before the step compared). Each
 #: step compared does what its otype's schedule does there: Average
 #: overwrites a ring slot, Lookahead blends, Batched steps its nested
@@ -776,8 +804,8 @@ def control_rows(name, lower, want, q, bound):
 
 
 def counters():
-    """Every kernel's launch counter, by name (K1-K13, from the port's
-    counter totals)."""
+    """The launch counters of the kernels that replace Pallas kernels, by
+    name (K1-K13, from the port's counter totals; K14's: `launch_count`)."""
     from tcnn_tpu_torch.utils import profiling
 
     launched = profiling.counts("launches.")
@@ -3209,6 +3237,177 @@ def time_optimizer_steps(cfg, dev):
     return times
 
 
+def launch_count(kernel: str) -> int:
+    """Launches of `kernel` (e.g. "K14") since the counters were reset."""
+    from tcnn_tpu_torch.utils import profiling
+
+    return profiling.counts(f"launches.{kernel}").get(f"launches.{kernel}", 0)
+
+
+def k14_compare(tag, got_w, got_state, want_w, want_state):
+    """K14's leaves against the twin's, each bit for bit (f32 as its bits)
+    and by its norm-relative error; a leaf that is not bit-equal must stay
+    within OPT_STEP_REL and every integer leaf must be equal. Returns (the
+    worst error, whether every leaf is bit-equal)."""
+    import torch
+    from tcnn_tpu_torch.utils.serialization import tree_leaves
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    got, want = [got_w] + tree_leaves(got_state), [want_w] + tree_leaves(want_state)
+    equal = {f"leaf {i} {tuple(w.shape)}": bool(torch.equal(bits(g), bits(w)))
+             for i, (g, w) in enumerate(zip(got, want))}
+    errs = {k: norm_errors(g, w, {"all": OPT_STEP_REL})[0]["all"]
+            for (k, _), g, w in zip(equal.items(), got, want) if w.dtype.is_floating_point}
+    ints = all(e for (k, e), w in zip(equal.items(), want) if not w.dtype.is_floating_point)
+    worst = max(errs.values())
+    ok = ints and worst <= OPT_STEP_REL
+    emit({"phase": "K14 vs twin", "name": tag, "bit_equal": equal, "norm_rel_err": errs,
+          "limit": f"bit-equal or {OPT_STEP_REL}", "ok": ok})
+    check(ok, f"K14 {tag}: disagrees with its twin ({errs})")
+    return worst, all(equal.values())
+
+
+def k14_control_step(opt, state, loss_scale, w, g):
+    """K14's control: the twin's step with the skip rule left out of the
+    moments: a non-matrix entry whose gradient is exactly zero has its
+    moments decayed as if it were active. Returns the entries it moved."""
+    import torch
+
+    m1, m2 = state["first_moments"].clone(), state["second_moments"].clone()
+    opt._step_plain(state, loss_scale, w, g)
+    skipped = torch.zeros_like(m1, dtype=torch.bool)
+    skipped[opt.n_matrix_weights:] = g[opt.n_matrix_weights:] == 0
+    moved = skipped & ((m1 != 0) | (m2 != 0))
+    state["first_moments"].copy_(torch.where(skipped, opt.beta1 * m1, state["first_moments"]))
+    state["second_moments"].copy_(torch.where(skipped, opt.beta2 * m2, state["second_moments"]))
+    return int(moved.sum())
+
+
+def adam_kernel_slice(cfg, dev, smi, batch):
+    """(f): K14 against its plain twin (`AdamOptimizer._step_plain`) on the
+    same card tensors: N_K14_STEPS steps of config_hash's Adam on K6's
+    gradients at B_K14, each inside no_host_sync, then each K14_CASES
+    setting for one step and the misaligned Composite, beside the control
+    (k14_control_step) that has to fail; a Trainer's steps rebuilding K3's
+    operands once each (K14 bumps the versions the cache keys on); K14's
+    time, its twin's and torch's fused Adam's. Returns (the worst leaf
+    error, K14's launches, (ms, twin ms, library ms), (bound ms, bound_by))."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.utils import profiling
+    from tcnn_tpu_torch.utils.serialization import tree_leaves
+
+    t0 = time.perf_counter()
+    model = tt.create_from_config(2, 3, cfg, seed=SEED + 90, device=dev)
+    tr, net = model.trainer, model.network
+    opt, ls = tr.optimizer, tr.loss_scale
+    n, n_net = opt.n_weights, opt.n_matrix_weights
+    check(type(opt).__name__ == "AdamOptimizer", "config_hash's optimizer is not Adam")
+    kstate, kw = tr.state["opt"], tr.state["params"]
+    tstate, tw = state_to(kstate, dev), kw.clone()
+    reset_counters()
+    worst, bits, grads, skipped = 0.0, True, [], []
+    for s in range(N_K14_STEPS):
+        _, g = tr.loss_and_grad_fn(kw, *batch(B_K14))
+        grads = (grads + [g])[-N_K14_COMPOSITE_STEPS:]
+        skipped.append(int((g[n_net:] == 0).sum()))
+        torch.cuda.synchronize()
+        with no_host_sync():
+            opt.step(kstate, ls, kw, g)
+            opt._step_plain(tstate, ls, tw, g)
+        err, same = k14_compare(f"config_hash step {s + 1}", kw, kstate, tw, tstate)
+        worst, bits = max(worst, err), bits and same
+    launched = launch_count("K14")
+    emit({"phase": "K14 steps", "steps": N_K14_STEPS, "B": B_K14, "launches": launched,
+          "skipped_entries_a_step": skipped, "bit_equal": bits})
+    check(launched == N_K14_STEPS, f"K14 launched {launched} times in {N_K14_STEPS} steps")
+    check(min(skipped) > 0, "no gradient entry was exactly zero: the skip rule went untested")
+
+    g = grads[-1]
+    for name, overrides in K14_CASES.items():
+        case = tt.create_optimizer({**cfg["optimizer"], **overrides})
+        case.allocate(n, opt.layer_sizes)
+        lr_scale = (torch.tensor(K14_LR_SCALE, device=dev) if name.startswith("lr_scale")
+                    else 1.0)
+        cs_, cw = state_to(kstate, dev), kw.clone()
+        ts_, tw_ = state_to(kstate, dev), kw.clone()
+        torch.cuda.synchronize()
+        with no_host_sync():
+            case.step(cs_, ls, cw, g, lr_scale)
+            case._step_plain(ts_, ls, tw_, g, lr_scale)
+        err, same = k14_compare(name, cw, cs_, tw_, ts_)
+        worst, bits = max(worst, err), bits and same
+
+    comp_cfg = {"otype": "Composite", "nested": [
+        {**cfg["optimizer"], "n_params_to_optimize": n_net + 1}, cfg["optimizer"]]}
+    comp = tt.create_optimizer(comp_cfg)
+    comp.allocate(n, opt.layer_sizes)
+    cstate, cw = comp.init_state(dev), kw.clone()
+    pstate, pw = state_to(cstate, dev), kw.clone()
+    segs = comp._segments()
+    check(cw[segs[1]].data_ptr() % 16 == 4, "the Composite's second view is 16-byte aligned")
+    for g_ in grads:
+        with no_host_sync():
+            comp.step(cstate, ls, cw, g_)
+            for nested, s_, seg in zip(comp.nested, pstate["nested"], segs):
+                nested._step_plain(s_, ls, pw[seg], g_[seg])
+    for i, seg in enumerate(segs):
+        err, same = k14_compare(f"Composite segment {i} [{seg.start}, {seg.stop})",
+                                cw[seg], cstate["nested"][i], pw[seg], pstate["nested"][i])
+        worst, bits = max(worst, err), bits and same
+
+    # the control: the skip rule left out of the moments, one step on
+    ks_, kw_ = state_to(kstate, dev), kw.clone()
+    xs_, xw_ = state_to(kstate, dev), kw.clone()
+    opt.step(ks_, ls, kw_, g)
+    moved = k14_control_step(opt, xs_, ls, xw_, g)
+    cerrs = {f"leaf {i}": norm_errors(c, k, {"all": OPT_STEP_REL})[0]["all"]
+             for i, (c, k) in enumerate(zip(tree_leaves(xs_), tree_leaves(ks_)))
+             if k.dtype.is_floating_point}
+    rejected = moved > 0 and max(cerrs.values()) > OPT_STEP_REL
+    emit({"phase": "control", "name": "K14, the skip rule left out of the moments",
+          "entries_moved": moved, "norm_rel_err": cerrs, "limit": OPT_STEP_REL,
+          "rejected": rejected})
+    check(rejected, f"control K14: the limit {OPT_STEP_REL} passes moments updated while skipped")
+
+    # K3's operands: built once a step, after each step (the version bump)
+    x, t = batch(B_K14)
+    xq = torch.rand(4096, 2, device=dev)
+    tr.inference(xq)
+    built = profiling.counts("k3.operands_rebuilt").get("k3.operands_rebuilt", 0)
+    for _ in range(3):
+        tr.training_step(x, t)
+        y = tr.inference(xq)
+        tr.inference(xq)
+    rebuilt = profiling.counts("k3.operands_rebuilt").get("k3.operands_rebuilt", 0) - built
+    emit({"phase": "K14 operand rebuilds", "steps": 3, "rebuilds": rebuilt})
+    check(rebuilt == 3, f"3 steps, each followed by two inference calls, rebuilt K3's operands "
+                        f"{rebuilt} times")
+    compare("trainer.inference (K3) after K14's steps vs model.apply", y,
+            net.apply(tr.params, xq)[:, :3].float(), rel_max=MLP_REL)
+
+    # times: events (host time where it sets the pace) and device time
+    k_ms = kernel_device_ms(lambda: opt.step(kstate, ls, kw, g), "adam_step_kernel", 20)[0]
+    t_ms = kernel_device_ms(lambda: opt._step_plain(tstate, ls, tw, g), "", 20)[1]
+    p = kw.clone().requires_grad_(True)
+    p.grad = g / ls
+    fused = torch.optim.Adam([p], lr=opt.learning_rate, betas=(opt.beta1, opt.beta2),
+                             eps=opt.epsilon, fused=torch.device(dev).type == "cuda")
+    lib_ms = kernel_device_ms(fused.step, "", 20)[1]
+    events = {"kernel": cuda_ms(lambda: opt.step(kstate, ls, kw, g), 50),
+              "plain": cuda_ms(lambda: opt._step_plain(tstate, ls, tw, g), 20)}
+    bound = (n * 40 / HBM_BPS * 1e3, "bytes")
+    emit({"phase": "times K14", "card": smi, "n_params": n,
+          "device_ms": {"kernel": k_ms, "plain": t_ms, "torch fused Adam": lib_ms},
+          "events_ms": events, "bound_ms": {"40 B a parameter": bound[0],
+                                            "28 B a parameter (the benchmark's count)":
+                                            n * 28 / HBM_BPS * 1e3},
+          "bit_equal": bits, "max_leaf_err": worst, "phase_seconds": time.perf_counter() - t0})
+    return worst, launched, (k_ms, t_ms, lib_ms), bound
+
+
 def train_loop(tr, batches):
     """Run `batches` through `training_step`; returns (losses on the CPU,
     launches, seconds)."""
@@ -3250,11 +3449,13 @@ def chain_slice(cfg, dev, batch):
     tr, net = model.trainer, model.network
     check(tr.use_fused(), "config_hash under the NeRF chain must take K6")
     losses, launched, loop_s = train_loop(tr, [batch() for _ in range(N_CHAIN_STEPS)])
+    launched["K14"] = launch_count("K14")
     report = loss_report("the NeRF chain", losses, CHAIN_LOSS_FALL)
     emit({"phase": "chain slice", "steps": N_CHAIN_STEPS, "B": B_MAIN, "launches": launched,
           **report, "loop_seconds": loop_s})
-    check(launched["K6"] == N_CHAIN_STEPS and all(v == 0 for k, v in launched.items() if k != "K6"),
-          f"the chain's steps did not run K6 alone: {launched}")
+    check(launched["K6"] == launched["K14"] == N_CHAIN_STEPS
+          and all(v == 0 for k, v in launched.items() if k not in ("K6", "K14")),
+          f"the chain's steps did not run K6 and K14 alone: {launched}")
     check(report["loss_fall"] >= CHAIN_LOSS_FALL, f"the chain's loss fell only {report['loss_fall']}x")
 
     # K3 on the EMA weights against model.apply on them; its operands built
@@ -3461,15 +3662,18 @@ def f32_slice(cfg, dev, batch):
 
 def optimizers_slice(cfg, dev, smi, batch):
     """Phase 17: (a) chain_slice, (b) check_optimizer_steps, (c)
-    shampoo_slice, (d) route_slice, (e) f32_slice, and the times of the
-    optimizer steps alone and of a step of each path. Returns the launches
-    of the paths that run kernels: K6 (a) and (c)'s, and (d) and (e)'s."""
+    shampoo_slice, (d) route_slice, (e) f32_slice, (f) adam_kernel_slice,
+    and the times of the optimizer steps alone and of a step of each path.
+    Returns (the launches of the paths that run kernels: K6 (a) and (c)'s,
+    and (d) and (e)'s; K14's entry: its worst leaf error, its launches in
+    (a) and (f), its times and its bound)."""
     t0 = time.perf_counter()
     chain_launches, chain_ms = chain_slice(cfg, dev, batch)
     step_errs = check_optimizer_steps(cfg, dev, smi)
     shampoo_launches, shampoo_ms = shampoo_slice(cfg, dev, batch)
     route_launches, route_ms = route_slice(dev)
     f32_launches, f32_ms = f32_slice(cfg, dev, batch)
+    k14_err, k14_launches, k14_ms, k14_bound = adam_kernel_slice(cfg, dev, smi, batch)
     emit({"phase": "times optimizers", "card": smi, "B": B_MAIN,
           "optimizer_step_ms": time_optimizer_steps(cfg, dev),
           "training_step_ms": {"chain (a)": chain_ms, "Shampoo (c)": shampoo_ms,
@@ -3479,7 +3683,7 @@ def optimizers_slice(cfg, dev, smi, batch):
           "phase_seconds": time.perf_counter() - t0})
     launches = {k: v + f32_launches[k] for k, v in route_launches.items()}
     launches["K6"] += chain_launches["K6"] + shampoo_launches["K6"]
-    return launches
+    return launches, (k14_err, chain_launches["K14"] + k14_launches, k14_ms, k14_bound)
 
 
 # ---------------------------------------------------------------------------
@@ -4043,6 +4247,7 @@ def main() -> int:
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     train_launches = counters()
+    k14_launches = launch_count("K14")
     losses = torch.stack(losses).cpu()
     check(bool(torch.isfinite(losses).all()), "training loss not finite")
     fall = float(losses[0] / losses[-10:].mean())
@@ -4053,8 +4258,9 @@ def main() -> int:
           "loss_at": {str(i): float(losses[i])
                       for i in sorted({0, N_TRAIN // 10, N_TRAIN // 4, N_TRAIN // 2, N_TRAIN - 1})},
           "loss_fall": fall, "loss_fall_min": LOSS_FALL, "holdout_psnr_db": holdout_psnr,
-          "psnr_min_db": PSNR_MIN, "loop_seconds": loop_s})
+          "psnr_min_db": PSNR_MIN, "loop_seconds": loop_s, "K14_launches": k14_launches})
     check(train_launches["K6"] == N_TRAIN, "training_step did not run K6 once per step")
+    check(k14_launches == N_TRAIN, "training_step did not run K14 once per step")
     check(all(train_launches[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5")),
           "the fused training steps launched another kernel")
     check(fall >= LOSS_FALL, f"loss fell only {fall}x")
@@ -4291,7 +4497,7 @@ def main() -> int:
     # 17. the optimizers, the grid's plain route and compute_dtype: (a) the
     #     NeRF chain, (b) one step of every otype against the CPU, (c)
     #     Shampoo, (d) the SDF grid's A2 cases, (e) config_hash at f32
-    opt_launches17 = optimizers_slice(cfg, dev, smi, batch)
+    opt_launches17, (k14_err, k14_n, k14_ms, k14_bound) = optimizers_slice(cfg, dev, smi, batch)
     # 18. data parallel (a: two gloo ranks on the card, a 1-rank NCCL group,
     #     dryrun_multichip), the native host runtime (b: its streams, the
     #     image sample's native pipeline) and profiling (c: StepTimer, trace)
@@ -4400,11 +4606,20 @@ def main() -> int:
                       else f"{name} ({redesigned[key.split()[0]]})")
                 if key.split()[0] in redesigned else name, *rest)
                for key, name, *rest in entries]
+    # K14, the Adam step, which replaces no Pallas kernel: launches from the
+    # training slice, phase 17's chain and its K14 checks; device times (the
+    # library: torch's fused Adam); its bound by its 40 B a parameter, and by
+    # the 28 B the benchmark counts (param_steps left out)
+    entries.append(("K14", "adam_step (the Adam step; device ms)",
+                    "tcnn_tpu_torch/csrc/adam.cu",
+                    "none: tcnn_tpu/optimizers/adam.py is one XLA computation",
+                    k14_launches + k14_n, k14_err, k14_ms, k14_bound))
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": n, "max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": bound[0],
-         "bound_by": bound[1], "library_ms": t[2]}
-        for _, name, source, replaces, n, err, t, bound in entries
+         "bound_by": bound[1], "library_ms": t[2],
+         **({"bound_ms_28_bytes": k14_bound[0] * 28 / 40} if key == "K14" else {})}
+        for key, name, source, replaces, n, err, t, bound in entries
     ]})
     check(all(e[4] > 0 for e in entries), "a kernel or option of the path was never launched")
     print(smi, flush=True)

@@ -10,7 +10,8 @@ the SDF variants at a quarter of it) with 4 steps a path, the card's
 `torch.cuda` calls stubbed and its times 0. Every check runs; those that
 only a card can pass (a kernel's launch count, K3's operand builds, the
 loss falls of 4 steps, (e)'s step gradient, whose "card" model takes the
-CPU's f32 plain route) print "CHECK FAILED" and the run goes on.
+CPU's f32 plain route, (f)'s K14 launches, which the CPU's twin does not
+count) print "CHECK FAILED" and the run goes on.
 
 limits: the training loops of paths (a) the NeRF chain, (c) Shampoo and (e)
 the f32 Trainer at B = 2^LOG2_B (default 18, the card's) with the card's
@@ -56,6 +57,7 @@ def stub_card():
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.set_sync_debug_mode = lambda *a, **k: None
     cs.cuda_ms = lambda fn, iters: (fn(), 0.0)[1]
+    cs.kernel_device_ms = lambda fn, key, iters=10: (fn(), (0.0, 0.0))[1]
 
     def check(cond, what):
         if not cond:
@@ -68,10 +70,11 @@ def flow(log2_b: int) -> None:
     stub_card()
     cs.B_MAIN, cs.B_SDF = 1 << log2_b, 1 << max(log2_b - 2, 10)
     cs.N_CHAIN_STEPS = cs.N_SHAMPOO_STEPS = cs.N_ROUTE_STEPS = cs.N_F32_STEPS = 4
+    cs.N_K14_STEPS = 4
     cfg = tt.load_config(str(ROOT / "data" / "config_hash.json"))
     t0 = time.perf_counter()
-    launches = cs.optimizers_slice(cfg, "cpu", "cpu (rehearsal)", batches(cs.B_MAIN))
-    print(json.dumps({"rehearsal": "flow", "launches": launches,
+    launches, k14 = cs.optimizers_slice(cfg, "cpu", "cpu (rehearsal)", batches(cs.B_MAIN))
+    print(json.dumps({"rehearsal": "flow", "launches": launches, "K14": k14,
                       "seconds": time.perf_counter() - t0}))
 
 

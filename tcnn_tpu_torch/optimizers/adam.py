@@ -12,16 +12,19 @@ optimizers/adam.h:47-188).
   - optional weight clipping, a separate non-matrix lr factor, and matrix /
     non-matrix enable flags.
 
-The JAX package runs this as one XLA computation, not a Pallas kernel, so
-the port runs it as plain elementwise torch on the flat vector, in place.
-`param_steps` and `step` are int64 on the device (uint32 in the JAX
-package and in snapshots, utils/serialization.py).
+The JAX package runs this as one XLA computation, not a Pallas kernel. The
+port runs it in place on the flat vector: on a CUDA tensor as one kernel,
+K14 (``ops/cuda/adam_kernel.py``, ``csrc/adam.cu``), on a CPU tensor as
+its plain elementwise twin, `_step_plain`. `param_steps` and `step` are
+int64 on the device (uint32 in the JAX package and in snapshots,
+utils/serialization.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.cuda import adam_kernel
 from .base import Optimizer
 
 
@@ -65,6 +68,13 @@ class AdamOptimizer(Optimizer):
         }
 
     def step(self, state, loss_scale, weights, grads, lr_scale=1.0) -> None:
+        if weights.device.type == "cpu":
+            self._step_plain(state, loss_scale, weights, grads, lr_scale)
+        else:
+            adam_kernel.adam_step(self, state, loss_scale, weights, grads, lr_scale)
+
+    def _step_plain(self, state, loss_scale, weights, grads, lr_scale=1.0) -> None:
+        """K14's plain twin: the step in elementwise torch, on any device."""
         is_matrix = torch.arange(self.n_weights, device=weights.device) < self.n_matrix_weights
         g = grads.float() / loss_scale
 

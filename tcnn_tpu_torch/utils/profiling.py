@@ -18,7 +18,7 @@ table. Names the program uses:
   spans     tcnn.training_step, tcnn.k6.prepare, tcnn.k6.launch,
             tcnn.optimizer.step, tcnn.inference, tcnn.k3.operands,
             tcnn.k3.launch
-  counters  launches.K1 ... launches.K13 (each kernel's launches),
+  counters  launches.K1 ... launches.K14 (each kernel's launches),
             k3.operands_rebuilt (K3's operands cast anew)
 """
 

@@ -8,7 +8,8 @@ import shutil
 
 import pytest
 
-from tcnn_tpu_torch.ops.cuda import _build, ext_kernel, grid_kernel, mlp_kernel, train_kernel
+from tcnn_tpu_torch.ops.cuda import (_build, adam_kernel, ext_kernel, grid_kernel, mlp_kernel,
+                                     train_kernel)
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "int": ctypes.c_int, "unsigned": ctypes.c_uint32, "float": ctypes.c_float}
@@ -43,6 +44,7 @@ def test_argtypes_match_the_c_entry_points():
     assert sigs["tcnn_ext_scatter"] == ext_kernel._EXT_SCATTER_ARGS
     assert sigs["tcnn_ext_lookup"] == ext_kernel._EXT_LOOKUP_ARGS
     assert sigs["tcnn_ext_lookup_bwd"] == ext_kernel._EXT_LOOKUP_BWD_ARGS
+    assert sigs["tcnn_adam_step"] == adam_kernel._ADAM_STEP_ARGS
     # the persistent grids, called as mlp_kernel.persistent_grid calls them
     assert sigs["tcnn_grid_bwd_grid"] == [ctypes.c_int] * 4
     assert sigs["tcnn_mlp_bwd_grid"] == [ctypes.c_int] * 9
@@ -82,7 +84,7 @@ def test_build_compiles_each_source_in_parallel_then_links(tmp_path, monkeypatch
     out = tmp_path / "lib.so"
     _build._compile_and_link(sources, tmp_path, out)
     calls = log.read_text().splitlines()
-    assert len(calls) == len(sources) + 1 and len(sources) == 19
+    assert len(calls) == len(sources) + 1 and len(sources) == 20
     assert all(" -c " in c for c in calls[:-1]) and " -shared " in calls[-1]
     assert sorted(c.split()[-1] for c in calls[:-1]) == sorted(map(str, sources))
     assert out.exists()

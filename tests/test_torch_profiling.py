@@ -245,3 +245,36 @@ def test_spans_on_two_threads_keep_their_own_parents():
     spans = r.recorded()["spans"]
     assert {n: s["parent"] for n, s in spans.items()} == {
         "a.outer": None, "a.inner": "a.outer", "b.outer": None, "b.inner": "b.outer"}
+
+
+def test_k14_counted_once_a_step_on_the_kernel_route_and_not_on_the_twin(monkeypatch):
+    """`launches.K14` counts each launch of the Adam kernel's wrapper (its C
+    entry point stubbed: the CPU has no card), one a step, with the state's
+    tensors as its pointers and the versions of what it wrote bumped; the
+    CPU's plain twin counts nothing, as K6's twin does."""
+    from types import SimpleNamespace
+
+    from tcnn_tpu_torch.ops.cuda import _build, adam_kernel
+
+    opt = tt.create_optimizer({"otype": "Adam", "learning_rate": 1e-2})
+    opt.allocate(40, [(4, 5)])
+    state, w, g = opt.init_state(device="cpu"), torch.zeros(40), torch.ones(40)
+    calls = []
+    monkeypatch.setattr(_build, "function", lambda name, argtypes: (
+        lambda *args: calls.append((name, args)) or 0))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(adam_kernel, "_counters", {})
+    before = profiling.counts("launches.K14").get("launches.K14", 0)
+    versions = [t._version for t in (w, *state.values())]
+    for _ in range(3):
+        adam_kernel.adam_step(opt, state, 128.0, w, g)
+    assert profiling.counts("launches.K14")["launches.K14"] == before + 3
+    assert [name for name, _ in calls] == ["tcnn_adam_step"] * 3
+    args = calls[0][1]
+    assert args[:6] == (g.data_ptr(), w.data_ptr(), state["first_moments"].data_ptr(),
+                        state["second_moments"].data_ptr(), state["param_steps"].data_ptr(),
+                        state["step"].data_ptr())
+    assert args[6] is None and len(args) == len(adam_kernel._ADAM_STEP_ARGS)
+    assert all(t._version > v for t, v in zip((w, *state.values()), versions))
+    opt.step(state, 128.0, w, g)  # a CPU tensor: the twin
+    assert profiling.counts("launches.K14")["launches.K14"] == before + 3 and len(calls) == 3
