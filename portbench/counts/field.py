@@ -29,7 +29,8 @@ class Work:
 
     bytes: float
     mlp_flops: float   # tensor-core products, against PEAK_BF16
-    grid_ops: float    # the grid's interpolation arithmetic, against PEAK_F32
+    grid_ops: float    # the encoding's arithmetic (a grid's interpolation, OneBlob's
+                       # kernel), against PEAK_F32
 
     @property
     def flops(self) -> float:
@@ -40,9 +41,24 @@ class Work:
                    self.mlp_flops / PEAK_BF16 + self.grid_ops / PEAK_F32)
 
 
+#: f32 operations of one quartic_cdf: the scaled argument, its square and
+#: fourth power, the polynomial (2 multiplies, 2 adds), the factor u, 15/16
+#: and + 0.5 (the clamp not counted)
+QUARTIC_CDF_OPS = 10
+
+
+def oneblob_ops(d: int, n_bins: int) -> int:
+    """f32 operations of one sample's OneBlob forward: per dimension its
+    n + 1 bin boundaries (the first CDF is kept for the next bin), each the
+    offset b - x, its two wrapped copies (2), three CDFs and their sum (2),
+    and the n differences."""
+    return d * ((n_bins + 1) * (1 + 2 + 3 * QUARTIC_CDF_OPS + 2) + n_bins)
+
+
 @dataclasses.dataclass(frozen=True)
 class Shapes:
-    """The sizes of a grid + MLP configuration that the counts read."""
+    """The sizes of an encoding + MLP configuration that the counts read
+    (a OneBlob has no levels, features or rows)."""
 
     d: int
     levels: int
@@ -50,23 +66,30 @@ class Shapes:
     rows: int
     widths: tuple   # the MLP's own widths: encoding, hidden..., outputs
     n_params: int   # the flat vector, padding included
+    fixed_ops: int = 0   # f32 operations of one sample's parameter-free encoding
 
     @classmethod
     def of(cls, cfg: dict) -> "Shapes":
         enc, net = cfg["encoding"], cfg["network"]
-        d, levels, f = int(cfg["n_input_dims"]), int(enc["n_levels"]), int(enc["n_features_per_level"])
-        base, cap = int(enc["base_resolution"]), 1 << int(enc["log2_hashmap_size"])
-        log2_scale = math.log2(float(enc["per_level_scale"]))
-        rows = 0
-        for level in range(levels):
-            res = math.ceil(2.0 ** (level * log2_scale) * base - 1.0) + 1
-            rows += min(next_multiple(min(res ** d, 2 ** 31), 8), cap)
+        d = int(cfg["n_input_dims"])
+        if enc["otype"] == "OneBlob":
+            n_bins = int(enc.get("n_bins", 16))
+            levels, f, rows, enc_width, fixed = 0, 0, 0, d * n_bins, oneblob_ops(d, n_bins)
+        else:
+            levels, f = int(enc["n_levels"]), int(enc["n_features_per_level"])
+            base, cap = int(enc["base_resolution"]), 1 << int(enc["log2_hashmap_size"])
+            log2_scale = math.log2(float(enc["per_level_scale"]))
+            rows = 0
+            for level in range(levels):
+                res = math.ceil(2.0 ** (level * log2_scale) * base - 1.0) + 1
+                rows += min(next_multiple(min(res ** d, 2 ** 31), 8), cap)
+            enc_width, fixed = levels * f, 0
         width, hidden = int(net["n_neurons"]), int(net["n_hidden_layers"])
         n_out = int(cfg["n_output_dims"])
-        widths = (levels * f,) + (width,) * hidden + (n_out,)
-        padded = (next_multiple(levels * f, 16),) + (width,) * hidden + (next_multiple(n_out, 16),)
+        widths = (enc_width,) + (width,) * hidden + (n_out,)
+        padded = (next_multiple(enc_width, 16),) + (width,) * hidden + (next_multiple(n_out, 16),)
         n_mlp = sum(a * b for a, b in zip(padded[:-1], padded[1:]))
-        return cls(d, levels, f, rows, widths, n_mlp + rows * f)
+        return cls(d, levels, f, rows, widths, n_mlp + rows * f, fixed)
 
     @property
     def mlp_macs(self) -> int:
@@ -86,15 +109,21 @@ class Shapes:
     def grid_ops(self, n: int, *kinds: str) -> float:
         return float(n) * self.levels * (1 << self.d) * sum(self.grid_per_corner(k) for k in kinds)
 
+    def encoding_ops(self, n: int, *kinds: str) -> float:
+        """`grid_ops`, and a parameter-free encoding's forward (it has no
+        table gradient; a grid adds 0)."""
+        return self.grid_ops(n, *kinds) + float(n) * self.fixed_ops
+
 
 def train_step(cfg: dict, batch: int) -> Work:
     """A supervised step: inputs and targets read, the parameters read and
-    their gradient written once; the grid forward and table gradient; the
-    MLP forward, its input gradient and its weight gradient (3x forward)."""
+    their gradient written once; the encoding's forward and a grid's table
+    gradient; the MLP forward, its input gradient and its weight gradient
+    (3x forward)."""
     s = Shapes.of(cfg)
     n_out = int(cfg["n_output_dims"])
     nbytes = batch * (s.d + n_out) * F32 + 2 * s.n_params * F32
-    return Work(nbytes, 3 * 2.0 * s.mlp_macs * batch, s.grid_ops(batch, "fwd", "bwd"))
+    return Work(nbytes, 3 * 2.0 * s.mlp_macs * batch, s.encoding_ops(batch, "fwd", "bwd"))
 
 
 def eikonal_step(cfg: dict, batch: int, n_eikonal: int) -> Work:
@@ -112,11 +141,11 @@ def eikonal_step(cfg: dict, batch: int, n_eikonal: int) -> Work:
 
 def inference(cfg: dict, queries: int) -> Work:
     """A frame: the queries read, the parameters read once, the outputs
-    written (f32); the grid and MLP forward."""
+    written (f32); the encoding and MLP forward."""
     s = Shapes.of(cfg)
     n_out = int(cfg["n_output_dims"])
     nbytes = queries * (s.d + n_out) * F32 + s.n_params * F32
-    return Work(nbytes, 2.0 * s.mlp_macs * queries, s.grid_ops(queries, "fwd"))
+    return Work(nbytes, 2.0 * s.mlp_macs * queries, s.encoding_ops(queries, "fwd"))
 
 
 def adam_seconds(n_params: int) -> float:

@@ -55,11 +55,19 @@ def sample_image(image: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return top * (1 - ty) + bot * ty
 
 
-def image_ring(seed: int, batch: int, ring: int, image_size: int, device):
+def image_ring(seed: int, batch: int, ring: int, image_size: int, device, halves: bool = False):
     """(x f32 [ring, batch, 2] uniform in [0, 1), y f32 [ring, batch, 3]
-    their bilinear targets) from a seeded synthetic image."""
+    their bilinear targets) from a seeded synthetic image. With `halves`,
+    each batch draws its first half at x < 0.5 and its second at x >= 0.5
+    from the same numbers: still uniform over the image as a whole
+    (stratified), and a step that drops half of its batch drops half of
+    the image."""
     image = synthetic_image(seed, image_size, device)
     x = torch.rand(ring, batch, 2, generator=generator(seed, BATCHES, device), device=device)
+    if halves:
+        n = batch // 2
+        x[:, :n, 0] *= 0.5
+        x[:, n:, 0] = 0.5 + 0.5 * x[:, n:, 0]
     return x, sample_image(image, x)
 
 

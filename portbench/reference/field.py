@@ -1,22 +1,24 @@
 """Plain PyTorch reference of a neural field: a multiresolution hash grid
-into a fully fused MLP, its losses and its optimizers, written from the
-published descriptions (Instant-NGP, arXiv:2201.05989, and tiny-cuda-nn's
-grid.h, fully_fused_mlp.cu, relative_l2.h and adam.h). It imports nothing
-of the program under test and takes nothing the program made: the layout,
-the level tables and every derived constant are worked out here again.
+or a OneBlob encoding into a fully fused MLP, its losses and its
+optimizers, written from the published descriptions (Instant-NGP,
+arXiv:2201.05989, and tiny-cuda-nn's grid.h, oneblob.h, fully_fused_mlp.cu,
+relative_l2.h and adam.h). It imports nothing of the program under test
+and takes nothing the program made: the layout, the level tables and every
+derived constant are worked out here again.
 
 Everything runs in float32 with TF32 off (`strict_f32`). `precision="fp8"`
 is the control: the same arithmetic with every value the program rounds to
-bfloat16 (the table it gathers, the encoding, each weight matrix and each
-layer's output) rounded to float8 e4m3 instead, each tensor scaled by its
-own largest magnitude, gradients passing straight through.
+bfloat16 (a grid's table it gathers, the encoding, each weight matrix and
+each layer's output) rounded to float8 e4m3 instead, each tensor scaled by
+its own largest magnitude, gradients passing straight through.
 `precision="bf16"` rounds those values to bfloat16, as the program does: a
 witness of what the rounding alone does, for the tests.
 
 The flat parameter vector is tiny-cuda-nn's: [W_in | W_hidden... | W_out |
-grid table], each matrix row-major [fan_out, fan_in], the input width the
-encoding's width padded to a multiple of 16 with zero columns, the output
-width padded to a multiple of 16 with rows that the loss never reads.
+grid table] (no table after a OneBlob), each matrix row-major [fan_out,
+fan_in], the input width the encoding's width padded to a multiple of 16
+with zero columns, the output width padded to a multiple of 16 with rows
+that the loss never reads.
 """
 
 from __future__ import annotations
@@ -142,10 +144,10 @@ class HashGrid:
                 raw = (raw + cells[:, dim] * self.strides[level][dim]) & U32
         return self.offsets[level] + raw % self.sizes[level]
 
-    def encode(self, table: torch.Tensor, x: torch.Tensor, rnd: Rounding) -> torch.Tensor:
+    def encode(self, params: torch.Tensor, x: torch.Tensor, rnd: Rounding) -> torch.Tensor:
         """f32 [N, L*F], level-major and feature-minor; differentiable in
-        `table` [rows, F] and `x` [N, D] to any order."""
-        table = rnd(table)
+        the table `params` [rows * F] and `x` [N, D] to any order."""
+        table = rnd(params.view(self.rows, self.f))
         out = []
         for level in range(self.n_levels):
             pos = x * torch.tensor(self.scales[level], dtype=torch.float32) + 0.5
@@ -162,6 +164,49 @@ class HashGrid:
                 acc = acc + w[:, None] * table[rows]
             out.append(acc)
         return torch.cat(out, 1)
+
+
+def quartic_cdf(t: torch.Tensor, inv_radius: float) -> torch.Tensor:
+    """CDF of the quartic kernel 15/16 (1 - u^2)^2 of radius 1/inv_radius
+    at t, clamped to [0, 1] (tiny-cuda-nn common_device.h, quartic_cdf)."""
+    u = t * inv_radius
+    u2 = u * u
+    u4 = u2 * u2
+    return torch.clamp(15.0 / 16.0 * u * (1.0 - 2.0 / 3.0 * u2 + 1.0 / 5.0 * u4) + 0.5, 0.0, 1.0)
+
+
+class OneBlob:
+    """tiny-cuda-nn's OneBlob (oneblob.h:46-96), no parameters: for each
+    input dimension x and each of the n bins [k/n, (k+1)/n], the mass of
+    the quartic kernel of radius 1/n centred at x that falls in the bin,
+    the kernel wrapped around [0, 1] by its copies at x - 1 and x + 1:
+    cdf((k+1)/n) - cdf(k/n), cdf(b) = quartic_cdf(b - x) + quartic_cdf(b -
+    x - 1) + quartic_cdf(b - x + 1). Dimension-major, bins minor."""
+
+    n_params = 0
+
+    def __init__(self, n_dims: int, cfg: dict):
+        self.d = n_dims
+        self.n_bins = int(cfg.get("n_bins", 16))
+
+    @property
+    def width(self) -> int:
+        return self.d * self.n_bins
+
+    def leaves(self, start: int):
+        return []
+
+    def encode(self, params: torch.Tensor, x: torch.Tensor, rnd: Rounding) -> torch.Tensor:
+        """f32 [N, D * n_bins] of `x` [N, D]; `params` is empty."""
+        n = self.n_bins
+        bounds = torch.arange(n + 1, device=x.device, dtype=torch.float32) / n
+        t = bounds[None, None, :] - x[:, :, None]   # [N, D, n + 1]
+        cdf = quartic_cdf(t, n) + quartic_cdf(t - 1.0, n) + quartic_cdf(t + 1.0, n)
+        return (cdf[:, :, 1:] - cdf[:, :, :-1]).reshape(x.shape[0], self.width)
+
+
+#: the reference's encoding of each `otype` a configuration here names
+ENCODINGS = {"HashGrid": HashGrid, "Grid": HashGrid, "OneBlob": OneBlob}
 
 
 class Mlp:
@@ -203,21 +248,23 @@ class Mlp:
 
 
 class Field:
-    """Grid into MLP over one flat parameter vector [MLP | grid]."""
+    """Encoding into MLP over one flat parameter vector [MLP | encoding]."""
 
     def __init__(self, cfg: dict, precision: str = "f32"):
         self.cfg = cfg
-        self.grid = HashGrid(int(cfg["n_input_dims"]), cfg["encoding"])
-        self.mlp = Mlp(self.grid.width, int(cfg["n_output_dims"]), cfg["network"])
-        self.n_params = self.mlp.n_params + self.grid.n_params
+        otype = cfg["encoding"].get("otype")
+        if otype not in ENCODINGS:
+            raise ValueError(f"the reference holds the encodings {sorted(ENCODINGS)}, not {otype!r}")
+        self.encoding = ENCODINGS[otype](int(cfg["n_input_dims"]), cfg["encoding"])
+        self.mlp = Mlp(self.encoding.width, int(cfg["n_output_dims"]), cfg["network"])
+        self.n_params = self.mlp.n_params + self.encoding.n_params
         self.rnd = Rounding(precision)
 
     def leaves(self):
-        return self.mlp.leaves() + self.grid.leaves(self.mlp.n_params)
+        return self.mlp.leaves() + self.encoding.leaves(self.mlp.n_params)
 
     def forward(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        table = params[self.mlp.n_params :].view(self.grid.rows, self.grid.f)
-        enc = self.rnd(self.grid.encode(table, x, self.rnd))
+        enc = self.rnd(self.encoding.encode(params[self.mlp.n_params :], x, self.rnd))
         return self.mlp.apply(params[: self.mlp.n_params], enc, self.rnd)
 
     def forward_blocks(self, params, x, block: int = 1 << 20) -> torch.Tensor:
@@ -230,8 +277,8 @@ class Field:
 def initial_params(field: Field, seed: int, table_scale: float, device) -> torch.Tensor:
     """Seeded f32 weights on `device` in two large calls: U(-1, 1) over the
     whole vector from a generator on the device, then scaled per leaf: each
-    matrix to its Xavier bound, the table to `table_scale` (tiny-cuda-nn
-    initialises it at 1e-4)."""
+    matrix to its Xavier bound, a grid's table to `table_scale`
+    (tiny-cuda-nn initialises it at 1e-4)."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
     u = torch.rand(field.n_params, generator=gen, device=device) * 2.0 - 1.0
     scale = torch.full((field.n_params,), float(table_scale), device=device)

@@ -24,6 +24,10 @@ SMALL = {
                          "trace_wait": 1, "trace_units": 2, "probe_units": 2},
     "hash_image.modules": {"batch": 1024, "ring": 4, "image_size": 64, "warmup": 1,
                            "trace_wait": 1, "trace_units": 2, "probe_units": 2},
+    "ngp_image.train": {"batch": 1024, "ring": 4, "image_size": 64, "warmup": 1,
+                        "trace_wait": 1, "trace_units": 2, "probe_units": 2},
+    "oneblob_image.train": {"batch": 1024, "ring": 4, "image_size": 64, "warmup": 1,
+                            "trace_wait": 1, "trace_units": 2, "probe_units": 2},
 }
 
 

@@ -60,7 +60,41 @@ def test_sdf_counts_by_hand():
     assert [s.grid_per_corner(k) for k in ("fwd", "bwd", "ig", "bwdbwd")] == [6, 6, 19, 72]
 
 
-@pytest.mark.parametrize("name", ["hash_image", "sdf_grid"])
+def test_ngp_image_shapes_by_hand():
+    s = counts.Shapes.of(config("ngp_image"))
+    # scale 2.0 from base 16: levels 0-5 dense at 16, 32, ..., 512 a side
+    # (512^2 = 2^18 rows), levels 6-15 capped at 2^19
+    assert s.rows == 256 + 1024 + 4096 + 16_384 + 65_536 + 262_144 + 10 * 2**19 == 5_592_320
+    assert s.n_params == 7_168 + 2 * 5_592_320 == 11_191_808
+    assert 2 * s.mlp_macs == 12_672
+    w = counts.train_step(config("ngp_image"), 1 << 18)
+    assert w.grid_ops == 640 * 2**18
+    # the table read and its gradient written now bound the step: 90.8 MB
+    assert w.bytes == 2**18 * 5 * 4 + 2 * 11_191_808 * 4
+    assert w.least_seconds() == pytest.approx(w.bytes / 3.35e12)
+
+
+def test_oneblob_image_counts_by_hand():
+    c = config("oneblob_image")
+    s = counts.Shapes.of(c)
+    # 2 dims x 64 bins = 128 into five 128-wide layers and 3 outputs
+    assert s.widths == (128, 128, 128, 128, 128, 128, 3)
+    assert s.mlp_macs == 5 * 128 * 128 + 128 * 3 == 82_304
+    # six matrices at padded widths 128-128x5-16, no table
+    assert s.rows == 0 and s.n_params == 5 * 128 * 128 + 16 * 128 == 83_968
+    # per dimension 65 boundaries of (offset, 2 wraps, 3 CDFs of 10, 2 sums)
+    # and 64 differences
+    assert s.fixed_ops == 2 * (65 * 35 + 64) == 4_678
+    w = counts.train_step(c, 1 << 18)
+    assert w.mlp_flops == 3 * 2 * 82_304 * 2**18
+    assert w.grid_ops == 4_678 * 2**18
+    assert w.mlp_flops / 989e12 == pytest.approx(130.9e-6, rel=1e-3)
+    assert w.least_seconds() == pytest.approx(130.9e-6 + 18.30e-6, rel=1e-3)
+    f = counts.inference(c, 1000)
+    assert f.mlp_flops == 2 * 82_304 * 1000 and f.grid_ops == 4_678 * 1000
+
+
+@pytest.mark.parametrize("name", ["hash_image", "sdf_grid", "ngp_image", "oneblob_image"])
 def test_counts_reference_and_program_agree_on_the_layout(name):
     import tcnn_tpu_torch as tt
 
@@ -78,3 +112,17 @@ def test_hash_image_is_the_published_config():
     c = config("hash_image")
     for block in ("loss", "optimizer", "encoding", "network"):
         assert c[block] == published[block]
+
+
+@pytest.mark.parametrize("name,published,grid", [
+    ("oneblob_image", "config_oneblob.json", {}),
+    # DOCUMENTATION.md's HashGrid defaults, where config_hash.json sets others
+    ("ngp_image", "config_hash.json", {"log2_hashmap_size": 19, "per_level_scale": 2.0}),
+])
+def test_a_config_is_its_published_file(name, published, grid):
+    p = json.loads((CONFIGS.parents[1] / "data" / published).read_text())
+    c = config(name)
+    for block in ("loss", "optimizer", "network"):
+        assert c[block] == p[block]
+    assert c["encoding"] == dict(p["encoding"], **grid)
+    assert all(p["encoding"][k] != v for k, v in grid.items())

@@ -116,10 +116,17 @@ def test_the_benchmark_names_each_reader_once_in_its_cell():
     assert spec.validate() == []
     bench = json.loads((spec.HERE.parent / "BENCHMARK.json").read_text())
     entries = {m["name"]: m for m in bench["per_layer"]}
+    reports = {m["name"]: set(m.get("workloads", [])) for m in bench["end_to_end"]}
     for names, cell, moves in ((TRAIN, "hash_image.train", "train_samples_per_s"),
                                (INFER, "hash_image.infer", "infer_samples_per_s")):
         for name in names:
             m = entries[name]
-            assert m["workloads"] == [cell] and m["moves"] == moves and m["better"] == "lower"
+            # listed once in each cell, and only in cells that report what it moves
+            assert cell in m["workloads"] and len(set(m["workloads"])) == len(m["workloads"])
+            assert set(m["workloads"]) <= reports[moves]
+            assert m["moves"] == moves and m["better"] == "lower"
             assert m["source"] == ("program_counter" if "launches" in name or "rebuilds" in name
                                    else "program_span")
+    # K6's spans: nothing to read on the composed route
+    for name in ("kernels.prepare_host_ms.train", "kernels.launch_host_ms.train"):
+        assert "oneblob_image.train" not in entries[name]["workloads"]

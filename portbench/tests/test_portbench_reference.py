@@ -27,7 +27,7 @@ def model_of(c):
     return tt.create_from_config(c["n_input_dims"], c["n_output_dims"], blocks, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["hash_image", "sdf_grid"])
+@pytest.mark.parametrize("name", ["hash_image", "sdf_grid", "ngp_image", "oneblob_image"])
 def test_forward_matches_the_ports_f32_route(name):
     """At compute dtype f32 on a CPU tensor the port takes its plain route
     (an f32 gather and the f32 matmul chain): the reference computes the
@@ -58,6 +58,39 @@ def test_grid_rows_match_the_ports_index_math():
         for corner, k in enumerate(corners):
             bits = torch.tensor([(corner >> d) & 1 for d in range(2)])
             assert torch.equal(g._level_rows(level, cells + bits), k.rows[:, level])
+
+
+def test_oneblob_matches_the_ports_encoding():
+    """The reference's OneBlob against the port's, in f32 on the CPU, over
+    [0, 1) and at its edges, where the kernel wraps around."""
+    from tcnn_tpu_torch.ops.encodings.fixed import oneblob_encode
+
+    x = torch.rand(1000, 2, generator=torch.Generator().manual_seed(12))
+    x[:4] = torch.tensor([[0.0, 1.0], [1e-4, 0.9999], [0.5, 0.25], [1.0 / 128, 63.0 / 64]])
+    enc = ref.OneBlob(2, {"n_bins": 64})
+    got = enc.encode(torch.zeros(0), x, ref.Rounding("f32"))
+    assert got.shape == (1000, 128)
+    assert torch.allclose(got, oneblob_encode(x, 64), rtol=0, atol=2e-7)
+
+
+def test_oneblob_is_the_wrapped_kernels_mass_in_each_bin():
+    """Each bin holds the mass of the quartic kernel 15/16 (1 - u^2)^2 of
+    radius 1/n around x, wrapped onto [0, 1), by quadrature: it sums to 1
+    over the bins of a dimension, and bins more than a radius away hold
+    none."""
+    n = 16
+    x = torch.tensor([[0.0, 0.3], [0.97, 0.51]], dtype=torch.float64)
+    got = ref.OneBlob(2, {"n_bins": n}).encode(torch.zeros(0), x.float(), ref.Rounding("f32")).double()
+    t = (torch.arange(200_000, dtype=torch.float64) + 0.5) / 200_000   # midpoints over [0, 1)
+    for i in range(2):
+        for dim in range(2):
+            d = (t - x[i, dim] + 0.5) % 1.0 - 0.5   # wrapped distance
+            u = d * n
+            density = torch.where(u.abs() < 1, 15.0 / 16.0 * (1 - u * u) ** 2 * n, torch.zeros_like(u))
+            mass = torch.stack([density[(t >= k / n) & (t < (k + 1) / n)].sum() for k in range(n)]) / t.numel()
+            row = got[i, dim * n : (dim + 1) * n]
+            assert torch.allclose(row, mass, atol=1e-5)
+            assert abs(float(row.sum()) - 1.0) < 1e-5
 
 
 def test_relative_l2_matches_the_ports_loss_and_gradient():

@@ -5,7 +5,9 @@ Mix parameters: batch, ring (batches drawn in set-up and cycled, so the
 window times the program and not the generator), image_size (the seeded
 synthetic image the targets are fetched from), table_init (the table's
 U(-a, a) bound), warmup (steps after the checked ones, before the window),
-trace_units, trace_wait, probe_units.
+trace_units, trace_wait, probe_units; and, optionally, halves (each
+batch's first half drawn at x < 0.5, its second at x >= 0.5,
+`inputs.image_ring`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ def setup(cell, seed, device):
     trainer = model.trainer
     w0 = training.seeded_weights(cfg, seed, mix["table_init"], model.network.n_params, device)
     trainer.set_params(w0)
-    x, y = inputs.image_ring(seed, mix["batch"], mix["ring"], mix["image_size"], device)
+    x, y = inputs.image_ring(seed, mix["batch"], mix["ring"], mix["image_size"], device,
+                             mix.get("halves", False))
     s = types.SimpleNamespace(trainer=trainer, x=x, y=y, ring=mix["ring"], offset=0,
                               samples_per_unit=mix["batch"],
                               work=counts.train_step(cfg, mix["batch"]),
@@ -63,7 +66,8 @@ def reference(cell, seed, device, precision):
     cfg, mix = cell.config, cell.mix
     f = ref.Field(cfg, precision)
     w0 = ref.initial_params(f, seed, mix["table_init"], device)
-    x, y = inputs.image_ring(seed, mix["batch"], mix["ring"], mix["image_size"], device)
+    x, y = inputs.image_ring(seed, mix["batch"], mix["ring"], mix["image_size"], device,
+                             mix.get("halves", False))
     if cfg["loss"]["otype"] != "RelativeL2":
         raise ValueError("the reference holds the RelativeL2 loss here")
     opt = ref.TcnnAdam(cfg["optimizer"], f.n_params, f.mlp.n_params, device)
