@@ -22,7 +22,9 @@ grid + MLP inference (K3), train step (K6) and input-gradient backward
 (K12) and the lookup's backward (K13). They build at first use on a CUDA
 tensor; a CPU tensor takes each kernel's plain PyTorch twin.
 Entry points run on the card unless the caller asks for the CPU
-(`device="cpu"`).
+(`device="cpu"`). A config with instant-ngp's "dir_encoding" and
+"rgb_network" blocks (its configs/nerf/base.json) builds instant-ngp's NeRF
+(`models.nerf.NerfNetwork`), trained on rays (`ops.volume.Rays`).
 
 Around the model: `parallel` trains data-parallel on `torch.distributed`
 (`DataParallelTrainer`, `init_distributed`, `dryrun_multichip`), `native`

@@ -14,7 +14,9 @@ failure: a model and loss that `train_kernel.supported` takes run the fused
 train kernel K6 (its plain twin on the CPU); every other model runs
 `model.apply` under autograd (K1 -> K2 forward, K5 -> K4 backward, or the
 matmul chain). `use_fused_train_kernel` = False forces the composed route;
-True raises for a model the gate does not take.
+True raises for a model the gate does not take. Targets given as
+`ops.volume.Rays` (a NeRF's samples, ray by ray) take the composed route
+into the ray loss (`models.nerf.train_grads`): one forward, one backward.
 
 Inference follows the JAX package's dispatch (trainer.py:418-479): a grid +
 FullyFusedMLP model without Sine and without a max_level clamp runs the
@@ -49,6 +51,8 @@ from .ops.cuda.train_kernel import (
     prepare_forward,
     supported,
 )
+from .models import nerf
+from .ops.volume import Rays
 from .registry import create_loss
 from .utils import profiling
 from .utils.serialization import (
@@ -147,6 +151,11 @@ class Trainer:
     def loss_and_grad_fn(self, params, inputs, targets, pdf=None):
         """(loss sum, f32 gradient of the flat params); the gradient carries
         loss_scale (the optimizer divides it back out)."""
+        if isinstance(targets, Rays):
+            if pdf is not None or self.perturbation_sigma > 0 or self.use_fused():
+                raise ValueError("rays train on the composed route, with no pdf or perturbation")
+            return nerf.train_grads(self.model, self.loss_fn, params, inputs, targets,
+                                    self.loss_scale, self.compute_dtype)
         noise = None
         if self.perturbation_sigma > 0:
             noise = self._noise((inputs.shape[0], self.model.padded_output_width))
@@ -201,6 +210,8 @@ class Trainer:
             return self.train_step_fn(self.state, x, targets, pdf, dL_doutput)
 
     def _input(self, inputs) -> torch.Tensor:
+        if isinstance(inputs, Rays):   # a ray loss's targets pass as they are
+            return inputs
         x = torch.as_tensor(inputs, dtype=torch.float32)
         if x.device != self.device:
             raise ValueError(f"inputs on {x.device}, model on {self.device}")

@@ -17,9 +17,11 @@ table. Names the program uses:
 
   spans     tcnn.training_step, tcnn.k6.prepare, tcnn.k6.launch,
             tcnn.optimizer.step, tcnn.inference, tcnn.k3.operands,
-            tcnn.k3.launch
+            tcnn.k3.launch; a NeRF step's tcnn.nerf.fields,
+            tcnn.nerf.composite, tcnn.nerf.backward (models/nerf.py)
   counters  launches.K1 ... launches.K14 (each kernel's launches),
-            k3.operands_rebuilt (K3's operands cast anew)
+            k3.operands_rebuilt (K3's operands cast anew), nerf.rays and
+            nerf.samples (a NeRF step's rays and samples)
 """
 
 from __future__ import annotations
