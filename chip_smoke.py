@@ -124,11 +124,15 @@ Phases, each printing JSON lines:
      TriangleWave and SH (degrees 1-8) on the card against the CPU in f32
      (B = 2^18); (a) data/config_oneblob.json (OneBlob 64 bins, 128 x 5)
      trains through the image sample at B = 2^18 (counters: K2 and K5 once
-     a step, nothing else), loss fall and holdout PSNR under ONEBLOB_LIMITS,
-     `trainer.inference` equal to `model.apply`, a save/load; K2 and K5 at
-     its shape (input 128; K5's 16-row tile) against their twins at 2^18,
-     2^18 - 37 and 1 beside their controls; the step, K2's and K5's device
-     time in it and the CutlassMLP step; (b) the module-API sample on
+     a step, nothing else; K5 on its split plan every step, `k5.split`),
+     loss fall and holdout PSNR under ONEBLOB_LIMITS, `trainer.inference`
+     equal to `model.apply`, a save/load; K2 and K5 at its shape (input
+     128) and K5 at 128 x 5 on input 32, both on K5's split plan, against
+     their twins at 2^18, 2^18 - 37 and 1 beside their controls; the step,
+     K2's device time in it and K5's split plan's (dgrad, weight gradient,
+     reduce) beside K5's bound, and the CutlassMLP step; the NeRF cell's
+     two networks train two steps (K5 twice a step, never split); (b) the
+     module-API sample on
      config_hash (`tt.NetworkWithInputEncoding`, torch.optim.Adam, B =
      2^16): its fwd/bwd demo (K3, K9), steps (K1 K2 K5 K4 once each), render
      (K1 K2), limits MODULES_LIMITS, and `bwd` in each GradientMode against
@@ -816,6 +820,13 @@ def reset_counters():
     from tcnn_tpu_torch.utils import profiling
 
     profiling.reset_counts()
+
+
+def k5_split_count() -> int:
+    """K5 calls that took the split plan since the counters were reset."""
+    from tcnn_tpu_torch.utils import profiling
+
+    return profiling.counts("k5.split").get("k5.split", 0)
 
 
 def cuda_ms(fn, iters):
@@ -2717,14 +2728,18 @@ def oneblob_slice(dev, smi):
     B = 2^18 through the image sample's `train` (K2 and K5 once a step, by
     the counters; no grid kernel); loss fall and holdout PSNR under
     ONEBLOB_LIMITS; `trainer.inference` equal to `model.apply`; a save/load
-    of the trained state. Then K2 and K5 against their twins on the trained
-    weights at B = 2^18, 2^18 - 37 and 1, each beside its control, and the
-    times: K2 and K5 and their twins, the step (CUDA events), K2's and K5's
-    device time inside it (torch.profiler) and the same model's step with
-    CutlassMLP (the torch.matmul chain). Returns (launches {K2, K5}, errs
-    {K2, K5})."""
+    of the trained state; K5 on its split plan every step (`k5.split`).
+    Then K2 and K5 against their twins on the trained weights at B = 2^18,
+    2^18 - 37 and 1, and K5 at 128 x 5 on input 32 (OneBlob of 16 bins,
+    weights U(-0.1, 0.1)), each beside its control, the latter also under
+    three other activation pairs at B_COVER; and the times: K2 and
+    K5 and their twins, the step (CUDA events), K2's device time inside it
+    and that of K5's split plan by kernel (torch.profiler) and the same
+    model's step with CutlassMLP (the torch.matmul chain). Returns
+    (launches {K2, K5}, errs {K2, K5})."""
     import torch
     import tcnn_tpu_torch as tt
+    from tcnn_tpu_torch.common import parse_activation
     from tcnn_tpu_torch.ops.cuda import _build, mlp_kernel
     from tcnn_tpu_torch.samples import mlp_learning_an_image as image_sample
     from tcnn_tpu_torch.utils.image import psnr, sample_image, synthetic_image
@@ -2739,6 +2754,7 @@ def oneblob_slice(dev, smi):
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     trained = counters()
+    split_steps = k5_split_count()
     tr, net = model.trainer, model.network
     check(bool(torch.isfinite(losses).all()), "config_oneblob loss not finite")
     fall = float(losses[0] / losses[-10:].mean())
@@ -2753,10 +2769,12 @@ def oneblob_slice(dev, smi):
           "loss_at": {str(i): float(losses[i]) for i in sorted(
               {0, N_ONEBLOB_STEPS // 10, N_ONEBLOB_STEPS // 2, N_ONEBLOB_STEPS - 1})},
           "loss_fall": fall, "loss_fall_min": fall_min, "holdout_psnr_db": holdout_psnr,
-          "psnr_min_db": psnr_min, "loop_seconds": loop_s})
+          "psnr_min_db": psnr_min, "loop_seconds": loop_s, "k5_split": split_steps})
     check(all(v == (N_ONEBLOB_STEPS if k in ("K2", "K5") else 0) for k, v in trained.items()),
           f"config_oneblob's steps did not run K2 and K5 once each a step, and nothing else: "
           f"{trained}")
+    check(split_steps == N_ONEBLOB_STEPS,
+          f"K5 took its split plan {split_steps} times in {N_ONEBLOB_STEPS} config_oneblob steps")
     check(fall >= fall_min, f"config_oneblob loss fell only {fall}x")
     check(holdout_psnr >= psnr_min, f"config_oneblob holdout PSNR {holdout_psnr} dB")
     compare_exact("config_oneblob trainer.inference vs model.apply", y_hold,
@@ -2792,12 +2810,40 @@ def oneblob_slice(dev, smi):
         errs["K5"] = max(errs["K5"], check_mlp_bwd(
             f"K5 mlp_bwd config_oneblob B={B}", dims, weights, enc, gout, K5_REL["128x5"],
             control_too=True))
-    tile = mlp_kernel.mlp_bwd_tile(dims)
+    # K5's other split-plan shape, 128 x 5 at input 32 (phase 3's, there on
+    # grid encodings), here on OneBlob encodings of 16 bins a dimension and
+    # weights U(-0.1, 0.1)
+    enc32 = tt.create_encoding(2, {"otype": "OneBlob", "n_bins": 16})
+    dims32 = mlp_kernel.MlpDims(32, 128, 5, 16, dims.activation, dims.output_activation)
+    w32 = (torch.rand(dims32.n_weights, generator=ogen) * 0.2 - 0.1).to(torch.bfloat16).to(dev)
+    for B in BATCHES:
+        x = torch.rand(B, 2, generator=ogen).to(dev)
+        enc = enc32.encode_f32(x).to(torch.bfloat16).contiguous()
+        gout = loss_cotangent(dims32, w32, enc, tr.loss_fn, sample_image(image, x), tr.loss_scale)
+        errs["K5"] = max(errs["K5"], check_mlp_bwd(
+            f"K5 mlp_bwd 128x5 input 32 B={B}", dims32, w32, enc, gout, K5_REL["128x5"],
+            control_too=True))
+    # the split plan's dgrad under activations other than ReLU (their
+    # transfer reads h_i back from device memory), at phase 3's coverage
+    # batch and bound; Exponential as a hidden activation would overflow
+    # through five layers of 128 and is left out
+    for act, out_act in (("Tanh", "Sigmoid"), ("LeakyReLU", "Exponential"),
+                         ("Softplus", "Squareplus")):
+        dact = mlp_kernel.MlpDims(32, 128, 5, 16, parse_activation(act), parse_activation(out_act))
+        x = torch.rand(B_COVER, 2, generator=ogen).to(dev)
+        enc = enc32.encode_f32(x).to(torch.bfloat16).contiguous()
+        gout = loss_cotangent(dact, w32, enc, tr.loss_fn, sample_image(image, x), tr.loss_scale)
+        errs["K5"] = max(errs["K5"], check_mlp_bwd(
+            f"K5 mlp_bwd 128x5 input 32 {act}/{out_act} B={B_COVER}", dact, w32, enc, gout,
+            {"gW": COVER_REL, "gx": COVER_REL}))
+    plans = {f"input {d.in_w}": mlp_kernel.mlp_bwd_plan(d) for d in (dims, dims32)}
+    warps = mlp_kernel.mlp_dgrad_warps(dims)
     emit({"phase": "oneblob tiles", "dims": [dims.in_w, dims.width, dims.n_hidden, dims.out_w],
-          "K5_tile_rows": tile,
-          "K5_smem_bytes": mlp_kernel.mlp_bwd_smem_bytes(dims, tile),
+          "K5_plans": plans, "K5_resident_tile_rows": mlp_kernel.mlp_bwd_tile(dims),
+          "K5_dgrad_warps": warps, "K5_dgrad_smem_bytes": mlp_kernel.mlp_dgrad_smem_bytes(dims, warps),
+          "K5_wgrad_smem_bytes": mlp_kernel.mlp_wgrad_smem_bytes(dims),
           "K2_tile_rows": mlp_kernel.tile_rows(dims, weights.device)})
-    check(tile == 16, f"K5 at config_oneblob's shape takes {tile}-row tiles, not 16")
+    check(set(plans.values()) == {"split"}, f"K5 at 128 x 5 does not take its split plan: {plans}")
 
     # times at B = 2^18
     x = torch.rand(B_MAIN, 2, generator=ogen).to(dev)
@@ -2813,7 +2859,12 @@ def oneblob_slice(dev, smi):
               "K5": k5_bound(dims, weights, enc, gy)}
     step = lambda: tr.training_step(x, t)  # noqa: E731
     step_ms = cuda_ms(step, 30)
-    k5_dev, step_dev = kernel_device_ms(step, "mlp_bwd_kernel")
+    # K5's split plan: dgrad (A), the weight gradient (B) and the reduce
+    k5_parts = {}
+    for part, key in (("A", "mlp_dgrad_kernel"), ("B", "mlp_wgrad_kernel"),
+                      ("reduce", "reduce_partials")):
+        k5_parts[part], step_dev = kernel_device_ms(step, key)
+    k5_dev = sum(k5_parts.values())
     k2_dev, _ = kernel_device_ms(step, "mlp_fwd_kernel")
     ccfg = json.loads(json.dumps(cfg))
     ccfg["network"]["otype"] = "CutlassMLP"
@@ -2827,9 +2878,39 @@ def oneblob_slice(dev, smi):
                      "bound_by": bounds[k][1]} for k, v in ms.items()},
           "training_step_ms": step_ms, "training_steps_per_s": 1e3 / step_ms,
           "step_device_ms": step_dev, "K5_device_ms_in_step": k5_dev,
+          "K5_split_device_ms_in_step": k5_parts, "K5_bound_ms": bounds["K5"][0],
           "K2_device_ms_in_step": k2_dev, "K5_share_of_step_device": k5_dev / step_dev,
           "cutlass_training_step_ms": cutlass_ms, "cutlass_step_device_ms": cutlass_dev})
     return {k: trained[k] for k in ("K2", "K5")}, errs
+
+
+def nerf_k5_plans(dev):
+    """K5 on the NeRF cell's two networks (portbench's ngp_nerf config,
+    density 32 -> 64 -> 16 and colour 32 -> 64 x 2 -> 16): two training
+    steps on rays of 2^18 samples launch K5 twice a step, never on its split
+    plan. Returns (K5 launches, split-plan calls)."""
+    import torch
+    import tcnn_tpu_torch as tt
+    from portbench.traffic import nerf_step
+    from tcnn_tpu_torch.ops.volume import Rays
+
+    cfg = json.loads((ROOT / "portbench" / "configs" / "ngp_nerf.json").read_text())
+    mix = json.loads((ROOT / "portbench" / "traffic" / "nerf_rays_b2e21.json").read_text())
+    mix["batch"] = 1 << 18
+    model = tt.create_from_config(cfg["n_input_dims"], cfg["n_output_dims"],
+                                  {k: cfg[k] for k in nerf_step.BLOCKS}, device=dev)
+    x, offsets, dt, background, target = nerf_step.ray_batch(SEED + 44, 0, mix, dev)
+    rays = Rays(offsets, dt, background, target)
+    model.trainer.training_step(x, rays)
+    torch.cuda.synchronize()
+    reset_counters()
+    for _ in range(2):
+        model.trainer.training_step(x, rays)
+    torch.cuda.synchronize()
+    k5, split = counters()["K5"], k5_split_count()
+    emit({"phase": "nerf K5 plans", "launches_K5": k5, "k5_split": split})
+    check(k5 == 4 and split == 0, f"the NeRF steps ran K5 {k5} times, {split} on its split plan")
+    return k5, split
 
 
 def modules_slice(dev):
@@ -4280,10 +4361,12 @@ def main() -> int:
     other.trainer.training_step(x, t)
     torch.cuda.synchronize()
     composed_launches = counters()
-    emit({"phase": "composed step", "launches": composed_launches})
+    emit({"phase": "composed step", "launches": composed_launches,
+          "k5_split": k5_split_count()})
     check(all(composed_launches[k] == 1 for k in ("K1", "K2", "K4", "K5"))
           and composed_launches["K3"] == composed_launches["K6"] == 0,
           "the composed step did not run K1, K2, K5 and K4 once each")
+    check(k5_split_count() == 0, "the composed config_hash step took K5's split plan")
 
     # save/load with the optimizer state, then one more step on each copy
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
@@ -4489,6 +4572,7 @@ def main() -> int:
     #     HashGrid Composite, its grid at 39 columns
     check_fixed_encodings(dev)
     oneblob_launches, oneblob_errs = oneblob_slice(dev, smi)
+    nerf_k5_plans(dev)
     modules_demo, modules_launches = modules_slice(dev)
     comp_errs, comp_launches, comp_eik_launches = composite_slice(dev)
     for part in (oneblob_errs, comp_errs):

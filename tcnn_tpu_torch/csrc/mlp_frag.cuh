@@ -332,6 +332,39 @@ __device__ __forceinline__ void store_slab_rows(bf16* out, int ld, long row0, lo
   }
 }
 
+// The inverse of store_slab_rows, in two steps so that a chain's loads can be
+// issued before their words are needed. load_slab_piece: the 16-byte row
+// piece that store_slab_rows stores from this lane (zeros at or past B), so
+// a lane that reads back what it stored sees its own write.
+__device__ __forceinline__ uint4 load_slab_piece(const bf16* in, int ld, long row0, long B,
+                                                 int col0) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const long row = row0 + (lane >> 2) + (t >> 1) * 8;
+  return row < B ? *reinterpret_cast<const uint4*>(in + row * ld + col0 + (t & 1) * 8)
+                 : make_uint4(0u, 0u, 0u, 0u);
+}
+// slab_from_piece: the quad's pieces back into A-fragment words. Position s
+// of lane t's piece is word want(t) of lane s, and want is its own inverse,
+// so lane s takes word j from position s of lane want(j)'s piece: in round
+// k it receives from lane (s + k) % 4, which sends position (t - k) % 4 of
+// its own piece.
+__device__ __forceinline__ void slab_from_piece(uint32_t (&a)[4], uint4 piece) {
+  const int lane = threadIdx.x & 31, s = lane & 3;
+  auto at = [&](int pos) {
+    return pos == 0 ? piece.x : pos == 1 ? piece.y : pos == 2 ? piece.z : piece.w;
+  };
+  uint32_t got[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    got[k] = __shfl_sync(0xffffffffu, at((s - k) & 3), (lane & ~3) | ((s + k) & 3));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = ((((j & 1) << 1) | (j >> 1)) - s) & 3;  // want(j) came in round k
+    a[j] = k == 0 ? got[0] : k == 1 ? got[1] : k == 2 ? got[2] : got[3];
+  }
+}
+
 // Weight-gradient units of K5 and K6 / K9: 16x16 blocks of each layer's gW
 // [fan_out, fan_in], numbered layer by layer, row-major within a layer. Unit
 // u belongs to warp u % n_warps, in its register slot u / n_warps while that

@@ -22,7 +22,14 @@ g = g W; the input gradient leaves as bf16. Weight gradients come out in the
 params slice's own flat row-major [fan_out, fan_in] layout, with no
 transpose. K5 keeps the weight gradient in registers across tiles;
 `mlp_bwd_smem_bytes` and `mlp_bwd_tile` mirror its layout and tile on the
-CPU.
+CPU. Where that resident plan cannot give a block 4 warps (width 128 with
+many layers: its padded weights fill the block's shared memory),
+`mlp_bwd_plan` sends K5 to its split plan (``csrc/mlp_bwd_split.cu``): a
+dgrad kernel on K2's plan that writes the kept outputs and every layer's
+bf16 G to scratch, then a split-K weight-gradient kernel over row slices
+whose partials the same fixed-order reduction sums (`mlp_dgrad_warps`,
+`mlp_dgrad_smem_bytes`, `mlp_wgrad_smem_bytes`, `mlp_bwd_split_scratch`
+mirror it).
 
 `mlp_forward` and `mlp_backward` take the plain twin for a CPU tensor and
 the kernel for a CUDA tensor; there is no other route.
@@ -251,9 +258,64 @@ def mlp_bwd_tile(dims: MlpDims) -> int:
     return 0
 
 
+#: K5 takes its split plan where the resident plan's tile (`mlp_bwd_tile`)
+#: is under this many rows: fewer than 4 warps a block, one block an SM.
+SPLIT_BELOW_ROWS = 64
+#: The split plan's weight-gradient kernel (csrc/mlp_bwd_split.cu): rows a
+#: cp.async stage, stages, warps a block and a warp's rectangle of 16x16
+#: units (unit rows, unit columns).
+WGRAD_ROWS = 64
+WGRAD_STAGES = 3
+WGRAD_WARPS = 16
+WGRAD_RECT = (2, 2)
+
+
+def mlp_bwd_plan(dims: MlpDims) -> str:
+    """K5's plan for `dims`, from the shape alone: "split" where the
+    resident plan's tile is under SPLIT_BELOW_ROWS rows, else "resident"."""
+    return "split" if mlp_bwd_tile(dims) < SPLIT_BELOW_ROWS else "resident"
+
+
+def mlp_dgrad_smem_bytes(dims: MlpDims, warps: int) -> int:
+    """Shared memory of a split-plan dgrad block of `warps` warps
+    (csrc/mlp_bwd_split.cu:dgrad_smem_bytes): the padded weights, then each
+    warp's 16 input rows (pitch in_w + 8) and 16 rows of the output layer's
+    gradient (pitch out_w + 8), bf16, and the signs of its rows of each
+    hidden layer's output, 8 bytes a lane (256 a layer)."""
+    slice_ = 2 * (16 * (dims.in_w + 8) + 16 * (dims.out_w + 8)) + 256 * dims.n_hidden
+    return 2 * frag_weight_elems(dims) + warps * slice_
+
+
+def mlp_dgrad_warps(dims: MlpDims) -> int:
+    """Warps of a split-plan dgrad block: the most of 8, 4, 2, 1 that fit
+    SMEM_OPTIN, else 0 (the C side asks the card's own limit)."""
+    for warps in (8, 4, 2, 1):
+        if mlp_dgrad_smem_bytes(dims, warps) <= SMEM_OPTIN:
+            return warps
+    return 0
+
+
+def mlp_wgrad_smem_bytes(dims: MlpDims) -> int:
+    """Shared memory of a split-plan weight-gradient block
+    (csrc/mlp_bwd_split.cu:wgrad_smem_bytes): WGRAD_STAGES stages of
+    WGRAD_ROWS rows of G (pitch widest fan_out + 8) and of h (pitch widest
+    fan_in + 8), bf16."""
+    fo = max(dims.width, dims.out_w)
+    fi = max(dims.width, dims.in_w)
+    return 2 * WGRAD_STAGES * WGRAD_ROWS * (fo + 8 + fi + 8)
+
+
+def mlp_bwd_split_scratch(dims: MlpDims, B: int):
+    """(h, G) bf16 elements the split plan's wrapper allocates for B rows:
+    h_1..h_H [B, width] each; G_0..G_{H-1} [B, width] and G_H [B, out_w]."""
+    kept = dims.n_hidden * B * dims.width
+    return kept, kept + B * dims.out_w
+
+
 def persistent_grid(entry: str, args, device) -> int:
     """The persistent grid of K4 (`tcnn_grid_bwd_grid`), K5
-    (`tcnn_mlp_bwd_grid`), K6 (`tcnn_fused_train_grid`) or K9
+    (`tcnn_mlp_bwd_grid`; its split plan's weight gradient:
+    `tcnn_mlp_bwd_split_grid`), K6 (`tcnn_fused_train_grid`) or K9
     (`tcnn_fused_ig_grid`), as the C side chooses it from the kernel's
     occupancy: the blocks resident at once, never more than the tiles. The
     wrapper sizes the per-block partials by it and passes it to the
@@ -279,6 +341,14 @@ def mlp_backward(dims: MlpDims, weights, x, gy):
         return _mlp_backward_plain(dims, weights, x, gy)
     if not gy.is_contiguous():
         raise ValueError("gy must be contiguous")
+    if mlp_bwd_plan(dims) == "split":
+        return _mlp_backward_split(dims, weights, x, gy, B)
+    return _mlp_backward_resident(dims, weights, x, gy, B)
+
+
+def _mlp_backward_resident(dims: MlpDims, weights, x, gy, B: int):
+    """K5's resident plan on the card: one kernel, then the fixed-order sum
+    of its blocks' partials."""
     nt = mlp_bwd_tile(dims)
     if nt == 0:
         raise ValueError(f"fused MLP {dims} does not fit the backward kernel's shared memory")
@@ -302,6 +372,39 @@ def mlp_backward(dims: MlpDims, weights, x, gy):
 
 
 _MLP_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def _mlp_backward_split(dims: MlpDims, weights, x, gy, B: int):
+    """K5's split plan on the card: dgrad, the split-K weight gradient into
+    per-block partials and their fixed-order sum (one C call, three
+    launches), with the kept outputs and every layer's G in scratch."""
+    if mlp_dgrad_warps(dims) == 0:
+        raise ValueError(f"fused MLP {dims} does not fit the backward kernel's shared memory")
+    dev = x.device
+    gx = torch.empty((B, dims.in_w), dtype=torch.bfloat16, device=dev)
+    if B == 0:
+        return torch.zeros(dims.n_weights, dtype=torch.float32, device=dev), gx
+    gw = torch.empty(dims.n_weights, dtype=torch.float32, device=dev)
+    n_h, n_g = mlp_bwd_split_scratch(dims, B)
+    h = torch.empty(n_h, dtype=torch.bfloat16, device=dev)
+    g = torch.empty(n_g, dtype=torch.bfloat16, device=dev)
+    grid = persistent_grid("tcnn_mlp_bwd_split_grid", (B, *dims.c_args()), dev)
+    partials = torch.empty(grid * dims.n_weights, dtype=torch.float32, device=dev)
+    fn = _build.function("tcnn_mlp_bwd_split", _MLP_BWD_SPLIT_ARGS)
+    _build.check(
+        fn(
+            x.data_ptr(), gy.data_ptr(), weights.data_ptr(), gw.data_ptr(), gx.data_ptr(),
+            h.data_ptr(), g.data_ptr(), partials.data_ptr(), grid, B, *dims.c_args(),
+            dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        ),
+        "tcnn_mlp_bwd_split",
+    )
+    profiling.count("launches.K5")
+    profiling.count("k5.split")
+    return gw, gx
+
+
+_MLP_BWD_SPLIT_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 class FusedMlpFn(torch.autograd.Function):

@@ -50,7 +50,9 @@ def oneblob_encode(x, n_bins: int):
     wrapped_cdf(k/n - x), the quartic kernel's CDF of radius 1/n wrapped
     around [0, 1] by its +-1 shifts (oneblob.h:70-96)."""
     n = int(n_bins)
-    bounds = torch.from_numpy(np.arange(n + 1) / n).to(x.dtype).to(x.device)
+    # k / n in f64, made on x's device: a copy from host memory would
+    # synchronise the stream every call
+    bounds = (torch.arange(n + 1, dtype=torch.float64, device=x.device) / n).to(x.dtype)
     t = bounds[None, None, :] - x[:, :, None]  # [B, D, n+1]
     cdf = quartic_cdf(t, n) + quartic_cdf(t - 1.0, n) + quartic_cdf(t + 1.0, n)
     return (cdf[:, :, 1:] - cdf[:, :, :-1]).reshape(x.shape[0], -1)

@@ -36,6 +36,7 @@ def test_argtypes_match_the_c_entry_points():
     assert sigs["tcnn_mlp_tile"] == [ctypes.c_int] * 5
     assert sigs["tcnn_grid_bwd"] == grid_kernel._GRID_BWD_ARGS
     assert sigs["tcnn_mlp_bwd"] == mlp_kernel._MLP_BWD_ARGS
+    assert sigs["tcnn_mlp_bwd_split"] == mlp_kernel._MLP_BWD_SPLIT_ARGS
     assert sigs["tcnn_fused_train"] == train_kernel._FUSED_TRAIN_ARGS
     assert sigs["tcnn_grid_bwd_ig"] == grid_kernel._GRID_BWD_IG_ARGS
     assert sigs["tcnn_grid_bwd_bwd"] == grid_kernel._GRID_BWD_BWD_ARGS
@@ -48,6 +49,7 @@ def test_argtypes_match_the_c_entry_points():
     # the persistent grids, called as mlp_kernel.persistent_grid calls them
     assert sigs["tcnn_grid_bwd_grid"] == [ctypes.c_int] * 4
     assert sigs["tcnn_mlp_bwd_grid"] == [ctypes.c_int] * 9
+    assert sigs["tcnn_mlp_bwd_split_grid"] == [ctypes.c_int] * 8
     assert sigs["tcnn_fused_train_grid"] == [ctypes.c_int] * 11
     assert sigs["tcnn_fused_ig_grid"] == [ctypes.c_int] * 11
 
@@ -84,7 +86,7 @@ def test_build_compiles_each_source_in_parallel_then_links(tmp_path, monkeypatch
     out = tmp_path / "lib.so"
     _build._compile_and_link(sources, tmp_path, out)
     calls = log.read_text().splitlines()
-    assert len(calls) == len(sources) + 1 and len(sources) == 20
+    assert len(calls) == len(sources) + 1 and len(sources) == 21
     assert all(" -c " in c for c in calls[:-1]) and " -shared " in calls[-1]
     assert sorted(c.split()[-1] for c in calls[:-1]) == sorted(map(str, sources))
     assert out.exists()

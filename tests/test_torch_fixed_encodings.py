@@ -58,6 +58,17 @@ def _pair(otype, d, cfg, seed):
     return je, te, x
 
 
+@pytest.mark.parametrize("n_bins", [1, 4, 16, 64, 100])
+def test_oneblob_bounds_made_on_the_device_keep_its_values_bit_for_bit(n_bins):
+    """`oneblob_encode` makes its bin bounds k / n in f64 on x's device (a
+    copy from host memory would synchronise the card's stream every step)
+    and rounds them to f32 once, as the JAX package does: the same values
+    bit for bit."""
+    je, _, x = _pair("OneBlob", 2, {"n_bins": n_bins}, seed=n_bins)
+    want = np.asarray(je.apply_unpadded(None, jnp.asarray(x), compute_dtype=jnp.float32))
+    assert np.array_equal(fixed.oneblob_encode(torch.from_numpy(x), n_bins).numpy(), want)
+
+
 @pytest.mark.parametrize("otype,d,cfg", CASES, ids=IDS)
 def test_values_and_input_gradients_match_jax(otype, d, cfg):
     je, te, x = _pair(otype, d, cfg, seed=len(otype) + d)

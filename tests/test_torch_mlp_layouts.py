@@ -1,8 +1,10 @@
 """K2's, K3's, K5's, K6's and K9's layouts and their mma.sync fragment maps,
 on the CPU.
 
-K2 (csrc/mlp_fwd.cu), K3 (csrc/fused_infer.cu), K5 (csrc/mlp_bwd.cu), K6
-and K9 (csrc/fused_train.cuh) run the MLP on mma.sync.m16n8k16 with the
+K2 (csrc/mlp_fwd.cu), K3 (csrc/fused_infer.cu), K5 (csrc/mlp_bwd.cu and,
+where its resident plan cannot give a block 4 warps, its split plan in
+csrc/mlp_bwd_split.cu), K6 and K9 (csrc/fused_train.cuh) run the MLP on
+mma.sync.m16n8k16 with the
 activations in registers (csrc/mlp_frag.cuh). The card is the only place
 they run, so a wrong index (a fragment map, an ldmatrix address, the quad
 exchange of the row stores, a unit of the weight gradient dealt twice)
@@ -23,6 +25,7 @@ import torch
 
 import tcnn_tpu_torch as tt
 from tcnn_tpu_torch.common import Activation
+from tcnn_tpu_torch.ops.activations import activation_bwd_out
 from tcnn_tpu_torch.ops.cuda import mlp_kernel as mk
 from tcnn_tpu_torch.ops.cuda import train_kernel as tk
 
@@ -141,18 +144,24 @@ def test_k3_and_k5_layouts(width, kernel):
 def test_main_path_shapes_take_the_register_plan():
     """config_hash (32 -> 64 -> 64 -> 16, also the SDF sample's) and the
     PPNG sample models (48 and 16 in) keep every weight-gradient unit in
-    registers at 128 rows; 128 x 5 keeps 8 of its 280 and sends the rest
-    through the block's partial."""
+    registers at 128 rows. 128 x 5 (inputs 32 and 128) would keep only 8 of
+    its 280 or 4 of its 328 at 32 or 16 rows, so it takes the split plan,
+    whose weight-gradient blocks keep every unit in registers, each layer
+    in one pass over their rows."""
     for in_w in (32, 48, 16):
         d = _dims(in_w, 64, 2)
-        assert mk.mlp_bwd_tile(d) == 128
+        assert mk.mlp_bwd_tile(d) == 128 and mk.mlp_bwd_plan(d) == "resident"
         assert all(u[4] is not None for u in mlp_bwd_units(d, 128))
     src = (pathlib.Path(mk.__file__).parents[2] / "csrc" / "mlp_bwd.cu").read_text()
     assert re.search(r"constexpr int K5_REG_UNITS = (\d+);", src).group(1) == str(REG_UNITS)
-    big = _dims(32, 128, 5)
-    units = mlp_bwd_units(big, mk.mlp_bwd_tile(big))
-    assert mk.mlp_bwd_tile(big) == 32 and len(units) == 280
-    assert sum(u[4] is not None for u in units) == 2 * REG_UNITS
+    for in_w, nt, n_units in ((32, 32, 280), (128, 16, 328)):
+        big = _dims(in_w, 128, 5)
+        units = mlp_bwd_units(big, mk.mlp_bwd_tile(big))
+        assert mk.mlp_bwd_tile(big) == nt and len(units) == n_units
+        assert sum(u[4] is not None for u in units) == nt // 16 * REG_UNITS
+        assert mk.mlp_bwd_plan(big) == "split"
+        rects = wgrad_rects(big)
+        assert len(rects) == n_units and all(r[1] == 0 for r in rects)
     # config_hash's 28 units: warps 0-3 keep four, warps 4-7 three
     plan = mlp_bwd_units(_dims(32, 64, 2), 128)
     per_warp = np.bincount([u[3] for u in plan], minlength=8)
@@ -176,6 +185,169 @@ def test_k5_units_cover_every_weight_once(shape):
             slots.add((warp, slot))
     assert all((s == 1).all() for s in seen)
     assert sum(s.size for s in seen) == d.n_weights
+
+
+# ---------------------------------------------------------------------------
+# K5's split plan (csrc/mlp_bwd_split.cu): the plan by shape, the dgrad and
+# weight-gradient blocks' layouts, the scratch, the weight-gradient units
+
+
+SPLIT_SRC = pathlib.Path(mk.__file__).parents[2] / "csrc" / "mlp_bwd_split.cu"
+
+
+def _split_const(name):
+    return int(re.search(rf"\b{name} = (\d+)[,;]", SPLIT_SRC.read_text()).group(1))
+
+
+def wgrad_rects(dims, warps=mk.WGRAD_WARPS, rect=mk.WGRAD_RECT):
+    """A Python copy of mlp_wgrad_kernel's unit plan: [(layer, pass, warp,
+    slot, o0, c0)] for every 16x16 unit gW_layer[o0:o0+16, c0:c0+16]. A
+    layer's units form an (fan_out / 16) x (fan_in / 16) grid cut into
+    rectangles of rect[0] x rect[1] units, row-major; pass k gives warp w
+    rectangle k * warps + w, whose units sit in its register slots ro *
+    rect[1] + rc (those past the grid's edge left out)."""
+    ro_n, rc_n = rect
+    out = []
+    for i, (fan_out, fan_in) in enumerate(dims.layer_sizes()):
+        n_ro, n_rc = fan_out // 16, fan_in // 16
+        cols = -(-n_rc // rc_n)
+        n_rects = -(-n_ro // ro_n) * cols
+        for r in range(n_rects):
+            uo, uc = (r // cols) * ro_n, (r % cols) * rc_n
+            for ro in range(ro_n):
+                for rc in range(rc_n):
+                    if uo + ro < n_ro and uc + rc < n_rc:
+                        out.append((i, r // warps, r % warps, ro * rc_n + rc,
+                                    16 * (uo + ro), 16 * (uc + rc)))
+    return out
+
+
+#: (in_w, width, n_hidden, out_w): K5's plan. config_oneblob and 128 x 5 at
+#: input 32 take the split plan; config_hash (and the SDF sample's MLP), the
+#: PPNG sample models and NeRF's density and colour MLPs keep the resident.
+PLANS = {"config_oneblob": ((128, 128, 5, 16), "split"),
+         "128x5 input 32": ((32, 128, 5, 16), "split"),
+         "config_hash": ((32, 64, 2, 16), "resident"),
+         "PPNG input 48": ((48, 64, 2, 16), "resident"),
+         "PPNG input 16": ((16, 64, 2, 16), "resident"),
+         "NeRF density": ((32, 64, 1, 16), "resident"),
+         "NeRF colour": ((32, 64, 2, 16), "resident")}
+
+
+@pytest.mark.parametrize("case", sorted(PLANS))
+def test_k5_plan_follows_the_shape(case):
+    shape, plan = PLANS[case]
+    d = _dims(*shape)
+    assert mk.mlp_bwd_plan(d) == plan
+    assert (mk.mlp_bwd_tile(d) < mk.SPLIT_BELOW_ROWS) == (plan == "split")
+    # the activations do not move it
+    for act in (Activation.Tanh, Activation.Sigmoid):
+        assert mk.mlp_bwd_plan(mk.MlpDims(*shape, act, act)) == plan
+
+
+def test_k5_plan_across_the_layout_table():
+    """Every width <= 64 shape of LAYOUTS keeps the resident plan; at width
+    128 the shapes whose resident tile is under 64 rows split."""
+    for width, table in LAYOUTS.items():
+        for (n_hidden, in_w), want in table.items():
+            d = _dims(in_w, width, n_hidden)
+            split = want[2] < mk.SPLIT_BELOW_ROWS
+            assert mk.mlp_bwd_plan(d) == ("split" if split else "resident")
+            assert not split or width == 128
+            if split:
+                assert 0 < mk.mlp_dgrad_warps(d) and mk.mlp_wgrad_smem_bytes(d) <= mk.SMEM_OPTIN
+
+
+#: (in_w, width, n_hidden, out_w): (dgrad warps, dgrad bytes, wgrad bytes,
+#: scratch h and G elements at B = 2^18). At config_oneblob: the padded
+#: weights 178,432 B, then 8 warps of 16 input rows (4,352 B), 16 rows of
+#: G_H (768 B) and 5 layers of sign bits (1,280 B); wgrad 3 stages of 64
+#: rows of G and h at pitch 136 (104,448 B); h_1..h_5 335.5 MB, G_0..G_5
+#: 343.9 MB.
+SPLIT_LAYOUTS = {(128, 128, 5, 16): (8, 229_632, 104_448, 167_772_160, 171_966_464),
+                 (32, 128, 5, 16): (8, 180_480, 104_448, 167_772_160, 171_966_464),
+                 (48, 128, 4, 16): (8, 151_808, 104_448, 134_217_728, 138_412_032)}
+
+
+@pytest.mark.parametrize("shape", sorted(SPLIT_LAYOUTS))
+def test_split_plan_layouts_and_scratch(shape):
+    d = _dims(*shape)
+    warps = mk.mlp_dgrad_warps(d)
+    got = (warps, mk.mlp_dgrad_smem_bytes(d, warps), mk.mlp_wgrad_smem_bytes(d),
+           *mk.mlp_bwd_split_scratch(d, 1 << 18))
+    assert got == SPLIT_LAYOUTS[shape]
+    assert got[1] <= mk.SMEM_OPTIN and got[2] <= mk.SMEM_OPTIN
+    assert mk.mlp_dgrad_smem_bytes(d, 2 * warps) > mk.SMEM_OPTIN or warps == 8
+    # the C side's constants are the ones mirrored here
+    assert (_split_const("WGRAD_ROWS"), _split_const("WGRAD_STAGES")) == (mk.WGRAD_ROWS,
+                                                                          mk.WGRAD_STAGES)
+    assert (_split_const("WGRAD_RO"), _split_const("WGRAD_RC")) == mk.WGRAD_RECT
+    assert _split_const("WGRAD_THREADS") == 32 * mk.WGRAD_WARPS
+    src = SPLIT_SRC.read_text()
+    assert "(size_t)16 * (m.in_w + 8) + (size_t)16 * (m.out_w + 8) + (size_t)128 * m.n_hidden" in src
+    assert "(size_t)WGRAD_ROWS * (fo + 8 + fi + 8)" in src
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 5, 16), (32, 128, 5, 16), (48, 128, 4, 16),
+                                   (256, 128, 5, 16), (32, 64, 2, 16), (64, 32, 1, 48)])
+def test_wgrad_units_cover_every_weight_once(shape):
+    """mlp_wgrad_kernel's rectangles cover each layer's units once, each
+    (pass, warp, slot) once; only a layer past 16 x 16 x 4 units (input 256
+    into width 128) takes a second pass."""
+    d = _dims(*shape)
+    seen = [np.zeros(sz, dtype=int) for sz in d.layer_sizes()]
+    slots = set()
+    ro_n, rc_n = mk.WGRAD_RECT
+    for layer, pas, warp, slot, o0, c0 in wgrad_rects(d):
+        seen[layer][o0:o0 + 16, c0:c0 + 16] += 1
+        assert slot < ro_n * rc_n and warp < mk.WGRAD_WARPS
+        assert (layer, pas, warp, slot) not in slots
+        slots.add((layer, pas, warp, slot))
+    assert all((s == 1).all() for s in seen)
+    passes = {layer: 1 + max(p for ly, p, *_ in wgrad_rects(d) if ly == layer)
+              for layer in range(d.n_hidden + 1)}
+    assert passes[0] == (2 if shape[0] == 256 else 1) and max(passes.values()) <= 2
+
+
+def sign_bit(p, j):
+    """csrc/mlp_bwd_split.cu:sign_bit: the bit of a lane's 64 a layer that
+    holds y > 0 of word j of slab p (low element; the high one next)."""
+    return ((p % 4) * 4 + j) * 2
+
+
+def test_emulated_sign_bits_give_relus_transfer():
+    """The dgrad kernel's ReLU transfer from sign bits: each lane packs y > 0
+    of its 8 slabs x 4 words x 2 elements into 64 distinct bits (slabs 0-3
+    in the first word), and the fake y it rebuilds (bf16 1.0 or 0.0) gives
+    act_bwd_out's g * (y > 0) bit for bit, zeros, -0 and +inf included."""
+    src = SPLIT_SRC.read_text()
+    assert "return ((p % 4) * 4 + j) * 2;" in src
+    bits = {(p // 4, sign_bit(p, j) + e) for p in range(8) for j in range(4) for e in range(2)}
+    assert len(bits) == 64 and all(b < 32 for _, b in bits)
+    rng = np.random.default_rng(11)
+    y = torch.from_numpy(rng.normal(size=(16, 128)).astype(np.float32)).relu()
+    y[0, :4] = torch.tensor([0.0, -0.0, float("inf"), 1e-38])
+    y = y.to(torch.bfloat16)
+    g = torch.from_numpy(rng.normal(size=(16, 128)).astype(np.float32))
+    raw = y.view(torch.int16).numpy()
+    for lane in range(32):
+        words = [0, 0]
+        for p in range(8):
+            for j in range(4):
+                r, c = a_pos(lane, j)
+                for e in range(2):
+                    if raw[r, 16 * p + c + e] > 0:  # (int16_t)bits > 0
+                        words[p // 4] |= 1 << (sign_bit(p, j) + e)
+        for p in range(8):
+            for j in range(4):
+                r, c = a_pos(lane, j)
+                for e in range(2):
+                    on = words[p // 4] >> (sign_bit(p, j) + e) & 1
+                    fake = torch.tensor(1.0 if on else 0.0)
+                    col = 16 * p + c + e
+                    got = activation_bwd_out(g[r, col], fake, Activation.ReLU)
+                    want = activation_bwd_out(g[r, col], y[r, col].float(), Activation.ReLU)
+                    assert torch.equal(got, want), (lane, p, j, e)
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +593,58 @@ def test_emulated_row_stores():
         words = [got[lane][(s - t) & 3] for s in range(4)]
         out[row, col:col + 8] = np.concatenate(words)
     assert np.array_equal(out, S)
+
+
+def store_slab_rows(a, B, row0=0):
+    """store_slab_rows's quad exchange: {(row, col0): 8 values} of the
+    16-byte pieces each lane stores (rows at or past B skipped), from A
+    fragment words a [32 lanes][4][2]."""
+    got = [[None] * 4 for _ in range(32)]
+    for k in range(4):
+        sent = [a[lane][((((lane % 4 - k) & 3) & 1) << 1) | (((lane % 4 - k) & 3) >> 1)]
+                for lane in range(32)]
+        for lane in range(32):
+            got[lane][k] = sent[(lane & ~3) | ((lane % 4 + k) & 3)]
+    pieces = {}
+    for lane in range(32):
+        t = lane % 4
+        row = row0 + lane // 4 + (t >> 1) * 8
+        if row < B:
+            pieces[lane] = np.concatenate([got[lane][(s - t) & 3] for s in range(4)])
+    return pieces
+
+
+def slab_from_piece(pieces):
+    """load_slab_piece then slab_from_piece, lane by lane: each lane reads
+    the piece it stored (zeros past B), and in round k lane s takes
+    position (t - k) % 4 of lane t = (s + k) % 4's piece; word j is what
+    came in round (want(j) - s) % 4."""
+    piece = [pieces.get(lane, np.zeros(8)) for lane in range(32)]
+    out = []
+    for lane in range(32):
+        s = lane % 4
+        got = []
+        for k in range(4):
+            src = (lane & ~3) | ((s + k) & 3)
+            pos = ((src % 4) - k) & 3
+            got.append(piece[src][2 * pos:2 * pos + 2])
+        out.append([got[((((j & 1) << 1) | (j >> 1)) - s) & 3] for j in range(4)])
+    return np.array(out)
+
+
+@pytest.mark.parametrize("rows", [16, 11])
+def test_emulated_slab_loads_invert_the_row_stores(rows):
+    """The dgrad kernel reads back what store_slab_rows stored from each
+    lane (load_slab_piece, its own 16-byte piece) and swaps it back into A
+    fragment words (slab_from_piece): the slab it stored, and zeros in the
+    rows at or past B (11 of the 16 rows in the batch)."""
+    rng = np.random.default_rng(12)
+    S = _ints(rng, (16, 16))
+    a = np.array([[S[r, c:c + 2] for r, c in (a_pos(lane, j) for j in range(4))]
+                  for lane in range(32)])
+    want = S.copy()
+    want[rows:] = 0.0
+    assert np.array_equal(slab_matrix(slab_from_piece(store_slab_rows(a, rows))), want)
 
 
 # ---------------------------------------------------------------------------

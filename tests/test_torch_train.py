@@ -427,10 +427,12 @@ def test_config_oneblob_loads_and_steps_with_jax(monkeypatch):
 
 
 def test_mlp_tiles_at_config_oneblob_shape():
-    """Input 128 into 128 x 5: K5 takes 16-row tiles (213,248 bytes of the
-    232,448 opt-in; 32 rows would take 248,064) and K2's block fits."""
+    """Input 128 into 128 x 5: K5's resident plan would take 16-row tiles
+    (213,248 bytes of the 232,448 opt-in; 32 rows would take 248,064), so
+    K5 takes its split plan; K2's block fits."""
     dims = mlp_kernel.MlpDims(128, 128, 5, 16, tt.Activation.ReLU, tt.Activation.NONE)
     assert mlp_kernel.mlp_bwd_tile(dims) == 16
+    assert mlp_kernel.mlp_bwd_plan(dims) == "split"
     assert mlp_kernel.mlp_bwd_smem_bytes(dims, 16) == 213_248 <= mlp_kernel.SMEM_OPTIN
     assert mlp_kernel.mlp_bwd_smem_bytes(dims, 32) > mlp_kernel.SMEM_OPTIN
     warps = mlp_kernel.frag_tile_warps(dims)
