@@ -111,7 +111,7 @@ Phases, each printing JSON lines:
      B = 2^18, 2^18 - 37 and 1, K1 and K6 with Rng, each beside a control
      that hashes the wrapped levels (or draws or hashes with 1338); the
      image sample (tcnn_tpu_torch.samples.mlp_learning_an_image) trains
-     N_SAMPLE_STEPS steps at B = 2^18 through K6 alone (counters) and
+     N_SAMPLE_STEPS steps at B = 2^18 through K6 and K14 alone (counters) and
      renders the 1024^2 image through K3, loss fall and PSNR under
      SAMPLE_LIMITS; a composed step against K6; a save/load of the trained
      state and a step on each copy; times of K1, K3, K4, K6, both routes'
@@ -123,8 +123,8 @@ Phases, each printing JSON lines:
  16. fixed encodings, composite and modules: OneBlob, Frequency,
      TriangleWave and SH (degrees 1-8) on the card against the CPU in f32
      (B = 2^18); (a) data/config_oneblob.json (OneBlob 64 bins, 128 x 5)
-     trains through the image sample at B = 2^18 (counters: K2 and K5 once
-     a step, nothing else; K5 on its split plan every step, `k5.split`),
+     trains through the image sample at B = 2^18 (counters: K2, K5 and K14
+     once a step, nothing else; K5 on its split plan every step, `k5.split`),
      loss fall and holdout PSNR under ONEBLOB_LIMITS, `trainer.inference`
      equal to `model.apply`, a save/load; K2 and K5 at its shape (input
      128) and K5 at 128 x 5 on input 32, both on K5's split plan, against
@@ -145,7 +145,7 @@ Phases, each printing JSON lines:
  17. the optimizers, the grid's plain route and compute_dtype: (a)
      config_hash under instant-ngp's NeRF optimizer (EMA of
      ExponentialDecay of Adam, NERF_OPTIMIZER) trains N_CHAIN_STEPS steps
-     at B = 2^18 through K6 alone (counters), the loss falling;
+     at B = 2^18 through K6 and K14 alone (counters), the loss falling;
      `trainer.inference` (K3 on the EMA weights) against `model.apply` on
      them; ten inference calls between two steps building K3's operands
      once; the chain decaying from step 2 every 2 steps (FAST_DECAY) fires
@@ -159,7 +159,7 @@ Phases, each printing JSON lines:
      N_SHAMPOO_STEPS steps through K6 alone, the loss falling; (d) the SDF
      sample's HashGrid with max_level 0.5, with "fast_input_grads" false
      and with stochastic interpolation, N_ROUTE_STEPS steps each (counters:
-     K1, K2, K5, K4 a step on the data term; no K3, K7, K8 or K9 on the
+     K1, K2, K5, K4 a step on the data term and K14; no K3, K7, K8 or K9 on the
      eikonal term's plain route), the loss falling under ROUTE_LOSS_FALL,
      its eikonal gradient against the CPU model's at f32 and at bf16; (e)
      config_hash's Trainer at compute_dtype f32, N_F32_STEPS steps through
@@ -390,10 +390,10 @@ HOT_POINT = (0.5, 0.0, 1.0)
 #: table gradient (K10, K11 or K12, K13) and K2, K5; the eikonal term's
 #: gather, its first order (PPNG3: K13's two halves, each a Function) and
 #: its second order's table gradient (K11 or K13) and, for PPNG3, K12 for
-#: the MLP chain's cotangent.
-PPNG_PER_STEP = {"PPNG1": {"K10": 2, "K11": 2, "K2": 1, "K5": 1},
-                 "PPNG2": {"K10": 2, "K11": 2, "K2": 1, "K5": 1},
-                 "PPNG3": {"K12": 3, "K13": 4, "K2": 1, "K5": 1}}
+#: the MLP chain's cotangent; the Adam step (K14).
+PPNG_PER_STEP = {"PPNG1": {"K10": 2, "K11": 2, "K2": 1, "K5": 1, "K14": 1},
+                 "PPNG2": {"K10": 2, "K11": 2, "K2": 1, "K5": 1, "K14": 1},
+                 "PPNG3": {"K12": 3, "K13": 4, "K2": 1, "K5": 1, "K14": 1}}
 
 #: The options of config_hash's grid that phases 12 and 13 drive.
 OPTIONS = {"stochastic": {"stochastic_interpolation": True}, "rng": {"hash": "Rng"},
@@ -808,12 +808,11 @@ def control_rows(name, lower, want, q, bound):
 
 
 def counters():
-    """The launch counters of the kernels that replace Pallas kernels, by
-    name (K1-K13, from the port's counter totals; K14's: `launch_count`)."""
-    from tcnn_tpu_torch.utils import profiling
+    """Every kernel's launches since the counters were reset, by label
+    (K1-K14, `_build.KERNELS`)."""
+    from tcnn_tpu_torch.ops.cuda import _build
 
-    launched = profiling.counts("launches.")
-    return {f"K{i}": launched.get(f"launches.K{i}", 0) for i in range(1, 14)}
+    return _build.launch_counts()
 
 
 def reset_counters():
@@ -2333,8 +2332,9 @@ def options_slice(cfg, dev, smi, batch):
                                            N_TRAIN - 1})},
               "loss_fall": fall, "loss_fall_min": fall_min, "holdout_psnr_db": holdout_psnr,
               "psnr_min_db": psnr_min, "loop_seconds": loop_s})
-        check(fused["K6"] == N_TRAIN and all(v == 0 for k, v in fused.items() if k != "K6"),
-              f"the {option} training steps did not run K6 alone: {fused}")
+        check(fused["K6"] == fused["K14"] == N_TRAIN
+              and all(v == 0 for k, v in fused.items() if k not in ("K6", "K14")),
+              f"the {option} training steps did not run K6 and K14 alone: {fused}")
         check(fall >= fall_min, f"{option} loss fell only {fall}x")
         check(holdout_psnr >= psnr_min, f"{option} holdout PSNR {holdout_psnr} dB")
 
@@ -2485,8 +2485,8 @@ def check_reference_kernels(cfg, gen, dev):
 
 def reference_slice(cfg, gen, dev):
     """Phase 14's main path: the reference default trains N_SAMPLE_STEPS
-    steps at B = 2^18 through the image sample's `train` (K6 alone, by the
-    counters) and renders through its `render` (one K3 launch per 2^20
+    steps at B = 2^18 through the image sample's `train` (K6 and K14 alone, by
+    the counters) and renders through its `render` (one K3 launch per 2^20
     pixels, held against K3's twin); its loss fall and render PSNR under
     SAMPLE_LIMITS; one composed step (K1 K2 K5 K4) against K6's gradient;
     a save/load of the trained state and one more step on each copy; then
@@ -2539,8 +2539,9 @@ def reference_slice(cfg, gen, dev):
           "loss_fall": fall, "loss_fall_min": fall_min, "render_psnr_db": render_psnr,
           "psnr_min_db": psnr_min, "loop_seconds": loop_s,
           "sample_steps_per_s": N_SAMPLE_STEPS / loop_s})
-    check(trained["K6"] == N_SAMPLE_STEPS and all(v == 0 for k, v in trained.items() if k != "K6"),
-          f"the sample's steps did not run K6 alone: {trained}")
+    check(trained["K6"] == trained["K14"] == N_SAMPLE_STEPS
+          and all(v == 0 for k, v in trained.items() if k not in ("K6", "K14")),
+          f"the sample's steps did not run K6 and K14 alone: {trained}")
     check(rendered["K3"] == chunks and all(v == 0 for k, v in rendered.items() if k != "K3"),
           f"the sample's render did not run K3 once per chunk: {rendered}")
     check(fall >= fall_min, f"reference default loss fell only {fall}x")
@@ -2770,8 +2771,9 @@ def oneblob_slice(dev, smi):
               {0, N_ONEBLOB_STEPS // 10, N_ONEBLOB_STEPS // 2, N_ONEBLOB_STEPS - 1})},
           "loss_fall": fall, "loss_fall_min": fall_min, "holdout_psnr_db": holdout_psnr,
           "psnr_min_db": psnr_min, "loop_seconds": loop_s, "k5_split": split_steps})
-    check(all(v == (N_ONEBLOB_STEPS if k in ("K2", "K5") else 0) for k, v in trained.items()),
-          f"config_oneblob's steps did not run K2 and K5 once each a step, and nothing else: "
+    check(all(v == (N_ONEBLOB_STEPS if k in ("K2", "K5", "K14") else 0)
+              for k, v in trained.items()),
+          f"config_oneblob's steps did not run K2, K5 and K14 once each a step, and nothing else: "
           f"{trained}")
     check(split_steps == N_ONEBLOB_STEPS,
           f"K5 took its split plan {split_steps} times in {N_ONEBLOB_STEPS} config_oneblob steps")
@@ -3153,9 +3155,9 @@ def composite_slice(dev):
           "launches": trained, "eikonal_launches": eik_launches,
           "loss_first": float(losses[0]), "loss_last": float(losses[-1])})
     check(bool(torch.isfinite(losses).all()), "Composite training loss not finite")
-    check(all(v == (N_COMPOSITE_STEPS if k in ("K1", "K2", "K4", "K5") else 0)
+    check(all(v == (N_COMPOSITE_STEPS if k in ("K1", "K2", "K4", "K5", "K14") else 0)
               for k, v in trained.items()),
-          f"the Composite's steps did not run K1, K2, K5 and K4 once a step: {trained}")
+          f"the Composite's steps did not run K1, K2, K5, K4 and K14 once a step: {trained}")
     check(all(v == (N_COMPOSITE_STEPS if k in ("K1", "K7", "K8") else 0)
               for k, v in eik_launches.items()),
           f"the Composite's eikonal gradients did not run K1, K7 and K8 once each: {eik_launches}")
@@ -3318,13 +3320,6 @@ def time_optimizer_steps(cfg, dev):
     return times
 
 
-def launch_count(kernel: str) -> int:
-    """Launches of `kernel` (e.g. "K14") since the counters were reset."""
-    from tcnn_tpu_torch.utils import profiling
-
-    return profiling.counts(f"launches.{kernel}").get(f"launches.{kernel}", 0)
-
-
 def k14_compare(tag, got_w, got_state, want_w, want_state):
     """K14's leaves against the twin's, each bit for bit (f32 as its bits)
     and by its norm-relative error; a leaf that is not bit-equal must stay
@@ -3400,7 +3395,7 @@ def adam_kernel_slice(cfg, dev, smi, batch):
             opt._step_plain(tstate, ls, tw, g)
         err, same = k14_compare(f"config_hash step {s + 1}", kw, kstate, tw, tstate)
         worst, bits = max(worst, err), bits and same
-    launched = launch_count("K14")
+    launched = counters()["K14"]
     emit({"phase": "K14 steps", "steps": N_K14_STEPS, "B": B_K14, "launches": launched,
           "skipped_entries_a_step": skipped, "bit_equal": bits})
     check(launched == N_K14_STEPS, f"K14 launched {launched} times in {N_K14_STEPS} steps")
@@ -3517,8 +3512,8 @@ def loss_report(tag, losses, fall_min):
 
 def chain_slice(cfg, dev, batch):
     """(a): config_hash under NERF_OPTIMIZER, N_CHAIN_STEPS steps at B_MAIN
-    through K6 alone, the loss falling; trainer.inference (K3 on the EMA
-    weights) against model.apply on them; ten inference calls between two
+    through K6 and K14 alone, the loss falling; trainer.inference (K3 on the
+    EMA weights) against model.apply on them; ten inference calls between two
     steps building K3's operands once; FAST_DECAY's N_DECAY_STEPS steps
     decaying twice. Returns (launches, ms per step)."""
     import torch
@@ -3530,7 +3525,6 @@ def chain_slice(cfg, dev, batch):
     tr, net = model.trainer, model.network
     check(tr.use_fused(), "config_hash under the NeRF chain must take K6")
     losses, launched, loop_s = train_loop(tr, [batch() for _ in range(N_CHAIN_STEPS)])
-    launched["K14"] = launch_count("K14")
     report = loss_report("the NeRF chain", losses, CHAIN_LOSS_FALL)
     emit({"phase": "chain slice", "steps": N_CHAIN_STEPS, "B": B_MAIN, "launches": launched,
           **report, "loop_seconds": loop_s})
@@ -3656,13 +3650,14 @@ def route_slice(dev):
         loop_s = time.perf_counter() - t0
         launched = counters()
         report = loss_report(variant, losses, ROUTE_LOSS_FALL[variant])
-        per_step = {"K1": 1, "K2": 1, "K4": 1, "K5": 1}
+        per_step = {"K1": 1, "K2": 1, "K4": 1, "K5": 1, "K14": 1}
         emit({"phase": "route slice", "variant": variant, "steps": N_ROUTE_STEPS, "B": B_SDF,
               "eikonal_points": sdf.N_EIKONAL, "launches": launched,
               "launches_per_step_expected": per_step, **report, "loss_last": float(losses[-1]),
               "loop_seconds": loop_s})
         check(all(v == per_step.get(k, 0) * N_ROUTE_STEPS for k, v in launched.items()),
-              f"{variant}: the steps did not run K1, K2, K5 and K4 alone, once each: {launched}")
+              f"{variant}: the steps did not run K1, K2, K5, K4 and K14 alone, once each: "
+              f"{launched}")
         check(report["loss_fall"] >= ROUTE_LOSS_FALL[variant],
               f"{variant}: the SDF loss fell only {report['loss_fall']}x")
         for k, v in launched.items():
@@ -3713,11 +3708,11 @@ def f32_slice(cfg, dev, batch):
     check(tr.loss_scale == 1.0 and not tr.use_fused(), "f32: loss scale 1, K6 not chosen")
     losses, launched, loop_s = train_loop(tr, [batch() for _ in range(N_F32_STEPS)])
     report = loss_report("f32", losses, F32_LOSS_FALL)
-    per_step = {"K1": 1, "K2": 1, "K4": 1, "K5": 1}
+    per_step = {"K1": 1, "K2": 1, "K4": 1, "K5": 1, "K14": 1}
     emit({"phase": "f32 slice", "steps": N_F32_STEPS, "B": B_MAIN, "launches": launched,
           "launches_per_step_expected": per_step, **report, "loop_seconds": loop_s})
     check(all(v == per_step.get(k, 0) * N_F32_STEPS for k, v in launched.items()),
-          f"the f32 steps did not run K1, K2, K5 and K4 alone, once each: {launched}")
+          f"the f32 steps did not run K1, K2, K5, K4 and K14 alone, once each: {launched}")
     check(report["loss_fall"] >= F32_LOSS_FALL, f"the f32 loss fell only {report['loss_fall']}x")
     x, t = batch()
     reset_counters()
@@ -3920,8 +3915,8 @@ def parallel_slice(cfg, dev, smi):
     spawn_s = time.perf_counter() - t0
     single = dp_run(cfg, dev, steps=N_DP_STEPS, batch=B_MAIN)
     total = dict.fromkeys(counters(), 0)
-    stages = {"fused": {"K6": N_DP_STEPS}, "external": {"K6": 1},
-              "composed": {"K1": 1, "K2": 1, "K4": 1, "K5": 1}, "inference": {"K3": 1}}
+    stages = {"fused": {"K6": N_DP_STEPS, "K14": N_DP_STEPS}, "external": {"K6": 1, "K14": 1},
+              "composed": {"K1": 1, "K2": 1, "K4": 1, "K5": 1, "K14": 1}, "inference": {"K3": 1}}
     for r, out in enumerate(ranks):
         emit({"phase": "data parallel rank", "rank": r, "ranks": N_DP_RANKS, "B": B_MAIN,
               "rows_a_rank": B_MAIN // N_DP_RANKS, "steps": N_DP_STEPS,
@@ -3997,7 +3992,7 @@ def parallel_slice(cfg, dev, smi):
 def native_slice(cfg, dev, smi):
     """(b): the native library built and its streams bit-equal to the numpy
     fallback at NATIVE_N; the image sample's native pipeline trains
-    N_NATIVE_STEPS steps through K6 alone, the loss falling under
+    N_NATIVE_STEPS steps through K6 and K14 alone, the loss falling under
     NATIVE_LOSS_FALL; its step (host batch and copy included) timed beside
     the device-sampled step. Returns (launches, the trained trainer)."""
     import numpy as np
@@ -4037,9 +4032,9 @@ def native_slice(cfg, dev, smi):
     report = loss_report("native pipeline", losses, NATIVE_LOSS_FALL)
     emit({"phase": "native pipeline", "steps": N_NATIVE_STEPS, "B": B_MAIN, "launches": launched,
           **report})
-    check(launched["K6"] == N_NATIVE_STEPS and all(v == 0 for k, v in launched.items()
-                                                    if k != "K6"),
-          f"the native pipeline's steps did not run K6 alone: {launched}")
+    check(launched["K6"] == launched["K14"] == N_NATIVE_STEPS
+          and all(v == 0 for k, v in launched.items() if k not in ("K6", "K14")),
+          f"the native pipeline's steps did not run K6 and K14 alone: {launched}")
     check(report["loss_fall"] >= NATIVE_LOSS_FALL,
           f"the native pipeline's loss fell only {report['loss_fall']}x")
 
@@ -4328,7 +4323,7 @@ def main() -> int:
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     train_launches = counters()
-    k14_launches = launch_count("K14")
+    k14_launches = train_launches["K14"]
     losses = torch.stack(losses).cpu()
     check(bool(torch.isfinite(losses).all()), "training loss not finite")
     fall = float(losses[0] / losses[-10:].mean())

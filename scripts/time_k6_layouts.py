@@ -41,7 +41,7 @@ def main() -> int:
         print("time_k6_layouts: no CUDA device available", file=sys.stderr)
         return 1
     import tcnn_tpu_torch as tt
-    from tcnn_tpu_torch.ops.cuda import mlp_kernel, train_kernel
+    from tcnn_tpu_torch.ops.cuda import _build, mlp_kernel, train_kernel
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -77,7 +77,7 @@ def main() -> int:
                 plan[str(lay)] = {"nt": nt, "private_levels": n_private,
                                   "smem_bytes": mlp_kernel.bwd_smem_bytes(prep.dims, nt,
                                                                           priv_floats=priv)}
-                blocks[str(lay)] = mlp_kernel.persistent_grid(
+                blocks[str(lay)] = _build.persistent_grid(
                     "tcnn_fused_train_grid", (B, prep.plan.f, priv, nt, *prep.dims.c_args()),
                     x.device)
                 got = step().double()

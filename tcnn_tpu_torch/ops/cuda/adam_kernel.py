@@ -18,21 +18,14 @@ operands on, so the wrapper bumps the version of every tensor K14 wrote.
 
 from __future__ import annotations
 
-import ctypes
 import numbers
 
 import torch
 
-from ...utils import profiling
 from . import _build
 
 #: AdamFlags of csrc/adam.cu.
 ADABOUND, CLIP, OPTIMIZE_MATRIX, OPTIMIZE_NON_MATRIX = 1, 2, 4, 8
-
-_ADAM_STEP_ARGS = (
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float] * 13
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-)
 
 #: (device index, stream) -> the stream's arrival counter (one int32, 0
 #: between launches).
@@ -107,13 +100,8 @@ def adam_step(opt, state: dict, loss_scale, weights, grads, lr_scale=1.0) -> Non
     stream = torch.cuda.current_stream(dev).cuda_stream
     n_matrix, *floats, flags = scalar_args(opt, loss_scale, lr_scale)
     lr_ptr = lr_scale.data_ptr() if isinstance(lr_scale, torch.Tensor) else None
-    fn = _build.function("tcnn_adam_step", _ADAM_STEP_ARGS)
-    _build.check(
-        fn(grads.data_ptr(), weights.data_ptr(), m1.data_ptr(), m2.data_ptr(), steps.data_ptr(),
-           step.data_ptr(), lr_ptr, _arrivals(dev, stream).data_ptr(), n, n_matrix, *floats,
-           flags, dev.index, stream),
-        "tcnn_adam_step",
-    )
-    profiling.count("launches.K14")
+    _build.launch("tcnn_adam_step", dev, grads.data_ptr(), weights.data_ptr(), m1.data_ptr(),
+                  m2.data_ptr(), steps.data_ptr(), step.data_ptr(), lr_ptr,
+                  _arrivals(dev, stream).data_ptr(), n, n_matrix, *floats, flags)
     for t in (weights, m1, m2, steps, step):
         torch.autograd.graph.increment_version(t)

@@ -38,12 +38,10 @@ binned_kernel.py:1833-1862).
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
 
-from ...utils import profiling
 from . import _build
 from .mlp_kernel import SMEM_OPTIN
 from .train_kernel import SMEM_SM
@@ -252,10 +250,6 @@ def _check_cuda(name, t, device, dtype=None):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def ext_gather(table, idx):
     """picks [B, K * F] = the rows idx [B, K] (int32, global) of `table`
     [n_rows, F], f32 or bf16, returned in the table's dtype (K10)."""
@@ -272,15 +266,9 @@ def ext_gather(table, idx):
     out = torch.empty((B, K * F), dtype=table.dtype, device=idx.device)
     if out.numel() == 0:
         return out
-    fn = _build.function("tcnn_ext_gather", _EXT_GATHER_ARGS)
-    _build.check(fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, K,
-                    F * table.element_size(), idx.device.index, _stream(idx.device)),
-                 "tcnn_ext_gather")
-    profiling.count("launches.K10")
+    _build.launch("tcnn_ext_gather", idx.device, table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                  B, K, F * table.element_size())
     return out
-
-
-_EXT_GATHER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def ext_scatter(idx, ct, n_rows: int, n_levels: int = 1):
@@ -308,16 +296,10 @@ def ext_scatter(idx, ct, n_rows: int, n_levels: int = 1):
     rows = n_rows // n_levels
     plan = scatter_plan(n_levels, rows, F, K // n_levels, B,
                         torch.cuda.get_device_properties(dev).multi_processor_count)
-    fn = _build.function("tcnn_ext_scatter", _EXT_SCATTER_ARGS)
-    _build.check(fn(idx.data_ptr(), ct.data_ptr(), out.data_ptr(), B, K, F,
-                    int(ct.dtype == torch.bfloat16), n_levels, rows, plan.n_private,
-                    plan.group_levels, plan.warps, plan.blocks, dev.index, _stream(dev)),
-                 "tcnn_ext_scatter")
-    profiling.count("launches.K11")
+    _build.launch("tcnn_ext_scatter", dev, idx.data_ptr(), ct.data_ptr(), out.data_ptr(), B, K, F,
+                  int(ct.dtype == torch.bfloat16), n_levels, rows, plan.n_private,
+                  plan.group_levels, plan.warps, plan.blocks)
     return out
-
-
-_EXT_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def _check_lookup(idx, n_levels: int, F: int):
@@ -350,15 +332,9 @@ def ext_lookup(table, idx, cw, n_levels: int):
         return y
     threads = lookup_threads(B * n_levels,
                              torch.cuda.get_device_properties(dev).multi_processor_count)
-    fn = _build.function("tcnn_ext_lookup", _EXT_LOOKUP_ARGS)
-    _build.check(fn(table.data_ptr(), idx.data_ptr(), cw.data_ptr(), y.data_ptr(), B, n_levels,
-                    CNL // n_levels, F, threads, dev.index, _stream(dev)),
-                 "tcnn_ext_lookup")
-    profiling.count("launches.K12")
+    _build.launch("tcnn_ext_lookup", dev, table.data_ptr(), idx.data_ptr(), cw.data_ptr(),
+                  y.data_ptr(), B, n_levels, CNL // n_levels, F, threads)
     return y
-
-
-_EXT_LOOKUP_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def lookup_chunk(n_levels: int, corners: int, f: int, batch: int, n_sm: int) -> int:
@@ -401,20 +377,13 @@ def ext_lookup_bwd(table, idx, cw, gy, n_rows: int, n_levels: int, want_table: b
     dcw = torch.empty((B, CNL), dtype=torch.float32, device=dev) if want_dots else None
     if B == 0 or not (want_table or want_dots):
         return dT, dcw
-    fn = _build.function("tcnn_ext_lookup_bwd", _EXT_LOOKUP_BWD_ARGS)
-    _build.check(fn(table.data_ptr() if want_dots else None, idx.data_ptr(),
-                    cw.data_ptr() if want_table else None, gy.data_ptr(),
-                    dT.data_ptr() if want_table else None,
-                    dcw.data_ptr() if want_dots else None, B, n_levels, CNL // n_levels, F,
-                    lookup_chunk(n_levels, CNL // n_levels, F, B,
-                                 torch.cuda.get_device_properties(dev).multi_processor_count),
-                    dev.index, _stream(dev)),
-                 "tcnn_ext_lookup_bwd")
-    profiling.count("launches.K13")
+    _build.launch("tcnn_ext_lookup_bwd", dev, table.data_ptr() if want_dots else None,
+                  idx.data_ptr(), cw.data_ptr() if want_table else None, gy.data_ptr(),
+                  dT.data_ptr() if want_table else None, dcw.data_ptr() if want_dots else None,
+                  B, n_levels, CNL // n_levels, F,
+                  lookup_chunk(n_levels, CNL // n_levels, F, B,
+                               torch.cuda.get_device_properties(dev).multi_processor_count))
     return dT, dcw
-
-
-_EXT_LOOKUP_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 # ---------------------------------------------------------------------------

@@ -51,17 +51,14 @@ CUDA tensor; there is no other route.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ...common import GridType, HashType, InterpolationType, smoothstep
-from ...utils import profiling
 from .. import pcg32
 from . import _build
-from .mlp_kernel import persistent_grid
 
 U32 = 0xFFFFFFFF
 
@@ -512,30 +509,12 @@ def grid_encode(plan: GridPlan, table, x, out_width: int, n_active: int):
     if B == 0:
         return out
     level_i32, level_f32 = plan.device_consts(x.device)
-    fn = _build.function("tcnn_grid_fwd", _GRID_FWD_ARGS)
-    _build.check(
-        fn(
-            x.data_ptr(), table.data_ptr(), level_i32.data_ptr(),
-            level_f32.data_ptr(), out.data_ptr(), B, plan.d, plan.f,
-            plan.n_levels, int(n_active), INTERP_CODES[plan.interpolation],
-            *plan.c_hash(), out_width, x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        ),
-        "tcnn_grid_fwd",
+    _build.launch(
+        "tcnn_grid_fwd", x.device, x.data_ptr(), table.data_ptr(), level_i32.data_ptr(),
+        level_f32.data_ptr(), out.data_ptr(), B, plan.d, plan.f, plan.n_levels, int(n_active),
+        INTERP_CODES[plan.interpolation], *plan.c_hash(), out_width,
     )
-    profiling.count("launches.K1")
     return out
-
-
-#: ctypes of `GridPlan.c_hash()`: four hash factors and the hash code.
-HASH_ARGS = [ctypes.c_uint32] * 4 + [ctypes.c_int]
-
-_GRID_FWD_ARGS = (
-    [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 6
-    + HASH_ARGS
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-)
 
 
 def _check_gy(plan: GridPlan, x, gy) -> int:
@@ -596,21 +575,15 @@ def grid_backward(plan: GridPlan, x, gy, n_active: int):
         return out
     n_private, rows = private_levels(plan, n_active, K4_PRIVATE_BYTES)
     priv = rows * plan.f
-    grid = persistent_grid("tcnn_grid_bwd_grid", (B, plan.f, priv), dev)
+    grid = _build.persistent_grid("tcnn_grid_bwd_grid", (B, plan.f, priv), dev)
     partials = torch.empty(grid * priv, dtype=torch.float32, device=dev)
     level_i32, level_f32 = plan.device_consts(dev)
-    fn = _build.function("tcnn_grid_bwd", _GRID_BWD_ARGS)
-    _build.check(
-        fn(
-            x.data_ptr(), gy.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
-            out.data_ptr(), partials.data_ptr(), B, plan.d, plan.f, plan.n_levels,
-            int(n_active), INTERP_CODES[plan.interpolation], *plan.c_hash(),
-            int(plan.stochastic), n_private, priv, grid, gy.shape[1], dev.index,
-            torch.cuda.current_stream(dev).cuda_stream,
-        ),
-        "tcnn_grid_bwd",
+    _build.launch(
+        "tcnn_grid_bwd", dev, x.data_ptr(), gy.data_ptr(), level_i32.data_ptr(),
+        level_f32.data_ptr(), out.data_ptr(), partials.data_ptr(), B, plan.d, plan.f,
+        plan.n_levels, int(n_active), INTERP_CODES[plan.interpolation], *plan.c_hash(),
+        int(plan.stochastic), n_private, priv, grid, gy.shape[1],
     )
-    profiling.count("launches.K4")
     return out
 
 
@@ -663,30 +636,16 @@ def grid_backward_ig(plan: GridPlan, table, x, gy):
     if B == 0:
         return gtable, gx
     groups, warps = ig_layout(plan.n_levels)
-    grid = persistent_grid("tcnn_grid_bwd_ig_grid",
-                           (B, plan.d, plan.f, plan.n_levels, groups, warps), dev)
+    grid = _build.persistent_grid("tcnn_grid_bwd_ig_grid",
+                                  (B, plan.d, plan.f, plan.n_levels, groups, warps), dev)
     level_i32, level_f32 = plan.device_consts(dev)
-    fn = _build.function("tcnn_grid_bwd_ig", _GRID_BWD_IG_ARGS)
-    _build.check(
-        fn(
-            x.data_ptr(), gy.data_ptr(), table.data_ptr(), level_i32.data_ptr(),
-            level_f32.data_ptr(), gtable.data_ptr(), gx.data_ptr(), B, plan.d, plan.f,
-            plan.n_levels, INTERP_CODES[plan.interpolation], *plan.c_hash(), gy.shape[1],
-            groups, warps, grid, dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        ),
-        "tcnn_grid_bwd_ig",
+    _build.launch(
+        "tcnn_grid_bwd_ig", dev, x.data_ptr(), gy.data_ptr(), table.data_ptr(),
+        level_i32.data_ptr(), level_f32.data_ptr(), gtable.data_ptr(), gx.data_ptr(), B,
+        plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation], *plan.c_hash(),
+        gy.shape[1], groups, warps, grid,
     )
-    profiling.count("launches.K7")
     return gtable, gx
-
-
-_GRID_BWD_IG_ARGS = (
-    [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 5
-    + HASH_ARGS
-    + [ctypes.c_int] * 5
-    + [ctypes.c_void_p]
-)
 
 
 def grid_backward_bwd(plan: GridPlan, table, ct_table, x, gy, z):
@@ -728,41 +687,17 @@ def _grid_backward_bwd(plan: GridPlan, table, ct_table, x, gy, z):
     ct_gy = torch.empty((B, gy.shape[1]), dtype=torch.float32, device=dev)
     ct_x = torch.empty((B, plan.d), dtype=torch.float32, device=dev)
     groups, warps = ig_layout(plan.n_levels)
-    grid = persistent_grid("tcnn_grid_bwd_bwd_grid",
-                           (B, plan.d, plan.f, plan.n_levels, groups, warps), dev)
+    grid = _build.persistent_grid("tcnn_grid_bwd_bwd_grid",
+                                  (B, plan.d, plan.f, plan.n_levels, groups, warps), dev)
     level_i32, level_f32 = plan.device_consts(dev)
-    fn = _build.function("tcnn_grid_bwd_bwd", _GRID_BWD_BWD_ARGS)
-    _build.check(
-        fn(
-            x.data_ptr(), gy.data_ptr(), 0 if z is None else z.data_ptr(), table.data_ptr(),
-            0 if ct_table is None else ct_table.data_ptr(), level_i32.data_ptr(),
-            level_f32.data_ptr(), ct_gy.data_ptr(), gtable2.data_ptr(), ct_x.data_ptr(), B,
-            plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation], *plan.c_hash(),
-            gy.shape[1], groups, warps, grid, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream,
-        ),
-        "tcnn_grid_bwd_bwd",
+    _build.launch(
+        "tcnn_grid_bwd_bwd", dev, x.data_ptr(), gy.data_ptr(), 0 if z is None else z.data_ptr(),
+        table.data_ptr(), 0 if ct_table is None else ct_table.data_ptr(), level_i32.data_ptr(),
+        level_f32.data_ptr(), ct_gy.data_ptr(), gtable2.data_ptr(), ct_x.data_ptr(), B,
+        plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation], *plan.c_hash(),
+        gy.shape[1], groups, warps, grid,
     )
-    profiling.count("launches.K8")
     return ct_gy, gtable2, ct_x
-
-
-_GRID_BWD_BWD_ARGS = (
-    [ctypes.c_void_p] * 10
-    + [ctypes.c_int] * 5
-    + HASH_ARGS
-    + [ctypes.c_int] * 5
-    + [ctypes.c_void_p]
-)
-
-
-_GRID_BWD_ARGS = (
-    [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 6
-    + HASH_ARGS
-    + [ctypes.c_int] * 6
-    + [ctypes.c_void_p]
-)
 
 
 def _level_columns(plan: GridPlan, gy):

@@ -37,7 +37,6 @@ the kernel for a CUDA tensor; there is no other route.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
@@ -111,10 +110,7 @@ def tile_rows(dims: MlpDims, device: torch.device) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _tile_rows(dims: MlpDims, index: int) -> int:
-    fn = _build.library().tcnn_mlp_tile
-    fn.argtypes = [ctypes.c_int] * 5
-    fn.restype = ctypes.c_int
-    return fn(dims.in_w, dims.width, dims.n_hidden, dims.out_w, index)
+    return _build.entry("tcnn_mlp_tile")(dims.in_w, dims.width, dims.n_hidden, dims.out_w, index)
 
 
 def frag_tile_smem_bytes(dims: MlpDims, warps: int) -> int:
@@ -184,19 +180,9 @@ def mlp_forward(dims: MlpDims, weights, x):
     out = torch.empty((B, dims.out_w), dtype=torch.bfloat16, device=x.device)
     if B == 0:
         return out
-    fn = _build.function("tcnn_mlp_fwd", _MLP_FWD_ARGS)
-    _build.check(
-        fn(
-            x.data_ptr(), weights.data_ptr(), out.data_ptr(), B, *dims.c_args(),
-            x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-        ),
-        "tcnn_mlp_fwd",
-    )
-    profiling.count("launches.K2")
+    _build.launch("tcnn_mlp_fwd", x.device, x.data_ptr(), weights.data_ptr(), out.data_ptr(), B,
+                  *dims.c_args())
     return out
-
-
-_MLP_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def bwd_smem_bytes(dims: MlpDims, nt: int, ig_floats: int = 0, priv_floats: int = 0) -> int:
@@ -312,23 +298,6 @@ def mlp_bwd_split_scratch(dims: MlpDims, B: int):
     return kept, kept + B * dims.out_w
 
 
-def persistent_grid(entry: str, args, device) -> int:
-    """The persistent grid of K4 (`tcnn_grid_bwd_grid`), K5
-    (`tcnn_mlp_bwd_grid`; its split plan's weight gradient:
-    `tcnn_mlp_bwd_split_grid`), K6 (`tcnn_fused_train_grid`) or K9
-    (`tcnn_fused_ig_grid`), as the C side chooses it from the kernel's
-    occupancy: the blocks resident at once, never more than the tiles. The
-    wrapper sizes the per-block partials by it and passes it to the
-    launch."""
-    fn = _build.function(entry, [ctypes.c_int] * (len(args) + 1))
-    grid = fn(*args, device.index)
-    if grid < 0:
-        _build.check(-grid, entry)
-    if grid == 0:
-        raise ValueError(f"{entry}{tuple(args)}: no block fits the card's shared memory")
-    return grid
-
-
 def mlp_backward(dims: MlpDims, weights, x, gy):
     """(gW f32 [n_weights], gx bf16 [B, in_w]) of the fused MLP at the bf16
     input `x` [B, in_w] for the bf16 cotangent `gy` [B, out_w]."""
@@ -356,22 +325,11 @@ def _mlp_backward_resident(dims: MlpDims, weights, x, gy, B: int):
     gx = torch.empty((B, dims.in_w), dtype=torch.bfloat16, device=x.device)
     if B == 0:
         return gw, gx
-    grid = persistent_grid("tcnn_mlp_bwd_grid", (B, nt, *dims.c_args()), x.device)
+    grid = _build.persistent_grid("tcnn_mlp_bwd_grid", (B, nt, *dims.c_args()), x.device)
     partials = torch.empty(grid * dims.n_weights, dtype=torch.float32, device=x.device)
-    fn = _build.function("tcnn_mlp_bwd", _MLP_BWD_ARGS)
-    _build.check(
-        fn(
-            x.data_ptr(), gy.data_ptr(), weights.data_ptr(), gw.data_ptr(), gx.data_ptr(),
-            partials.data_ptr(), grid, B, nt, *dims.c_args(), x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        ),
-        "tcnn_mlp_bwd",
-    )
-    profiling.count("launches.K5")
+    _build.launch("tcnn_mlp_bwd", x.device, x.data_ptr(), gy.data_ptr(), weights.data_ptr(),
+                  gw.data_ptr(), gx.data_ptr(), partials.data_ptr(), grid, B, nt, *dims.c_args())
     return gw, gx
-
-
-_MLP_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def _mlp_backward_split(dims: MlpDims, weights, x, gy, B: int):
@@ -388,23 +346,13 @@ def _mlp_backward_split(dims: MlpDims, weights, x, gy, B: int):
     n_h, n_g = mlp_bwd_split_scratch(dims, B)
     h = torch.empty(n_h, dtype=torch.bfloat16, device=dev)
     g = torch.empty(n_g, dtype=torch.bfloat16, device=dev)
-    grid = persistent_grid("tcnn_mlp_bwd_split_grid", (B, *dims.c_args()), dev)
+    grid = _build.persistent_grid("tcnn_mlp_bwd_split_grid", (B, *dims.c_args()), dev)
     partials = torch.empty(grid * dims.n_weights, dtype=torch.float32, device=dev)
-    fn = _build.function("tcnn_mlp_bwd_split", _MLP_BWD_SPLIT_ARGS)
-    _build.check(
-        fn(
-            x.data_ptr(), gy.data_ptr(), weights.data_ptr(), gw.data_ptr(), gx.data_ptr(),
-            h.data_ptr(), g.data_ptr(), partials.data_ptr(), grid, B, *dims.c_args(),
-            dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        ),
-        "tcnn_mlp_bwd_split",
-    )
-    profiling.count("launches.K5")
+    _build.launch("tcnn_mlp_bwd_split", dev, x.data_ptr(), gy.data_ptr(), weights.data_ptr(),
+                  gw.data_ptr(), gx.data_ptr(), h.data_ptr(), g.data_ptr(), partials.data_ptr(),
+                  grid, B, *dims.c_args())
     profiling.count("k5.split")
     return gw, gx
-
-
-_MLP_BWD_SPLIT_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 class FusedMlpFn(torch.autograd.Function):

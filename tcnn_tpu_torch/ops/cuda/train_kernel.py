@@ -2,7 +2,7 @@
 train step K6 (``csrc/fused_train.cu``) and the input-gradient backward K9
 (``csrc/fused_ig.cu``; one kernel template with K6, ``fused_train.cuh``),
 their plain PyTorch twins, the gates that decide
-which models K6 and K9 take, and the autograd Functions of the fused
+which models K3, K6 and K9 take, and the autograd Functions of the fused
 input-gradient route.
 
 K3 replaces ``tcnn_tpu/ops/pallas/train_kernel.py:_infer_kernel_vt``
@@ -15,6 +15,7 @@ touches device memory (K2's layout: `mlp_kernel.frag_tile_smem_bytes`,
 `frag_tile_warps`). Its operands are carried explicitly: `prepare_forward`
 returns a `PreparedForward` that holds the grid plan, the MLP shape and the
 bf16 operands, and `fused_forward_prepared` reads nothing else.
+`supported_infer` is the gate of `Trainer.inference`.
 
 K6 replaces ``_kernel_vt`` (reached through ``fused_train_grads`` from
 ``Trainer.loss_and_grad_fn``): per tile, the shared walker's gather into
@@ -44,7 +45,6 @@ scatters reading the table directly as K1 and K4 do.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
@@ -55,7 +55,6 @@ from ..activations import activation_bwd_out
 from ..losses import Loss, RelativeL2LuminanceLoss
 from . import _build
 from .grid_kernel import (
-    HASH_ARGS,
     INTERP_CODES,
     GridPlan,
     _check_inputs,
@@ -74,7 +73,6 @@ from .mlp_kernel import (
     bwd_smem_bytes,
     bwd_tile,
     check_mlp_inputs,
-    persistent_grid,
 )
 
 
@@ -149,28 +147,13 @@ def fused_forward_prepared(prep: PreparedForward, x):
         if B == 0:
             return out
         level_i32, level_f32 = plan.device_consts(x.device)
-        fn = _build.function("tcnn_fused_infer", _FUSED_INFER_ARGS)
-        _build.check(
-            fn(
-                x.data_ptr(), prep.table.data_ptr(), level_i32.data_ptr(),
-                level_f32.data_ptr(), prep.weights.data_ptr(), out.data_ptr(),
-                B, plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation],
-                *plan.c_hash(), *dims.c_args(), x.device.index,
-                torch.cuda.current_stream(x.device).cuda_stream,
-            ),
-            "tcnn_fused_infer",
+        _build.launch(
+            "tcnn_fused_infer", x.device, x.data_ptr(), prep.table.data_ptr(),
+            level_i32.data_ptr(), level_f32.data_ptr(), prep.weights.data_ptr(), out.data_ptr(),
+            B, plan.d, plan.f, plan.n_levels, INTERP_CODES[plan.interpolation], *plan.c_hash(),
+            *dims.c_args(),
         )
-        profiling.count("launches.K3")
         return out
-
-
-_FUSED_INFER_ARGS = (
-    [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 5
-    + HASH_ARGS
-    + [ctypes.c_int] * 7
-    + [ctypes.c_void_p]
-)
 
 
 def fused_forward(model, params, x):
@@ -178,12 +161,20 @@ def fused_forward(model, params, x):
     return fused_forward_prepared(prepare_forward(model, params), x)
 
 
+def supported_infer(model) -> bool:
+    """Whether K3 takes this model's inference (trainer.py:418-479): a
+    grid + FullyFusedMLP model without Sine (`fused_plan_for`) and without
+    a max_level clamp, which K3 does not apply. K3's wrapper checks the
+    tile and raises when none fits."""
+    return fused_plan_for(model) is not None and model.encoding.max_level is None
+
+
 # ---------------------------------------------------------------------------
 # The fused train step, K6
 # ---------------------------------------------------------------------------
 
 
-def supported(model, loss, perturbation_sigma: float = 0.0) -> bool:
+def supported(model, loss) -> bool:
     """Whether K6 takes this (model, loss): a grid + FullyFusedMLP model
     without Sine (`fused_plan_for`; any hash, stochastic interpolation or
     not), one of the nine losses, a scalar max_level (a per-sample one is
@@ -330,42 +321,28 @@ def _prepare_train(model, loss, params, x, targets, loss_scale, pdf, noise, ext_
     grads = torch.zeros(model.n_params, dtype=torch.float32, device=dev)
     if B == 0:
         return lambda: (loss_sum, grads)
-    grid = persistent_grid("tcnn_fused_train_grid", (B, plan.f, priv, nt, *dims.c_args()), dev)
+    grid = _build.persistent_grid("tcnn_fused_train_grid", (B, plan.f, priv, nt, *dims.c_args()),
+                                  dev)
     # a block's partial: the weights' gradient, then the private levels',
     # padded to 8 floats (csrc/fused_train.cuh: TrainLayout::n_partial)
     partials = torch.empty(grid * (dims.n_weights + -(-priv // 8) * 8), dtype=torch.float32,
                            device=dev)
     level_i32, level_f32 = plan.device_consts(dev)
-    fn = _build.function("tcnn_fused_train", _FUSED_TRAIN_ARGS)
 
     def launch():
-        _build.check(
-            fn(
-                x.data_ptr(), table.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
-                weights.data_ptr(), targets.data_ptr(),
-                0 if pdf is None else pdf.data_ptr(), 0 if noise is None else noise.data_ptr(),
-                grads.data_ptr(), partials.data_ptr(), loss_sum.data_ptr(),
-                grid, B, plan.d, plan.f, plan.n_levels, int(n_active),
-                INTERP_CODES[plan.interpolation], *plan.c_hash(), int(plan.stochastic),
-                n_private, priv, nt, *dims.c_args(),
-                0 if ext_dl else loss.kernel_code, width, float(loss_scale),
-                dev.index, torch.cuda.current_stream(dev).cuda_stream,
-            ),
-            "tcnn_fused_train",
+        _build.launch(
+            "tcnn_fused_train", dev, x.data_ptr(), table.data_ptr(), level_i32.data_ptr(),
+            level_f32.data_ptr(), weights.data_ptr(), targets.data_ptr(),
+            0 if pdf is None else pdf.data_ptr(), 0 if noise is None else noise.data_ptr(),
+            grads.data_ptr(), partials.data_ptr(), loss_sum.data_ptr(),
+            grid, B, plan.d, plan.f, plan.n_levels, int(n_active),
+            INTERP_CODES[plan.interpolation], *plan.c_hash(), int(plan.stochastic),
+            n_private, priv, nt, *dims.c_args(),
+            0 if ext_dl else loss.kernel_code, width, float(loss_scale),
         )
-        profiling.count("launches.K6")
         return loss_sum, grads
 
     return launch
-
-
-_FUSED_TRAIN_ARGS = (
-    [ctypes.c_void_p] * 11
-    + [ctypes.c_int] * 7
-    + HASH_ARGS
-    + [ctypes.c_int] * 12
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-)
 
 
 # ---------------------------------------------------------------------------
@@ -439,32 +416,17 @@ def fused_ig_grads(model, params, x, gy):
     gx = torch.empty((B, plan.d), dtype=torch.float32, device=dev)
     if B == 0:
         return grads, gx
-    grid = persistent_grid("tcnn_fused_ig_grid",
-                           (B, plan.f, plan.n_levels * plan.d, nt, *dims.c_args()), dev)
+    grid = _build.persistent_grid("tcnn_fused_ig_grid",
+                                  (B, plan.f, plan.n_levels * plan.d, nt, *dims.c_args()), dev)
     partials = torch.empty(grid * dims.n_weights, dtype=torch.float32, device=dev)
     level_i32, level_f32 = plan.device_consts(dev)
-    fn = _build.function("tcnn_fused_ig", _FUSED_IG_ARGS)
-    _build.check(
-        fn(
-            x.data_ptr(), table.data_ptr(), level_i32.data_ptr(), level_f32.data_ptr(),
-            weights.data_ptr(), gy.data_ptr(), grads.data_ptr(), gx.data_ptr(),
-            partials.data_ptr(), grid, B, plan.d, plan.f, plan.n_levels,
-            INTERP_CODES[plan.interpolation], *plan.c_hash(), nt, *dims.c_args(),
-            dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        ),
-        "tcnn_fused_ig",
+    _build.launch(
+        "tcnn_fused_ig", dev, x.data_ptr(), table.data_ptr(), level_i32.data_ptr(),
+        level_f32.data_ptr(), weights.data_ptr(), gy.data_ptr(), grads.data_ptr(), gx.data_ptr(),
+        partials.data_ptr(), grid, B, plan.d, plan.f, plan.n_levels,
+        INTERP_CODES[plan.interpolation], *plan.c_hash(), nt, *dims.c_args(),
     )
-    profiling.count("launches.K9")
     return grads, gx
-
-
-_FUSED_IG_ARGS = (
-    [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 6
-    + HASH_ARGS
-    + [ctypes.c_int] * 8
-    + [ctypes.c_void_p]
-)
 
 
 class FusedApplyIgFn(torch.autograd.Function):

@@ -155,7 +155,7 @@ def _dryrun_rank(rank, n_ranks, address, device, backend, results) -> None:
     "launches": kernel launches}) or (rank, the error) on `results`."""
     try:
         from ..config import create_from_config
-        from ..utils import profiling
+        from ..ops.cuda import _build
 
         init_distributed(address, n_ranks, rank,
                          local_device_ids=[rank % max(torch.cuda.device_count(), 1)],
@@ -170,8 +170,7 @@ def _dryrun_rank(rank, n_ranks, address, device, backend, results) -> None:
             x = torch.rand(DRYRUN_BATCH, n_in, generator=gen, device=device)
             t = _dryrun_target(x)
             out[name] = [float(dp.step(state, x, t)[1]) for _ in range(DRYRUN_STEPS)]
-        launched = profiling.counts("launches.")
-        out["launches"] = {f"K{i}": launched.get(f"launches.K{i}", 0) for i in range(1, 14)}
+        out["launches"] = _build.launch_counts()
         dist.destroy_process_group()
         results.put((rank, out))
     except BaseException as e:  # reported to the parent, which raises

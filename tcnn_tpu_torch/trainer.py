@@ -18,13 +18,14 @@ True raises for a model the gate does not take. Targets given as
 `ops.volume.Rays` (a NeRF's samples, ray by ray) take the composed route
 into the ray loss (`models.nerf.train_grads`): one forward, one backward.
 
-Inference follows the JAX package's dispatch (trainer.py:418-479): a grid +
-FullyFusedMLP model without Sine and without a max_level clamp runs the
-fused kernel K3 on the inference params (the optimizer's custom weights
-where it has them), whose prepared operands are cached on the tensors they
-derive from; every other model runs `model.apply` (K1, then K2 or the
-matmul chain). K3's wrapper checks the shared memory its tile and weights
-need and raises when no tile fits.
+Inference follows the JAX package's dispatch (trainer.py:418-479): a model
+that `train_kernel.supported_infer` takes (a grid + FullyFusedMLP model
+without Sine and without a max_level clamp) runs the fused kernel K3 on the
+inference params (the optimizer's custom weights where it has them), whose
+prepared operands are cached on the tensors they derive from; every other
+model runs `model.apply` (K1, then K2 or the matmul chain). K3's wrapper
+checks the shared memory its tile and weights need and raises when no tile
+fits.
 
 `compute_dtype` (bf16 by default) sets the loss scale's default
 (`common.default_loss_scale`: 1 at f32) and, at torch.float32, sends
@@ -46,10 +47,10 @@ import torch
 from .common import COMPUTE_DTYPE, default_loss_scale
 from .ops.cuda.train_kernel import (
     fused_forward_prepared,
-    fused_plan_for,
     fused_train_grads,
     prepare_forward,
     supported,
+    supported_infer,
 )
 from .models import nerf
 from .ops.volume import Rays
@@ -133,7 +134,7 @@ class Trainer:
     def use_fused(self) -> bool:
         """The route of the next step: True for K6, False for autograd."""
         ok = (self.compute_dtype == COMPUTE_DTYPE
-              and supported(self.model, self.loss_fn, self.perturbation_sigma))
+              and supported(self.model, self.loss_fn))
         if self.use_fused_train_kernel is True and not ok:
             raise ValueError(
                 f"use_fused_train_kernel=True, but the fused train kernel does not take "
@@ -264,9 +265,7 @@ class Trainer:
         route gate, and the output's slice and cast."""
         with profiling.span("tcnn.inference"):
             x = self._input(inputs)
-            enc = getattr(self.model, "encoding", None)
-            if (self.compute_dtype == COMPUTE_DTYPE and fused_plan_for(self.model) is not None
-                    and enc.max_level is None):
+            if self.compute_dtype == COMPUTE_DTYPE and supported_infer(self.model):
                 y = fused_forward_prepared(self._prepared(), x)
             else:
                 y = self.model.apply(self.inference_params, x, compute_dtype=self.compute_dtype)

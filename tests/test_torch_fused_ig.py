@@ -34,6 +34,7 @@ import tcnn_tpu as tc
 import tcnn_tpu_torch as tt
 from tcnn_tpu.ops.pallas.train_kernel import fused_apply_ig
 from tcnn_tpu.ops.pallas.train_kernel import supported_ig as jax_supported_ig
+from tcnn_tpu.ops.pallas.train_kernel import supported_infer as jax_supported_infer
 from tcnn_tpu_torch.ops.cuda import train_kernel
 
 F32 = jnp.float32
@@ -134,9 +135,16 @@ def test_twin_is_what_the_route_runs():
     {}, {"fast_input_grads": False}, {"interpolation": "Nearest"},
     {"stochastic_interpolation": True}, {"max_level": 0.5}, {"activation": "Sine"},
     {"network": "CutlassMLP"},
+    {"route": "K3"}, {"route": "composed", "max_level": 0.5},
+    {"route": "composed", "activation": "Sine"},
 ])
 def test_supported_ig_matches_jax(change):
+    """K9's gate against tcnn_tpu's; with a "route", K3's
+    (`supported_infer`, which `Trainer.inference` asks) against the
+    decision of tcnn_tpu's Trainer.inference: its `supported_infer` and no
+    max_level."""
     change = dict(change)
+    route = change.pop("route", None)
     enc, net = _cfgs(activation=change.pop("activation", "Sigmoid"))
     if change.pop("network", None):
         net = {**net, "otype": "CutlassMLP"}
@@ -145,7 +153,11 @@ def test_supported_ig_matches_jax(change):
     jm = tc.create_network_with_input_encoding(3, 1, enc, net)
     tm = tt.create_network_with_input_encoding(3, 1, enc, net)
     jm.encoding.max_level = tm.encoding.max_level = max_level
-    assert train_kernel.supported_ig(tm) == jax_supported_ig(jm)
+    if route is None:
+        assert train_kernel.supported_ig(tm) == jax_supported_ig(jm)
+    else:
+        want = jax_supported_infer(jm) and jm.encoding.max_level is None
+        assert train_kernel.supported_infer(tm) == want == (route == "K3")
 
 
 def test_second_order_matches_fib_bwd(monkeypatch):

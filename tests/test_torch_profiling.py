@@ -248,10 +248,11 @@ def test_spans_on_two_threads_keep_their_own_parents():
 
 
 def test_k14_counted_once_a_step_on_the_kernel_route_and_not_on_the_twin(monkeypatch):
-    """`launches.K14` counts each launch of the Adam kernel's wrapper (its C
-    entry point stubbed: the CPU has no card), one a step, with the state's
-    tensors as its pointers and the versions of what it wrote bumped; the
-    CPU's plain twin counts nothing, as K6's twin does."""
+    """`launches.K14` counts each launch of the Adam kernel's wrapper (its
+    bound C entry point stubbed: the CPU has no card), one a step, with the
+    state's tensors as its pointers, every argument its C declaration
+    takes, and the versions of what it wrote bumped; the CPU's plain twin
+    counts nothing, as K6's twin does."""
     from types import SimpleNamespace
 
     from tcnn_tpu_torch.ops.cuda import _build, adam_kernel
@@ -260,8 +261,8 @@ def test_k14_counted_once_a_step_on_the_kernel_route_and_not_on_the_twin(monkeyp
     opt.allocate(40, [(4, 5)])
     state, w, g = opt.init_state(device="cpu"), torch.zeros(40), torch.ones(40)
     calls = []
-    monkeypatch.setattr(_build, "function", lambda name, argtypes: (
-        lambda *args: calls.append((name, args)) or 0))
+    monkeypatch.setattr(_build, "_entries", {
+        "tcnn_adam_step": lambda *args: calls.append(("tcnn_adam_step", args)) or 0})
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(adam_kernel, "_counters", {})
     before = profiling.counts("launches.K14").get("launches.K14", 0)
@@ -274,7 +275,8 @@ def test_k14_counted_once_a_step_on_the_kernel_route_and_not_on_the_twin(monkeyp
     assert args[:6] == (g.data_ptr(), w.data_ptr(), state["first_moments"].data_ptr(),
                         state["second_moments"].data_ptr(), state["param_steps"].data_ptr(),
                         state["step"].data_ptr())
-    assert args[6] is None and len(args) == len(adam_kernel._ADAM_STEP_ARGS)
+    assert args[6] is None and len(args) == len(_build.signatures()["tcnn_adam_step"])
+    assert args[-1] == 0  # the stream, after the device
     assert all(t._version > v for t, v in zip((w, *state.values()), versions))
     opt.step(state, 128.0, w, g)  # a CPU tensor: the twin
     assert profiling.counts("launches.K14")["launches.K14"] == before + 3 and len(calls) == 3
