@@ -23,7 +23,9 @@ Phases, each printing JSON lines:
      on every activation but Sine, Smoothstep and Nearest interpolation and
      max_level; K3, K4 and K6 at 8 features per level (B = 2^18,
      2^18 - 37), each beside its control; K1 bit for bit at the SDF config
-     (B = 2^16, 2^16 - 37 and 1024 points), at D = 4 and with Nearest;
+     (B = 2^16, 2^16 - 37 and 1024 points), at D = 4 and with Nearest; K6
+     at the SDF config (D = 3, 12 levels), at 11 levels and at config_hash
+     with 15 (odd level counts), B = 2^18 - 37, beside its control;
   4. the inference slice: `create_from_config` on data/config_hash.json at
      full width, requests through `trainer.inference` (K3) checked against
      the composed `model.apply` (K1 + K2) and the plain twins on the CPU, the
@@ -1082,6 +1084,34 @@ def check_k1_shapes(cfg, dev):
                 f"K1 grid_fwd F={f} width {w} B={B}",
                 grid_kernel.grid_encode(plan, table, x, w, plan.n_levels),
                 grid_kernel._grid_encode_plain(plan, table, x, w, plan.n_levels)))
+    return err
+
+
+def check_k6_shapes(cfg, dev):
+    """Phase 3e: K6 where its gather's lane map changes
+    (csrc/fused_train.cuh:gather_rows), B = 2^18 - 37, each beside the
+    control with g in bf16 and with its weight gradient bit-equal between
+    two launches: the SDF sample's 3-D grid (12 levels: a lane's level
+    changes from step to step), that grid at 11 levels (an odd L: each
+    row's phantom twelfth level loads and stores nothing) and config_hash
+    at 15 levels (odd, the phantom at D = 2). K9 at D = 3 and at 11 levels
+    is phase 7b's. Its own generator. Returns K6's max abs error."""
+    import torch
+    from tcnn_tpu_torch.samples import learn_a_sdf as sdf
+
+    k6_gen = torch.Generator().manual_seed(SEED + 43)
+    err = 0.0
+    B = B_MAIN - 37
+    for label, c, d, n_out, enc in (("SDF D=3 L=12", sdf.CONFIG, 3, 1, {}),
+                                    ("SDF D=3 L=11", sdf.CONFIG, 3, 1, {"n_levels": 11}),
+                                    ("config_hash L=15", cfg, 2, 3, {"n_levels": 15})):
+        m = reference_model(c, SEED + 43, dev, k6_gen, d=d, n_out=n_out, **enc)
+        tr = m.trainer
+        check(tr.use_fused(), f"{label} must take K6")
+        x = torch.rand(B, d, generator=k6_gen).to(dev)
+        t = torch.rand(B, n_out, generator=k6_gen).to(dev)
+        err = max(err, check_train_step(f"{label} B={B}", m.network, tr.loss_fn, tr.params, x, t,
+                                        tr.loss_scale, K6_REL, control_too=True, bits=True))
     return err
 
 
@@ -4263,6 +4293,8 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     # 3d. K1 bit for bit beyond config_hash (its own generator)
     errs["K1"] = max(errs["K1"], check_k1_shapes(cfg, dev))
+    # 3e. K6 at D = 3 and at odd level counts (its own generator)
+    errs["K6"] = max(errs["K6"], check_k6_shapes(cfg, dev))
 
     # 4. the inference slice, through the entry points a user calls
     reset_counters()

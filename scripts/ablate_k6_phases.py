@@ -14,24 +14,30 @@ configurations run):
   -scatter   step 5, the table-gradient scatter, removed;
   -backward  also step 4, the MLP backward (dgrad and wgrad), left as one
              barrier;
-  -forward   also steps 2-3, the MLP forward and the loss: the gather, the
+  -forward   also steps 2-3, the MLP forward and the loss;
+  -gather    also step 1, the gather (`gather_rows`, or the
+             per-(sample, level) loop of a checkout before it): the
              weights' load, the register units' store and the fixed-order
              reduce are left.
 So the scatter takes full - (-scatter), the backward (-scatter) -
-(-backward), the forward and loss (-backward) - (-forward). Each VARIANT
-named on the command line (EXTRA) is built beside them, its edits made to
-the step as it is:
-  reg-units-8      8 register units a warp (not 4);
-  gather-unroll-2  the warp's gather loop unrolled twice (-4: four times);
-  block-gather     the block gathers the whole tile, one (sample, level) a
-                   thread as K1 maps them, then a block barrier, in place
-                   of each warp gathering its own rows. K6 is timed
-with CUDA events (50 launches, best of two turns, variants in turns) at
-B = 2^18 on data/config_hash.json and at the reference's default hash grid
-(log2_hashmap_size 19, per_level_scale 2.0), the table redrawn from
-U(-1, 1). Prints one JSON line per configuration with the card's
-nvidia-smi name and power limit. Run it from the root of any checkout of
-the port (the script reads the package beside it).
+(-backward), the forward and loss (-backward) - (-forward), the gather
+(-forward) - (-gather); the patterns match the gather of both forms, so one
+copy of this script splits a checkout from before the lane-pair gather and
+one after it. Each VARIANT named on the command line (EXTRA) is built
+beside them, its edits made to the step as it is:
+  reg-units-8      8 register units a warp (not 4).
+The variants that edited the per-(sample, level) gather loop
+(gather-unroll-2, -4 and block-gather) are retired with that loop. K6 is
+timed with CUDA events around the whole call (50 launches, best of two
+turns, variants in turns; `k6_ms`, `phases_ms`) and by its kernel's own
+device time under torch.profiler (20 launches a turn; `k6_device_ms`,
+`phases_device_ms`): once the step has lost its phases the call is the
+host's (its operand preparation, ~0.15-0.2 ms), and only the device time
+still splits what is left. At B = 2^18 on data/config_hash.json and at the
+reference's default hash grid (log2_hashmap_size 19, per_level_scale 2.0),
+the table redrawn from U(-1, 1). Prints one JSON line per configuration
+with the card's nvidia-smi name and power limit. Run it from the root of
+any checkout of the port (the script reads the package beside it).
 """
 
 from __future__ import annotations
@@ -57,28 +63,11 @@ VARIANTS = (
     ("-scatter", [(r"if \(row < B\) grid_level_bwd<F>\([^;]*\);", ";")]),
     ("-backward", [(r"    // 4\. backward(?:.|\n)*?(?=    // 5\. scatter)", "    __syncthreads();\n")]),
     ("-forward", [(r"frag_forward<WIDTH, ACT, OUT_ACT>\((?:.|\n)*?\n        \}\);", ";")]),
+    ("-gather", [(r"    // 1\. gather the warp's rows(?:.|\n)*?\n    __syncwarp\(\);\n", "")]),
 )
-_GATHER = r"(    // 1\. gather the warp's rows[^\n]*\n)"
 #: (name, [(pattern, replacement)]): variants of the step as it is
 EXTRA = (
     ("reg-units-8", [(r"TRAIN_REG_UNITS = 4;", "TRAIN_REG_UNITS = 8;")]),
-    ("gather-unroll-2", [(_GATHER, "\\1#pragma unroll 2\n")]),
-    ("gather-unroll-4", [(_GATHER, "\\1#pragma unroll 4\n")]),
-    ("block-gather", [(r"    for \(int p = lane; p < 16 \* g\.L; p \+= 32\) \{\n(?:.|\n)*?"
-                       r"\n    __syncwarp\(\);\n", """\
-    for (int p = threadIdx.x; p < nt * g.L; p += blockDim.x) {
-      const int r = p / g.L, l = p % g.L;
-      float v[F];
-      if (row0 + r < B && l < n_active) {
-        grid_level<F>(g, row0 + r, l, v);
-      } else {
-#pragma unroll
-        for (int f = 0; f < F; ++f) v[f] = 0.f;
-      }
-      store_bf16<F>(h0 + r * ld0 + l * F, v);
-    }
-    __syncthreads();
-""")]),
 )
 #: the source rebuilt per variant: K6's F = 2 half
 VARIANT_SOURCE = "fused_train_f2.cu"
@@ -131,6 +120,46 @@ def build_variants(tmp: pathlib.Path, extra=()) -> dict:
     return libs
 
 
+def kernel_device_ms(fn, iters=20) -> float:
+    """Device ms a call of fused_train_kernel under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if "fused_train_kernel" in ev.key:
+            t = getattr(ev, "self_device_time_total", None)
+            total += (ev.self_cuda_time_total if t is None else t) / 1e3
+    return total / iters
+
+
+def split(ms: dict) -> dict:
+    """The phases from the variants' times."""
+    return {"scatter": ms["full"] - ms["-scatter"],
+            "mlp_backward": ms["-scatter"] - ms["-backward"],
+            "mlp_forward_and_loss": ms["-backward"] - ms["-forward"],
+            "gather": ms["-forward"] - ms["-gather"],
+            "rest": ms["-gather"]}
+
+
+def use_library(lib, entries) -> None:
+    """Launch the package's kernels from `lib`, whose entry points
+    `entries` are bound (None, {}: the package's own library again, loaded
+    at the next launch); the persistent grids are asked again."""
+    from tcnn_tpu_torch.ops.cuda import _build
+
+    _build._lib = lib
+    _build._entries.clear()
+    _build._entries.update(entries)
+    _build._persistent_grid.cache_clear()
+
+
 def main() -> int:
     import torch
 
@@ -150,9 +179,7 @@ def main() -> int:
             raise SystemExit(f"unknown variants {sorted(unknown)}; known: {[v[0] for v in EXTRA]}")
         for name, path in build_variants(pathlib.Path(tmp), extra).items():
             lib = ctypes.CDLL(str(path))
-            lib.tcnn_error_string.argtypes = [ctypes.c_int]
-            lib.tcnn_error_string.restype = ctypes.c_char_p
-            libs[name] = lib
+            libs[name] = (lib, _build._bind(lib))
         cfg = tt.load_config(str(ROOT / "data" / "config_hash.json"))
         gen = torch.Generator().manual_seed(1234)
         for label, enc in (("config_hash", {}),
@@ -171,9 +198,10 @@ def main() -> int:
                 train_kernel.fused_train_grads(net, tr.loss_fn, p, x, t, tr.loss_scale)
 
             ms = {name: [] for name in libs}
+            dev_ms = {name: [] for name in libs}
             for _ in range(2):
-                for name, lib in libs.items():
-                    _build._lib = lib
+                for name, (lib, entries) in libs.items():
+                    use_library(lib, entries)
                     for _ in range(3):
                         step()
                     start = torch.cuda.Event(enable_timing=True)
@@ -185,16 +213,14 @@ def main() -> int:
                     end.record()
                     torch.cuda.synchronize()
                     ms[name].append(start.elapsed_time(end) / ITERS)
+                    dev_ms[name].append(kernel_device_ms(step))
             best = {name: min(v) for name, v in ms.items()}
-            names = list(ms)
-            phases = {"scatter": best["full"] - best["-scatter"],
-                      "mlp_backward": best["-scatter"] - best["-backward"],
-                      "mlp_forward_and_loss": best["-backward"] - best["-forward"],
-                      "gather_and_rest": best["-forward"]}
+            dev = {name: min(v) for name, v in dev_ms.items()}
             print(json.dumps({"config": label, "B": B, "card": smi, "checkout": str(ROOT),
-                              "k6_ms": {n: best[n] for n in names}, "turns_ms": ms,
-                              "phases_ms": phases}), flush=True)
-        _build._lib = None
+                              "k6_ms": best, "turns_ms": ms, "phases_ms": split(best),
+                              "k6_device_ms": dev, "turns_device_ms": dev_ms,
+                              "phases_device_ms": split(dev)}), flush=True)
+        use_library(None, {})
     return 0
 
 

@@ -56,7 +56,8 @@ extern "C" int tcnn_fused_ig(const void* x, const void* table, const void* level
   using namespace tcnn;
   const MlpArgs m{static_cast<const bf16*>(weights), in_w, width, n_hidden, out_w, act, out_act};
   const TrainLayout lay{m, nt, L * D, 0};
-  if (!valid_train_layout(lay) || grid < 1 || in_w < L * F || interp == INTERP_NEAREST)
+  if (!valid_train_layout(lay) || grid < 1 || D < 1 || D > 4 || in_w < L * F ||
+      interp == INTERP_NEAREST)
     return (int)cudaErrorInvalidValue;
   GridArgs g{static_cast<const float*>(x), static_cast<const bf16*>(table),
              static_cast<const int*>(level_i32), static_cast<const float*>(level_f32),

@@ -17,11 +17,18 @@
 //   (0.02 ms at peak); the scatter adds 2^18 * 16 * 4 corner contributions
 //   of F floats; device memory carries only x, the targets and the
 //   gradients. The gather waits on L2 latency: a block takes 149,760 bytes
-//   and ~200 registers a thread at config_hash, so an SM holds 8 warps
-//   (K1 up to 64), and K6's gather takes ~0.34 ms to K1's 0.09
+//   and 216 registers a thread at config_hash (255 is the most), so an SM
+//   holds 8 warps (K1 up to 64), and latency is hidden only by the loads a
+//   warp has in flight. On a per-(sample, level) walker with D read at run
+//   time, one level's corners at a time, K6 without its MLP and scatter
+//   (the gather, the weights' load, the reduce) took 0.343 ms of its 0.835
 //   (scripts/ablate_k6_phases.py; H100 80GB HBM3, 700 W).
 // What the design does about it: persistent blocks of nt rows walk tiles
-//   (fused_train.cuh): each warp gathers its own rows and runs
+//   (fused_train.cuh): each warp gathers its own rows on K1's lane pairs
+//   with D fixed at compile time (gather_rows: the two levels of a pair
+//   load their corners together, each x-pair of corners in one
+//   instruction; K6 0.835 -> 0.671 ms at config_hash, 1.137 -> 0.866 at
+//   T=2^19, the same encoding bits), and runs
 //   its MLP on mma.sync from registers with no block barrier in between, so
 //   other warps' gathers overlap it; the loss takes its value and gradient
 //   per element from the output fragments (values normalised by n = B * dims
@@ -83,7 +90,7 @@ extern "C" int tcnn_fused_train(const void* x, const void* table, const void* le
   using namespace tcnn;
   const MlpArgs m{static_cast<const bf16*>(weights), in_w, width, n_hidden, out_w, act, out_act};
   const TrainLayout lay{m, nt, 0, priv};
-  if (!valid_train_layout(lay) || grid < 1 || in_w < L * F || n_active > L ||
+  if (!valid_train_layout(lay) || grid < 1 || D < 1 || D > 4 || in_w < L * F || n_active > L ||
       n_private > n_active || n_private < 0 || priv % F != 0)
     return (int)cudaErrorInvalidValue;
   GridArgs g{static_cast<const float*>(x), static_cast<const bf16*>(table),

@@ -6,9 +6,10 @@
 //
 // The MLP runs on mlp_frag.cuh's mma.sync register chain, as K3's and K5's
 // do. Per tile of nt rows (nt / 16 warps, 16 rows each):
-//   1. each warp gathers its own rows' encoding into h_0 with K1's
-//      per-(sample, level) walker, with no block barrier before its forward,
-//      so that other warps' gathers overlap a warp's MLP;
+//   1. each warp gathers its own rows' encoding into h_0 on K1's lane
+//      pairs with D fixed at compile time (gather_rows), with no block
+//      barrier before its forward, so that other warps' gathers overlap a
+//      warp's MLP;
 //   2. frag_forward runs the layers from registers, storing each hidden
 //      output once (h_1..h_H) for the activation transfer and wgrad;
 //   3. the loss takes its value and gradient per element from the output
@@ -161,6 +162,31 @@ __device__ __forceinline__ void unit_mma_split(float (&c)[2][4], const bf16* ghi
   }
 }
 
+// Step 1 of fused_train_kernel: the encoding of the warp's 16 rows (batch
+// rows wrow0 .. wrow0 + 15) into h0's rows 0..15, zero past B and past
+// n_active, on K1's lane pairs (grid_common.cuh:grid_level_pair) with D
+// fixed at compile time. The warp walks 16 x Lp slots, Lp = L rounded up
+// to even: slot p = lane + 32 s is row p / Lp at level p % Lp, so lanes 2i
+// and 2i + 1 hold one row at an even and an odd level, and every lane
+// reaches every shuffle. An odd L's last slot of each row is a phantom
+// level: inactive, it loads and stores nothing (h0's padding columns are
+// written once, before the tiles). Each step issues the table loads of
+// both levels of the pair (2^D rows a lane) before it sums either. Loads of
+// two to eight steps in flight at once, or the level constants kept
+// across steps, took K6 to 255 registers with spills and slowed it (H100
+// 80GB HBM3, 700 W): with 8 warps an SM, registers are the budget.
+template <int F, int D>
+__device__ __forceinline__ void gather_rows(const GridArgs& g, bf16* h0, int ld0, long wrow0,
+                                            long B, int n_active) {
+  const int lane = threadIdx.x & 31, Lp = g.L + (g.L & 1);
+  for (int p = lane; p < 16 * Lp; p += 32) {
+    const int r = p / Lp, l = p % Lp;
+    float v[F];
+    grid_level_pair<F, D>(g, wrow0 + r, l, wrow0 + r < B, n_active, v);
+    if (l < g.L) store_bf16<F>(h0 + r * ld0 + l * F, v);
+  }
+}
+
 // IG (K9): the raw output cotangent in place of the loss (la.code == 0), no
 // loss sum, and dL/dx into gx [B, D] from the encoding's f32 gradient.
 // K6 keeps the table gradient of levels 0..n_private-1 (L.priv floats) in
@@ -209,17 +235,13 @@ __global__ void __launch_bounds__(256, 1)
   for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long row0 = tile * nt, wrow0 = row0 + r0;
     const bool first = tile == blockIdx.x;
-    // 1. gather the warp's rows: zero past B and past n_active
-    for (int p = lane; p < 16 * g.L; p += 32) {
-      const int r = p / g.L, l = p % g.L;
-      float v[F];
-      if (wrow0 + r < B && l < n_active) {
-        grid_level<F>(g, wrow0 + r, l, v);
-      } else {
-#pragma unroll
-        for (int f = 0; f < F; ++f) v[f] = 0.f;
-      }
-      store_bf16<F>(h0 + (r0 + r) * ld0 + l * F, v);
+    // 1. gather the warp's rows, D fixed at compile time
+    bf16* h0w = h0 + r0 * ld0;
+    switch (g.D) {
+      case 1: gather_rows<F, 1>(g, h0w, ld0, wrow0, B, n_active); break;
+      case 2: gather_rows<F, 2>(g, h0w, ld0, wrow0, B, n_active); break;
+      case 3: gather_rows<F, 3>(g, h0w, ld0, wrow0, B, n_active); break;
+      default: gather_rows<F, 4>(g, h0w, ld0, wrow0, B, n_active); break;
     }
     __syncwarp();
     // 2-3. forward, keeping h_1..h_H; the loss (or the external dL) from the

@@ -1,8 +1,9 @@
-// One (sample, level) of the multiresolution grid, forward and backward,
-// shared by K3 (fused_infer.cu), K4 (grid_bwd.cu), K6 and K9
-// (fused_train.cu); K1 (grid_fwd.cu) walks the same corners on lane pairs,
-// grid_level_pair, and K7 (grid_bwd_ig.cu) and K8 (grid_bwd_bwd.cu) on
-// lane pairs with derivatives, pair_levels .. pair_tiles.
+// One (sample, level) of the multiresolution grid, forward and backward:
+// the forward grid_level is K3's alone (fused_infer.cu); the backwards are
+// K4's (grid_bwd.cu) and the scatters of K6 and K9 (fused_train.cuh). K1
+// (grid_fwd.cu) and the gather of K6 and K9 walk the same corners on lane
+// pairs, grid_level_pair, and K7 (grid_bwd_ig.cu) and K8 (grid_bwd_bwd.cu)
+// on lane pairs with derivatives, pair_levels .. pair_tiles.
 //
 // The arithmetic is written to round exactly where the plain PyTorch twin
 // (ops/cuda/grid_kernel.py:_corners) and the JAX package round: every float
@@ -13,10 +14,10 @@
 // c = 0..C-1, in the twin's order. Cells are int32(floor(pos)) reinterpreted
 // as uint32; strides, hashes and dense indices wrap in uint32
 // (grid.py:256-291), and the row within a level is an exact integer modulo.
-// The fused forwards and the backwards visit the corners through one
-// function, grid_corners, so all agree on every corner at cell boundaries;
+// K3's forward and the backwards visit the corners through one function,
+// grid_corners, so all agree on every corner at cell boundaries;
 // the stochastic scatter picks its one corner through the same position and
-// row functions (grid_stoch_row). K1's grid_level_pair and K7's and K8's
+// row functions (grid_stoch_row). grid_level_pair and K7's and K8's
 // pair_levels repeat the same operations in the same order with D fixed
 // at compile time.
 //
@@ -286,8 +287,8 @@ __device__ __forceinline__ void grid_level(const GridArgs& g, long b, int l, flo
   });
 }
 
-// A level's constants in registers (K1): two 16-byte loads of its
-// level_i32 row and its scale.
+// A level's constants in registers (the lane-pair walkers): two 16-byte
+// loads of its level_i32 row and its scale.
 struct LevelConsts {
   unsigned offset, size, stride[4];
   float scale;
@@ -332,9 +333,10 @@ __device__ __forceinline__ unsigned corner_row(const GridArgs& g, const LevelCon
   return k.offset + idx;
 }
 
-// K1's walker: two lanes of a warp, 2i and 2i + 1, serve levels 2i and
-// 2i + 1 of one sample (items 0 and 1), lane 2i + q owning item q, with D
-// fixed at compile time. For both items, the lane whose x bit (lane & 1)
+// The walker of K1 and of K6's and K9's gather (fused_train.cuh:
+// gather_rows): two lanes of a warp, 2i and 2i + 1, serve levels 2j and
+// 2j + 1 of one sample (items 0 and 1; l is either), lane 2i + q owning
+// item q, with D fixed at compile time. For both items, the lane whose x bit (lane & 1)
 // is k loads the 2^(D-1) corners whose bit 0 (their x bit) is k, corner
 // 2j + k in slot j; so corners c and c ^ 1 of an item, which differ in x
 // alone, go out in one load instruction: at a dense level, and at a hashed

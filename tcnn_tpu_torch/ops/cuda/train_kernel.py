@@ -18,8 +18,8 @@ bf16 operands, and `fused_forward_prepared` reads nothing else.
 `supported_infer` is the gate of `Trainer.inference`.
 
 K6 replaces ``_kernel_vt`` (reached through ``fused_train_grads`` from
-``Trainer.loss_and_grad_fn``): per tile, the shared walker's gather into
-each warp's own rows, the MLP forward on ``mma.sync`` from registers (``csrc/mlp_frag.cuh``)
+``Trainer.loss_and_grad_fn``): per tile, each warp's gather into its own
+rows on K1's lane pairs (``fused_train.cuh:gather_rows``), the MLP forward on ``mma.sync`` from registers (``csrc/mlp_frag.cuh``)
 keeping each hidden output once, the loss value and gradient from the
 output fragments (or an external dL/doutput), the MLP backward with g split
 into bf16 hi + lo and the weight gradient kept in registers across tiles,
